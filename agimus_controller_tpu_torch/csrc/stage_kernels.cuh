@@ -14,9 +14,16 @@
 //     tangent of (q, v), through the templated `rnea`.
 //   - gravity-torque Jacobian of control_grav (Pallas: `jax.linearize`,
 //     pallas_costs.py:333): forward dual numbers, one pass per joint.
-//   - frame residual Jacobians, log6/log3 of FK (Pallas: `jax.linearize`,
-//     pallas_costs.py:381): forward dual numbers, one pass per joint.
+//   - frame and collision residual Jacobians, log6/log3 of FK and the
+//     capsule distance (Pallas: `jax.linearize`, pallas_costs.py:381):
+//     forward dual numbers, one pass per joint.
 // A dual pass computes exactly what one `jax.linearize` tangent computes.
+//
+// Activations (pallas_costs.py:188-208): weighted_quad on every kind; exp
+// and quad_exp with the Pallas formulas, `sqrt(rr + 1e-12)` for exp and the
+// PSD Gauss-Newton diagonal `4 a r^2 / alpha^2` for quad_exp. Build without
+// fast math: with alpha = 1e-4 quad_exp values reach f32 denormals, which
+// must not be flushed to zero.
 #pragma once
 
 #include <math.h>
@@ -34,17 +41,25 @@ namespace ag {
 // ---- packed-constants layout; must match ops/cuda_costs.py --------------
 // per joint (stride 31): rot 9, trans 3, axis 3, type (0 revolute,
 // 1 prismatic), parent, mass, com 3, inertia 9, armature; then gravity 3;
-// then one 48-float descriptor per cost item.
+// then one 84-float descriptor per cost item. A collision item carries its
+// activation code and alpha, the ref-row offset of its `w_coll` scale (-1:
+// unscaled) and one 17-float block per geometry of its pair: parent joint
+// (-1: world-fixed), rot 9, trans 3, radius, half length, and the ref-row
+// offsets of the streamed rot/trans of a world-fixed geometry (else -1).
 constexpr int JSTRIDE = 31;
 constexpr int J_ROT = 0, J_TRANS = 9, J_AXIS = 12, J_TYPE = 15, J_PARENT = 16,
               J_MASS = 17, J_COM = 18, J_INER = 21, J_ARM = 30;
-constexpr int ISTRIDE = 48;
+constexpr int ISTRIDE = 84;
 constexpr int I_KIND = 0, I_WEIGHT = 1, I_PJOINT = 2, I_FROT = 3,
               I_FTRANS = 12, I_REF = 15, I_W = 16, I_TRANS = 17, I_SREF = 18,
-              I_SW = 32;
+              I_SW = 32, I_ACT = 46, I_ALPHA = 47, I_WCOLL = 48, I_GEOM = 49;
+constexpr int GSTRIDE = 17;
+constexpr int G_PJOINT = 0, G_ROT = 1, G_TRANS = 10, G_RADIUS = 13,
+              G_HALFLEN = 14, G_REF_ROT = 15, G_REF_TRANS = 16;
 constexpr int K_STATE = 0, K_CONTROL = 1, K_CONTROL_GRAV = 2,
               K_FRAME_PLACEMENT = 3, K_FRAME_TRANSLATION = 4,
-              K_FRAME_ROTATION = 5;
+              K_FRAME_ROTATION = 5, K_COLLISION = 6;
+constexpr int A_WEIGHTED_QUAD = 0, A_EXP = 1, A_QUAD_EXP = 2;
 
 // ---- forward-mode dual number ---------------------------------------------
 struct Dual {
@@ -77,6 +92,12 @@ AG_HD float s_cos(float a) { return cosf(a); }
 AG_HD Dual s_cos(Dual a) { return Dual(cosf(a.v), -a.d * sinf(a.v)); }
 AG_HD float s_abs(float a) { return fabsf(a); }
 AG_HD Dual s_abs(Dual a) { return a.v < 0.f ? -a : a; }
+AG_HD float s_clamp(float a, float lo, float hi) {
+  return a < lo ? lo : (a > hi ? hi : a);
+}
+AG_HD Dual s_clamp(Dual a, float lo, float hi) {
+  return a.v < lo ? Dual(lo) : (a.v > hi ? Dual(hi) : a);
+}
 AG_HD float s_atan2(float y, float x) { return atan2f(y, x); }
 AG_HD Dual s_atan2(Dual y, Dual x) {
   float r2 = x.v * x.v + y.v * y.v;
@@ -402,12 +423,12 @@ AG_FN void log6(const M3<S>& R, const V3<S>& p, S* out) {
   }
 }
 
-// Residual of a frame cost item at q; returns its dimension (6 or 3).
+// World placements of the joint frames at q.
 template <int NJ, class S>
-AG_FN int frame_residual(const float* C, const float* D, const float* row,
-                         int kind, const S* q, S* r) {
-  M3<S> R[NJ], oR[NJ];
-  V3<S> P[NJ], op[NJ];
+AG_FN void world_placements(const float* C, const S* q, M3<S>* oR,
+                            V3<S>* op) {
+  M3<S> R[NJ];
+  V3<S> P[NJ];
   joint_transforms<NJ, S>(C, q, R, P);
   for (int i = 0; i < NJ; ++i) {
     int par = parent_of(C, i);
@@ -419,6 +440,78 @@ AG_FN int frame_residual(const float* C, const float* D, const float* row,
       op[i] = matvec(oR[par], P[i]) + op[par];
     }
   }
+}
+
+// World placement of one geometry of a collision item (block G): a
+// world-fixed geometry from its streamed ref columns, the others through
+// the kinematics of their parent joint (Pallas `_geom_pose_c`, :225-241).
+template <class S>
+AG_FN void geometry_pose(const float* G, const float* row, const M3<S>* oR,
+                         const V3<S>* op, M3<S>* Rg, V3<S>* pg) {
+  int j = (int)G[G_PJOINT];
+  if (j < 0) {
+    *Rg = load9<S>(row + (int)G[G_REF_ROT]);
+    *pg = load3<S>(row + (int)G[G_REF_TRANS]);
+    return;
+  }
+  *Rg = matmul(oR[j], load9<S>(G + G_ROT));
+  *pg = matvec(oR[j], load3<S>(G + G_TRANS)) + op[j];
+}
+
+// Signed capsule-capsule distance with the branch-free Ericson clamps of
+// `batched_costs._capsule_distance_c` (Pallas :272-280); each capsule's axis
+// is its local z column, half length 0 is a sphere.
+template <class S>
+AG_FN S capsule_distance(const M3<S>& R1, const V3<S>& p1, float r1,
+                         float l1, const M3<S>& R2, const V3<S>& p2, float r2,
+                         float l2) {
+  V3<S> d1, d2;
+  d1[0] = R1[2]; d1[1] = R1[5]; d1[2] = R1[8];
+  d2[0] = R2[2]; d2[1] = R2[5]; d2[2] = R2[8];
+  V3<S> r = p1 - p2;
+  S a = dot(d1, d1), e = dot(d2, d2), b = dot(d1, d2);
+  S c = dot(d1, r), f = dot(d2, r);
+  S denom = a * e - b * b;
+  bool degenerate = val(denom) < 1e-9f;
+  S s = degenerate ? S(0.f) : (b * f - c * e) / denom;
+  s = s_clamp(s, -l1, l1);
+  S e_safe = val(e) < 1e-12f ? S(1.f) : e;
+  S t = s_clamp((b * s + f) / e_safe, -l2, l2);
+  S a_safe = val(a) < 1e-12f ? S(1.f) : a;
+  s = s_clamp((b * t - c) / a_safe, -l1, l1);
+  V3<S> diff = (p1 + scale<S>(s, d1)) - (p2 + scale<S>(t, d2));
+  return s_sqrt(dot(diff, diff) + S(1e-12f)) - S(r1) - S(r2);
+}
+
+// Residual of a collision item at q: the signed distance of its pair.
+template <int NJ, class S>
+AG_FN S collision_residual(const float* C, const float* D, const float* row,
+                           const S* q) {
+  M3<S> oR[NJ];
+  V3<S> op[NJ];
+  world_placements<NJ, S>(C, q, oR, op);
+  const float* G1 = D + I_GEOM;
+  const float* G2 = D + I_GEOM + GSTRIDE;
+  M3<S> R1, R2;
+  V3<S> p1, p2;
+  geometry_pose<S>(G1, row, oR, op, &R1, &p1);
+  geometry_pose<S>(G2, row, oR, op, &R2, &p2);
+  return capsule_distance<S>(R1, p1, G1[G_RADIUS], G1[G_HALFLEN], R2, p2,
+                             G2[G_RADIUS], G2[G_HALFLEN]);
+}
+
+// Residual of a frame or collision cost item at q; returns its dimension
+// (6, 3 or 1).
+template <int NJ, class S>
+AG_FN int frame_residual(const float* C, const float* D, const float* row,
+                         int kind, const S* q, S* r) {
+  if (kind == K_COLLISION) {
+    r[0] = collision_residual<NJ, S>(C, D, row, q);
+    return 1;
+  }
+  M3<S> oR[NJ];
+  V3<S> op[NJ];
+  world_placements<NJ, S>(C, q, oR, op);
   int j = (int)D[I_PJOINT];
   M3<S> Rf = matmul(oR[j], load9<S>(D + I_FROT));
   V3<S> pf = matvec(oR[j], load3<S>(D + I_FTRANS)) + op[j];
@@ -450,6 +543,42 @@ AG_HD float item_ref(const float* D, const float* row, int i) {
   return off >= 0 ? row[off + i] : D[I_SREF + i];
 }
 
+// Activation of a residual r [nr]: returns a(r), fills da/dr and the
+// Gauss-Newton diagonal of d2a/dr2 (Pallas `_activation_c`, :188-208).
+AG_FN float activation(const float* D, const float* row, int nr,
+                       const float* r, float* a_dr, float* a_drr) {
+  int act = (int)D[I_ACT];
+  if (act == A_WEIGHTED_QUAD) {
+    float a = 0.f;
+    for (int i = 0; i < nr; ++i) {
+      float w = item_weight(D, row, i);
+      a += 0.5f * w * r[i] * r[i];
+      a_dr[i] = w * r[i];
+      a_drr[i] = w;
+    }
+    return a;
+  }
+  float alpha = D[I_ALPHA];
+  float rr = 0.f;
+  for (int i = 0; i < nr; ++i) rr += r[i] * r[i];
+  if (act == A_EXP) {
+    float d = sqrtf(rr + 1e-12f);
+    float a = expf(-d / alpha);
+    float sc = -a / (alpha * d);
+    for (int i = 0; i < nr; ++i) {
+      a_dr[i] = sc * r[i];
+      a_drr[i] = a / (alpha * alpha);
+    }
+    return a;
+  }
+  float a = expf(-rr / alpha);  // quad_exp
+  for (int i = 0; i < nr; ++i) {
+    a_dr[i] = (-2.f / alpha) * a * r[i];
+    a_drr[i] = (4.f / (alpha * alpha)) * a * r[i] * r[i];
+  }
+  return a;
+}
+
 // Adds every cost item of the table (Gauss-Newton when DERIVS) into
 // l, lx [NX], lu [NJ], lxx [NX*NX], lxu [NX*NJ], luu [NJ*NJ] (row-major).
 template <int NJ, bool DERIVS>
@@ -463,6 +592,9 @@ AG_FN void node_costs(const float* C, int n_items, const float* row,
     const float* D = C + NJ * JSTRIDE + 3 + it * ISTRIDE;
     int kind = (int)D[I_KIND];
     float wgt = D[I_WEIGHT];
+    // streamed w_collision_avoidance scale of an update=True collision item
+    // (Pallas :482-483, :631-632)
+    if ((int)D[I_WCOLL] >= 0) wgt *= row[(int)D[I_WCOLL]];
     float li = 0.f;
     if (kind == K_STATE || kind == K_CONTROL) {
       int n = kind == K_STATE ? NX : NJ;
@@ -529,7 +661,7 @@ AG_FN void node_costs(const float* C, int n_items, const float* row,
           }
         }
       }
-    } else {  // frame kinds: residual of q only
+    } else {  // frame and collision kinds: residual of q only
       float r[6], Jc[NJ][6];  // Jc[k][i] = d r_i / d q_k
       int nr = 0;
       if (DERIVS) {
@@ -545,18 +677,16 @@ AG_FN void node_costs(const float* C, int n_items, const float* row,
       } else {
         nr = frame_residual<NJ, float>(C, D, row, kind, q, r);
       }
-      for (int i = 0; i < nr; ++i)
-        li += 0.5f * item_weight(D, row, i) * r[i] * r[i];
+      float a_dr[6], a_drr[6];
+      li = activation(D, row, nr, r, a_dr, a_drr);
       if (DERIVS) {
         for (int k = 0; k < NJ; ++k) {
           float s = 0.f;
-          for (int i = 0; i < nr; ++i)
-            s += Jc[k][i] * (item_weight(D, row, i) * r[i]);
+          for (int i = 0; i < nr; ++i) s += Jc[k][i] * a_dr[i];
           lx[k] += wgt * s;
           for (int k2 = 0; k2 <= k; ++k2) {
             float h = 0.f;
-            for (int i = 0; i < nr; ++i)
-              h += Jc[k][i] * item_weight(D, row, i) * Jc[k2][i];
+            for (int i = 0; i < nr; ++i) h += Jc[k][i] * a_drr[i] * Jc[k2][i];
             lxx[k * NX + k2] += wgt * h;
             if (k2 != k) lxx[k2 * NX + k] += wgt * h;
           }

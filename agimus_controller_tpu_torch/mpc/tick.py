@@ -39,7 +39,7 @@ class TickOutput(NamedTuple):
     # device-resident carry (stays on device between ticks)
     xs: torch.Tensor  # [T+1, nx]
     us: torch.Tensor  # [T, nu]
-    y: torch.Tensor  # [T+1, 1] dual carry (next tick's warm start)
+    y: torch.Tensor  # [T+1, max(nc, 1)] ADMM duals (next tick's warm start)
     next_slot: torch.Tensor  # read slot after consuming the head (device)
     # the control message payload (small; fetched per tick)
     K0: torch.Tensor  # [nu, nx]
@@ -95,6 +95,9 @@ class FusedTick:
                                    self._cap_mask)
         refs = self._layout.unpack_refs(rows, base_refs)
         xs0, us0 = self.shift(xs_prev, us_prev)
+        # ADMM dual warm start across ticks (constrained specs): the
+        # previous optimum rides the active boundary, so zero-restarted
+        # duals would re-discover the active set every tick
         sol = self.solver(x0[None], refs, xs0[None], us0[None], limit,
                           y_prev[None])
         return TickOutput(
@@ -128,6 +131,7 @@ class FusedTickRunner:
         self._ring = ring
         self._refs = base_refs
         self._dtype = dtype
+        self._nc = max(self._tick.solver.nc, 1)  # dual carry width
         self._T = spec.horizon
         self._xs: Optional[torch.Tensor] = None
         self._us: Optional[torch.Tensor] = None
@@ -160,7 +164,7 @@ class FusedTickRunner:
                                          device=self.device)
         ring_arr = self._ring.sync()
         if self._y is None:
-            self._y = torch.zeros((self._T + 1, 1), dtype=self._dtype,
+            self._y = torch.zeros((self._T + 1, self._nc), dtype=self._dtype,
                                   device=self.device)
         out = self._tick(ring_arr, self._slot, self._refs, self._tensor(x0),
                          xs, us, int(limit), self._y)

@@ -1,9 +1,10 @@
 """Component-form kinematics and SE(3) log maps in plain PyTorch.
 
-The pieces of the JAX package's `ops/batched_costs.py` that the frame cost
-kinds need: world joint placements, frame poses, rotation -> quaternion, and
-the SO(3)/SE(3) logs. Same component layout as `batched_dynamics`: every
-scalar is an `[N]` tensor.
+The pieces of the JAX package's `ops/batched_costs.py` that the frame and
+collision cost kinds need: world joint placements, frame poses, rotation ->
+quaternion, the SO(3)/SE(3) logs, geometry placements and the capsule
+distance. Same component layout as `batched_dynamics`: every scalar is an
+`[N]` tensor.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from .batched_dynamics import (
     _joint_transforms,
     _matmul,
     _matvec,
+    _scale,
+    _sub,
 )
 
 SUPPORTED_KINDS = (
@@ -118,3 +121,60 @@ def _frame_pose_c(model: RobotModel, params: ModelParams, oR, op,
     fp = tuple(float(x) for x in params.frame_trans[frame_id])
     j = fr.parent_joint
     return _matmul(oR[j], fR), _add(_matvec(oR[j], fp), op[j])
+
+
+def _one_below(x, eps):
+    """1 where x < eps, else x; x a tensor or, for a world-fixed geometry's
+    constant axis, a Python float."""
+    if isinstance(x, torch.Tensor):
+        return torch.where(x < eps, torch.ones_like(x), x)
+    return 1.0 if x < eps else x
+
+
+def _capsule_distance_c(R1, p1, r1, l1, R2, p2, r2, l2):
+    """Signed capsule-capsule distance, component form (the branch-free
+    Ericson clamps of `collision.capsule_capsule_distance`)."""
+    d1 = (R1[2], R1[5], R1[8])  # local z column
+    d2 = (R2[2], R2[5], R2[8])
+    r = _sub(p1, p2)
+    a = _dot(d1, d1)
+    e = _dot(d2, d2)
+    b = _dot(d1, d2)
+    c = _dot(d1, r)
+    f = _dot(d2, r)
+    denom = a * e - b * b
+    denom_safe = torch.where(denom < 1e-9, torch.ones_like(denom), denom)
+    s = torch.where(denom < 1e-9, torch.zeros_like(denom),
+                    (b * f - c * e) / denom_safe)
+    s = torch.clamp(s, -l1, l1)
+    t = (b * s + f) / _one_below(e, 1e-12)
+    t_cl = torch.clamp(t, -l2, l2)
+    s = torch.clamp((b * t_cl - c) / _one_below(a, 1e-12), -l1, l1)
+    c1 = _add(p1, _scale(s, d1))
+    c2 = _add(p2, _scale(t_cl, d2))
+    diff = _sub(c1, c2)
+    dist = torch.sqrt(_dot(diff, diff) + 1e-12)
+    return dist - r1 - r2
+
+
+def _geom_placement_c(model: RobotModel, params: ModelParams, oR, op,
+                      gi: int, refs):
+    """World placement of collision geometry `gi`, component form. Local
+    placements come from the refs overrides `geom_rot`/`geom_trans` when
+    present (moving obstacles, the reference's `update_geometry_placement`,
+    `ocp_base_croco.py:110-132`), else from the model."""
+    g = model.geometries[gi]
+    if "geom_rot" in refs:
+        gRa = refs["geom_rot"][gi]
+        gR = tuple(gRa[r, c] for r in range(3) for c in range(3))
+    else:
+        gR = tuple(float(x) for x in params.geom_rot[gi].reshape(-1))
+    if "geom_trans" in refs:
+        gpa = refs["geom_trans"][gi]
+        gp = tuple(gpa[i] for i in range(3))
+    else:
+        gp = tuple(float(x) for x in params.geom_trans[gi])
+    if g.parent_joint < 0:
+        return gR, gp
+    j = g.parent_joint
+    return _matmul(oR[j], gR), _add(_matvec(oR[j], gp), op[j])

@@ -22,8 +22,12 @@ constants and a cost-descriptor table from one packed float buffer
 joints.
 
 Covered cost kinds: state, control, control_grav, frame_placement,
-frame_translation, frame_rotation, all with the weighted-quad activation.
-Other kinds and activations raise NotImplementedError (ROADMAP queue 2).
+frame_translation, frame_rotation with the weighted-quad activation, and
+collision_distance with any activation (weighted_quad, exp, quad_exp), its
+per-node `w_coll` scale when `update=True`, and the world-fixed geometry
+placements streamed as `geom_rot`/`geom_trans` refs. frame_velocity and
+visual_servoing raise NotImplementedError (ROADMAP queue 2), as do the exp
+activations on other kinds, which the Pallas kernels do not take either.
 
 Reference parity: Crocoddyl `CostModelSum.calc/calcDiff` over the DSL cost
 items (`ocp_croco_generic.py:560-592`), fused with the DAM step.
@@ -41,21 +45,34 @@ from ..models.model import ModelParams, RobotModel
 from ..ocp.spec import CostItem, ProblemSpec
 from . import _build
 from .analytic_derivs import gravity_torque_with_dq
-from .batched_costs import _fk_world, _frame_pose_c, _log3_c, _log6_c
+from .batched_costs import (
+    _capsule_distance_c,
+    _fk_world,
+    _frame_pose_c,
+    _geom_placement_c,
+    _log3_c,
+    _log6_c,
+)
 from .batched_dynamics import _StaticModel, _matmul, _matvec, _sub
 from .cuda_dynamics import dynamics_terms
 
 COVERED_KINDS = ("state", "control", "control_grav", "frame_placement",
-                 "frame_translation", "frame_rotation")
+                 "frame_translation", "frame_rotation", "collision_distance")
 _FRAME_KINDS = ("frame_placement", "frame_translation", "frame_rotation")
+ACTIVATIONS = ("weighted_quad", "exp", "quad_exp")
 KERNEL_NJ = (2, 7)  # joint counts the kernels are instantiated for
 
 # packed-constants layout; must match `csrc/stage_kernels.cuh`
 _JSTRIDE = 31  # rot 9, trans 3, axis 3, type, parent, mass, com 3, inertia 9, armature
-_ISTRIDE = 48
+_ISTRIDE = 84
 _I_KIND, _I_WEIGHT, _I_PJOINT, _I_FROT, _I_FTRANS = 0, 1, 2, 3, 12
 _I_REF, _I_W, _I_TRANS, _I_SREF, _I_SW = 15, 16, 17, 18, 32
+_I_ACT, _I_ALPHA, _I_WCOLL, _I_GEOM = 46, 47, 48, 49
+# per collision geometry (two per item): parent joint, rot 9, trans 3,
+# radius, half length, then the ref-row offsets of its streamed rot/trans
+_GSTRIDE = 17
 _KIND_CODE = {k: i for i, k in enumerate(COVERED_KINDS)}
+_ACT_CODE = {a: i for i, a in enumerate(ACTIVATIONS)}
 
 
 # ---------------------------------------------------------------------------
@@ -90,10 +107,29 @@ def _ref_layout(model: RobotModel,
                 add(f"ee_rot:{item.frame}", 9)
                 add(f"ee_trans:{item.frame}", 3)
                 add(f"w_ee:{item.frame}", 6)
+            elif item.kind == "collision_distance":
+                add("w_coll", 1)
         elif item.kind in _FRAME_KINDS:
             add(f"ee_rot:{item.frame}", 9)
             add(f"ee_trans:{item.frame}", 3)
+        if item.kind == "collision_distance":
+            # runtime placement overrides of world-fixed (obstacle) geoms
+            for g in model.collision_pairs[item.pair_id]:
+                if model.geometries[g].parent_joint < 0:
+                    add(f"__geom_rot:{g}", 9, per_node=False)
+                    add(f"__geom_trans:{g}", 3, per_node=False)
     return out
+
+
+def with_geom_defaults(layout, refs: Dict, params: ModelParams) -> Dict:
+    """World-fixed geometry columns fall back to the model's placements when
+    the caller streams no `geom_rot`/`geom_trans` refs."""
+    if not any(k.startswith("__geom") for k, _, _ in layout):
+        return refs
+    refs = dict(refs)
+    refs.setdefault("geom_rot", params.geom_rot)
+    refs.setdefault("geom_trans", params.geom_trans)
+    return refs
 
 
 def gather_node_refs(layout, refs: Dict, t_idx: torch.Tensor,
@@ -101,15 +137,20 @@ def gather_node_refs(layout, refs: Dict, t_idx: torch.Tensor,
     """Gather refs at per-node times into one node-major tensor.
 
     t_idx [N] int node times. Returns [N, total_comp] (at least one column),
-    on t_idx's device."""
+    on t_idx's device. A `__geom_rot:{g}` / `__geom_trans:{g}` column holds
+    row g of the global `geom_rot` / `geom_trans` refs."""
     N = t_idx.shape[0]
     cols = []
     for key, ncomp, per_node in layout:
-        val = refs.get(key)
+        if key.startswith("__geom_"):
+            src = refs.get(key[2:].split(":")[0])
+            val = None if src is None else src[int(key.split(":")[1])]
+        else:
+            val = refs.get(key)
         if val is None:
             arr = torch.zeros((N, ncomp), dtype=dtype, device=t_idx.device)
         else:
-            val = val.to(dtype)
+            val = val.to(dtype=dtype, device=t_idx.device)
             if per_node and val.ndim >= 1:
                 arr = val.index_select(0, t_idx).reshape(N, ncomp)
             else:
@@ -160,17 +201,53 @@ def _weights_c(item: CostItem, rget, nr: int):
 
 
 def _activation_c(item: CostItem, r, w, nr):
-    """(l, a_dr list, a_drr list) of the weighted-quad activation."""
-    l = 0.0
+    """(l, a_dr list, a_drr list) in components (the formulas of the Pallas
+    bodies: `sqrt(rr + 1e-12)` for exp, the PSD Gauss-Newton diagonal
+    `4 a r^2 / alpha^2` for quad_exp)."""
+    if item.activation == "weighted_quad":
+        l = 0.0
+        for i in range(nr):
+            l = l + 0.5 * w[i] * r[i] * r[i]
+        return l, [w[i] * r[i] for i in range(nr)], list(w)
+    alpha = float(item.act_alpha)
+    rr = 0.0
     for i in range(nr):
-        l = l + 0.5 * w[i] * r[i] * r[i]
-    return l, [w[i] * r[i] for i in range(nr)], list(w)
+        rr = rr + r[i] * r[i]
+    if item.activation == "exp":
+        d = torch.sqrt(rr + 1e-12)
+        a = torch.exp(-d / alpha)
+        scale = -a / (alpha * d)
+        return (a, [scale * r[i] for i in range(nr)],
+                [a / (alpha * alpha)] * nr)
+    a = torch.exp(-rr / alpha)  # quad_exp
+    return (a, [(-2.0 / alpha) * a * r[i] for i in range(nr)],
+            [(4.0 / (alpha * alpha)) * a * r[i] * r[i] for i in range(nr)])
+
+
+def _geom_pose_c(model, params, oR, op, g: int, rget):
+    """World placement of geometry g, as the Pallas bodies take it: a
+    world-fixed geometry from its ref columns (filled from the model by
+    `with_geom_defaults`), the others through the kinematics of their
+    parent joint with the model's local placement."""
+    if model.geometries[g].parent_joint < 0:
+        return (tuple(rget(f"__geom_rot:{g}")),
+                tuple(rget(f"__geom_trans:{g}")))
+    return _geom_placement_c(model, params, oR, op, g, {})
 
 
 def _residual_c(item: CostItem, model, params, sm, q, rget):
-    """Residual components of the frame kinds; list of nr tensors."""
-    fid = model.frame_id(item.frame)
+    """Residual components of the frame and collision kinds; list of nr
+    tensors."""
     oR, op = _fk_world(sm, q)
+    if item.kind == "collision_distance":
+        gi, gj = model.collision_pairs[item.pair_id]
+        R1, p1 = _geom_pose_c(model, params, oR, op, gi, rget)
+        R2, p2 = _geom_pose_c(model, params, oR, op, gj, rget)
+        f = lambda t, g: float(t[g])
+        return [_capsule_distance_c(
+            R1, p1, f(params.geom_radius, gi), f(params.geom_halflen, gi),
+            R2, p2, f(params.geom_radius, gj), f(params.geom_halflen, gj))]
+    fid = model.frame_id(item.frame)
     R, p = _frame_pose_c(model, params, oR, op, fid)
     refR = tuple(rget(f"ee_rot:{item.frame}"))
     refp = tuple(rget(f"ee_trans:{item.frame}"))
@@ -194,8 +271,9 @@ def _item_terms_c(item: CostItem, model, params, sm, q, v, u, rget,
     """Add one weighted cost item's value (and GN derivatives) into acc.
 
     Derivative routes: control_grav takes the closed-form gravity Jacobian
-    (`analytic_derivs.gravity_torque_with_dq`); the frame kinds take forward
-    tangents of the residual (`torch.func.jvp`, one per joint)."""
+    (`analytic_derivs.gravity_torque_with_dq`); the frame and collision
+    kinds take forward tangents of the residual (`torch.func.jvp`, one per
+    joint)."""
     nj = sm.nj
     nx = 2 * nj
     zero = torch.zeros_like(q[0])
@@ -262,7 +340,7 @@ def _item_terms_c(item: CostItem, model, params, sm, q, v, u, rget,
                         _accumulate(acc, "lxx", k2 * nx + k, wgt * h)
         return
 
-    # frame kinds: residuals of q only
+    # frame and collision kinds: residuals of q only
     nr = item.residual_dim(model)
     if want_derivs:
         def r_of(qstack):
@@ -308,8 +386,12 @@ def _node_costs(items, model, params, sm, q, v, u, rget, derivs):
         acc.update(lx=[None] * nx, lu=[None] * nj, lxx=[None] * (nx * nx),
                    lxu=[None] * (nx * nj), luu=[None] * (nj * nj))
     for item in items:
-        _item_terms_c(item, model, params, sm, q, v, u, rget, derivs,
-                      float(item.weight), acc)
+        wgt = float(item.weight)
+        if item.kind == "collision_distance" and item.update:
+            # streamed w_collision_avoidance scale (`trajectory.py:84-158`)
+            wgt = wgt * rget("w_coll")[0]
+        _item_terms_c(item, model, params, sm, q, v, u, rget, derivs, wgt,
+                      acc)
     return acc
 
 
@@ -333,10 +415,12 @@ def _check_supported(spec: ProblemSpec, model: RobotModel,
             raise NotImplementedError(
                 f"cost kind {item.kind!r} is not covered by the stage kernels "
                 "yet (ROADMAP queue 2: K1-K4 coverage)")
-        if item.activation != "weighted_quad":
+        # as the Pallas kernels: the exp activations only on collision items
+        if item.activation != "weighted_quad" and \
+                item.kind != "collision_distance":
             raise NotImplementedError(
-                f"activation {item.activation!r} is not covered by the stage "
-                "kernels yet (ROADMAP queue 2: K1-K4 coverage)")
+                f"activation {item.activation!r} on a {item.kind!r} item is "
+                "not covered by the stage kernels")
         if item.kind in _FRAME_KINDS and \
                 model.frames[model.frame_id(item.frame)].parent_joint < 0:
             raise NotImplementedError(
@@ -366,6 +450,7 @@ def _pack_constants(model: RobotModel, params: ModelParams, items,
         joints[i, 30] = P["armature"][i]
     desc = np.zeros((len(items), _ISTRIDE))
     desc[:, _I_REF:_I_TRANS + 1] = -1.0
+    desc[:, _I_WCOLL] = -1.0
     off = lambda key: offsets[key][0]
     for r, item in enumerate(items):
         d = desc[r]
@@ -379,7 +464,23 @@ def _pack_constants(model: RobotModel, params: ModelParams, items,
             d[_I_FTRANS:_I_FTRANS + 3] = P["frame_trans"][fid]
             d[_I_REF] = off(f"ee_rot:{item.frame}")
             d[_I_TRANS] = off(f"ee_trans:{item.frame}")
-        if item.update:
+        d[_I_ACT] = _ACT_CODE[item.activation]
+        d[_I_ALPHA] = item.act_alpha
+        if item.kind == "collision_distance":
+            if item.update:
+                d[_I_WCOLL] = off("w_coll")
+            pair = model.collision_pairs[item.pair_id]
+            for k, g in enumerate(pair):
+                b = d[_I_GEOM + k * _GSTRIDE:_I_GEOM + (k + 1) * _GSTRIDE]
+                pj = model.geometries[g].parent_joint
+                b[0] = pj
+                b[1:10] = P["geom_rot"][g].reshape(-1)
+                b[10:13] = P["geom_trans"][g]
+                b[13] = P["geom_radius"][g]
+                b[14] = P["geom_halflen"][g]
+                b[15] = off(f"__geom_rot:{g}") if pj < 0 else -1.0
+                b[16] = off(f"__geom_trans:{g}") if pj < 0 else -1.0
+        if item.update and item.kind != "collision_distance":
             ref_key, w_key, w_shift = {
                 "state": ("xref", "w_x", 0),
                 "control": ("uref", "w_u", 0),
@@ -436,6 +537,12 @@ class _StageBase:
                 _pack_constants(model, params, self.items, self.offsets),
                 device=self.device)
 
+    def _rows(self, refs, t_idx, dtype):
+        """The per-node ref rows [N, width] of this wrapper's items."""
+        return gather_node_refs(
+            self.layout, with_geom_defaults(self.layout, refs, self.params),
+            t_idx, dtype)
+
     def _rget(self, rows):
         def rget(key):
             off, ncomp = self.offsets[key]
@@ -468,7 +575,7 @@ class StageKernel(_StageBase):
         lib = self._lib(x)
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
-        rows = gather_node_refs(self.layout, refs, t_idx, x.dtype)
+        rows = self._rows(refs, t_idx, x.dtype)
         for name, t, shape in (("x", x, (N, nx)), ("u", u, (N, nj)),
                                ("dt", dt, (N,)), ("refs rows", rows,
                                                   (N, self.width))):
@@ -495,7 +602,7 @@ class StageKernel(_StageBase):
         """The plain-PyTorch version, on the inputs' own device."""
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
-        rows = gather_node_refs(self.layout, refs, t_idx, x.dtype)
+        rows = self._rows(refs, t_idx, x.dtype)
         q = list(x[:, :nj].unbind(1))
         v = list(x[:, nj:].unbind(1))
         uc = list(u.unbind(1))
@@ -535,7 +642,7 @@ class TerminalKernel(_StageBase):
             return self.plain(x, refs)
         lib = self._lib(x)
         N, nx = x.shape[0], 2 * self.nj
-        rows = gather_node_refs(self.layout, refs, self._t_idx(x), x.dtype)
+        rows = self._rows(refs, self._t_idx(x), x.dtype)
         _check_input("x", x, self.device, (N, nx))
         _check_input("refs rows", rows, self.device, (N, self.width))
         new = lambda *s: torch.empty((N,) + s, dtype=x.dtype, device=x.device)
@@ -554,7 +661,7 @@ class TerminalKernel(_StageBase):
         """The plain-PyTorch version, on the inputs' own device."""
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
-        rows = gather_node_refs(self.layout, refs, self._t_idx(x), x.dtype)
+        rows = self._rows(refs, self._t_idx(x), x.dtype)
         q = list(x[:, :nj].unbind(1))
         v = list(x[:, nj:].unbind(1))
         zero = torch.zeros_like(q[0])

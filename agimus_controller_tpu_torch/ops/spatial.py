@@ -1,0 +1,106 @@
+"""SO(3)/SE(3) maps on tensors: the part of the JAX package's
+`ops/spatial.py` that kinematics, collision and the frame residuals call.
+
+Conventions (as in the JAX package): a placement is the pair ``(R, p)`` with
+``x_A = R @ x_B + p``; twists are ``[w; v]``. Every function takes leading
+batch dimensions and also runs under `torch.func.vmap`/`jacfwd`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def hat(w):
+    """3-vector -> skew-symmetric matrix (so3 hat map)."""
+    z = torch.zeros_like(w[..., 0])
+    return torch.stack([
+        torch.stack([z, -w[..., 2], w[..., 1]], dim=-1),
+        torch.stack([w[..., 2], z, -w[..., 0]], dim=-1),
+        torch.stack([-w[..., 1], w[..., 0], z], dim=-1),
+    ], dim=-2)
+
+
+def exp3(w):
+    """so(3) exponential (Rodrigues), Taylor-safe near ||w|| = 0."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2_safe)
+    W = hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + a[..., None, None] * W + b[..., None, None] * (W @ W)
+
+
+def matrix_to_quat(R):
+    """Rotation matrix -> quaternion ``[x, y, z, w]``: the candidate of the
+    largest of m00, m11, m22 and the trace (the first on ties, as argmax)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    cands = [
+        (1.0 + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12),
+        (m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21, m02 - m20),
+        (m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22, m10 - m01),
+        (m21 - m12, m02 - m20, m10 - m01, 1.0 + tr),
+    ]
+    best = m00
+    out = list(cands[0])
+    for s, c in zip((m11, m22, tr), cands[1:]):
+        take = s > best
+        best = torch.where(take, s, best)
+        out = [torch.where(take, cc, oo) for cc, oo in zip(c, out)]
+    q = torch.stack(out, dim=-1)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def log3(R):
+    """SO(3) log, quaternion/atan2 route: w = (theta / sin(theta/2)) q_xyz."""
+    q = matrix_to_quat(R)
+    xyz = q[..., :3]
+    # double cover: w >= 0 so theta in [0, pi]
+    sign = torch.where(q[..., 3] < 0.0, -1.0, 1.0).to(q.dtype)
+    xyz = xyz * sign[..., None]
+    c = torch.abs(q[..., 3])
+    s2 = torch.sum(xyz * xyz, dim=-1)
+    small = s2 < 1e-12
+    s = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
+    theta = 2.0 * torch.atan2(s, c)
+    scale = torch.where(small, 2.0 / c + s2 * 0.0, theta / s)
+    return scale[..., None] * xyz
+
+
+def log6(R, p):
+    """SE(3) log: placement -> twist ``[w; v]``."""
+    w = log3(R)
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    W = hat(w)
+    half_t = theta * 0.5
+    sin_half_safe = torch.where(small, torch.ones_like(theta), torch.sin(half_t))
+    coef = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half_t * torch.cos(half_t) / sin_half_safe) / theta2_safe)
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    Vinv = eye - 0.5 * W + coef[..., None, None] * (W @ W)
+    v = torch.einsum("...ij,...j->...i", Vinv, p)
+    return torch.cat([w, v], dim=-1)
+
+
+def se3_mul(a, b):
+    """Compose placements: (R, p) of ``a @ b``."""
+    Ra, pa = a
+    Rb, pb = b
+    return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, pb) + pa
+
+
+def se3_inv(m):
+    R, p = m
+    Rt = torch.swapaxes(R, -1, -2)
+    return Rt, -torch.einsum("...ij,...j->...i", Rt, p)

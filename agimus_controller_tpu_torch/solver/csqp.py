@@ -2,11 +2,10 @@
 
 The settings dataclasses of the JAX package's `solver/fddp.py`
 (`SolverSettings`) and `solver/csqp.py` (`CSQPSettings`), with the same
-fields and defaults. The port's batch solver reads the unconstrained
-branch's fields; the ADMM ones (`max_qp_iters`, `eps_*`, `rho`,
-`adaptive_rho`, `constraint_envelope`, `envelope_tol`, `soc_iters`) belong to
-the constrained branch, which is not ported yet (ROADMAP queue 1, slice 7).
-`sweep_f64` is not ported: the sweeps run in the trajectory dtype.
+fields and defaults. The port's batch solver reads all of them: the ADMM
+fields (`max_qp_iters`, `eps_*`, `rho`, `adaptive_rho`,
+`constraint_envelope`, `envelope_tol`, `soc_iters`) drive its constrained
+branch. `sweep_f64` is not ported: the sweeps run in the trajectory dtype.
 """
 
 from __future__ import annotations

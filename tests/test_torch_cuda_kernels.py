@@ -2,7 +2,11 @@
 
 Marked `cuda`: skips without a CUDA device (a CUDA kernel has no CPU
 mode; its math is held against the JAX package on the CPU by
-`test_torch_stage.py` through the plain versions). On a GPU machine:
+`test_torch_stage.py` through the plain versions). The specs are
+`chip_smoke.py`'s: the flagship goal tracking, the Pallas test spec without
+("mixed") and with ("full") its collision item, and the shipped
+collision-avoidance YAML; the collision specs get inputs that keep the
+collision term live. On a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
@@ -31,14 +35,13 @@ def device():
 def panda(device):
     from agimus_controller_tpu_torch.models.panda import load_panda
 
-    return load_panda(env_urdf=smoke.ENV_URDF,
-                      collision_pairs=[("panda_link7_capsule", "obstacle_sphere")],
+    return load_panda(env_urdf=smoke.ENV_URDF, collision_pairs=smoke.PAIR,
                       dtype=torch.float32, device=device)
 
 
 @pytest.mark.parametrize("N", SIZES)
 @pytest.mark.parametrize("kernel", [k[0] for k in smoke.KERNELS])
-@pytest.mark.parametrize("spec_name", ["flagship", "mixed"])
+@pytest.mark.parametrize("spec_name", ["flagship", "mixed", "full", "yaml"])
 def test_kernel_matches_plain(device, panda, spec_name, kernel, N):
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
@@ -46,7 +49,7 @@ def test_kernel_matches_plain(device, panda, spec_name, kernel, N):
     )
 
     model, params = panda
-    spec = {"flagship": smoke.flagship_spec, "mixed": smoke.mixed_spec}[spec_name](100)
+    spec = smoke.SPECS[spec_name](100, model)
     _, kind, derivs, _ = next(k for k in smoke.KERNELS if k[0] == kernel)
     refs, x, u, dt, t_idx = smoke.randomized_inputs(spec, model, N, seed=N,
                                                     device=device)

@@ -55,3 +55,11 @@ def import_results():
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_without_jax(import_results, module):
     assert import_results[module] == "ok", import_results[module]
+
+
+@pytest.mark.parametrize("module", [
+    "ocp.costs", "ocp.yaml_compiler", "ops.activations", "ops.collision",
+    "ops.kinematics", "ops.residuals", "ops.spatial"])
+def test_collision_path_module_is_probed(module):
+    """The collision path's modules are among the modules probed above."""
+    assert f"{PKG}.{module}" in MODULES

@@ -4,20 +4,29 @@ package's Pallas kernel bodies, in f64.
 The JAX reference is assembled from the Pallas bodies exactly as the Pallas
 kernels' own CPU tests do (`_item_terms_c` + `dynamics_terms` on component
 arrays, per-node refs from `gather_node_refs`), on the flagship goal-tracking
-spec and on the Pallas test spec without its collision item. Tolerances in
-f64: x+ and l atol 1e-10; every derivative block atol 1e-8, rtol 1e-8.
+spec, on the Pallas test spec without and with its collision item
+(quad_exp, alpha 1e-2, `update=True`; plus the pair under the exp activation
+in the terminal model), and on the shipped collision-avoidance YAML
+(quad_exp, alpha 1e-4). The collision specs get a randomized `w_coll`
+and a `geom_trans` override that puts the obstacle sphere 1 cm from the
+link-7 capsule at the ready pose, so the collision term is live. Tolerances
+in f64: x+ and l atol 1e-10; every derivative block atol 1e-8, rtol 1e-8.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from agimus_controller_tpu.models.panda import PANDA_Q_READY
 from agimus_controller_tpu.models.panda import load_panda as jax_load_panda
 from agimus_controller_tpu.ocp import spec as jspec
+from agimus_controller_tpu.ocp.yaml_compiler import load_ocp_spec as jax_load_ocp_spec
+from agimus_controller_tpu.ops import collision as jcollision
 from agimus_controller_tpu.ops import pallas_costs as jpc
 from agimus_controller_tpu.ops.batched_dynamics import _StaticModel as JaxStaticModel
 from agimus_controller_tpu.ops.pallas_dynamics import dynamics_terms as jax_dynamics_terms
@@ -66,7 +75,30 @@ def to_port_spec(s):
         dt_factor_n_seq=s.dt_factor_n_seq)
 
 
-SPECS = {"flagship": flagship_jax_spec, "mixed": mixed_jax_spec}
+YAML_DIR = (Path(__file__).resolve().parent.parent / "agimus_controller_tpu"
+            / "ocp" / "definitions")
+
+
+def full_jax_spec():
+    """The Pallas kernels' test spec with its collision item, plus the same
+    pair under the exp activation in the terminal model (`chip_smoke.py`'s
+    `full_spec`)."""
+    s = pallas_test_spec(None, T)
+    return dataclasses.replace(s, terminal_costs=s.terminal_costs + (
+        jspec.CostItem(name="coll", kind="collision_distance", weight=3.0,
+                       update=True, pair_id=0, activation="exp",
+                       act_alpha=2e-2),))
+
+
+def yaml_jax_spec(model):
+    return jax_load_ocp_spec(
+        YAML_DIR / "ocp_traj_tracking_collision_avoidance.yaml", model,
+        horizon=T, dt=0.01, default_ee_frame="panda_hand_tcp")
+
+
+SPECS = {"flagship": lambda jm: flagship_jax_spec(),
+         "mixed": lambda jm: mixed_jax_spec(),
+         "full": lambda jm: full_jax_spec(), "yaml": yaml_jax_spec}
 
 
 def _jax_eval(jm, jp, spec, items, refs, x, u, t_idx, dts, running):
@@ -91,8 +123,10 @@ def _jax_eval(jm, jp, spec, items, refs, x, u, t_idx, dts, running):
            "lxx": [None] * nx * nx, "lxu": [None] * nx * 7, "lu_": None,
            "luu": [None] * 49}
     for item in items:
-        jpc._item_terms_c(item, jm, jp, sm, q, v, uc, rget, True,
-                          float(item.weight), acc)
+        wgt = float(item.weight)
+        if item.kind == "collision_distance" and item.update:
+            wgt = wgt * rget("w_coll")[0]  # as the kernel bodies, :482-483
+        jpc._item_terms_c(item, jm, jp, sm, q, v, uc, rget, True, wgt, acc)
     ones = jnp.ones((1, N))
     dense = lambda comps, shape: np.stack(
         [np.asarray((0.0 if c is None else c) * ones)[0] for c in comps],
@@ -122,7 +156,7 @@ def panda():
 @pytest.fixture(scope="module", params=sorted(SPECS))
 def case(request, panda):
     jm, jp, p = panda
-    js = SPECS[request.param]()
+    js = SPECS[request.param](jm)
     ps = to_port_spec(js)
     rng = np.random.default_rng(7)
     Tn = T + 1
@@ -135,8 +169,13 @@ def case(request, panda):
         refs["w_u"] = rng.uniform(0.1, 2.0, (Tn, 7))
     refs["ee_trans:panda_hand_tcp"] = (rng.normal(size=(Tn, 3)) * 0.3
                                        + np.asarray([0.4, 0.0, 0.4]))
+    collides = "w_coll" in refs
+    if collides:
+        refs["w_coll"] = rng.uniform(0.5, 1.5, (Tn,))
+        # the obstacle sphere 1 cm from the link-7 capsule at the ready pose
+        refs["geom_trans"] = chip_smoke.obstacle_near_link7(jm, p).numpy()
     x = (np.concatenate([np.tile(PANDA_Q_READY, (N, 1)), np.zeros((N, 7))], 1)
-         + rng.normal(size=(N, 14)) * 0.1)
+         + rng.normal(size=(N, 14)) * (0.02 if collides else 0.1))
     u = rng.normal(size=(N, 7)) * 2.0
     t_idx = rng.integers(0, T, size=(N,))
     dts = np.asarray(js.timesteps())[t_idx]
@@ -156,7 +195,14 @@ def case(request, panda):
         tt(x), trefs)))
     (term_v,) = cuda_costs.make_cuda_terminal(jm, p, ps, False)(tt(x), trefs)
     layout = cuda_costs._ref_layout(jm, tuple(ps.running_costs))
-    rows = cuda_costs.gather_node_refs(layout, trefs, tt(t_idx), torch.float64)
+    rows = cuda_costs.gather_node_refs(
+        layout, cuda_costs.with_geom_defaults(layout, trefs, p), tt(t_idx),
+        torch.float64)
+    if collides:
+        moved = jp._replace(geom_trans=jnp.asarray(refs["geom_trans"]))
+        d = np.asarray([jcollision.pair_distance(
+            jm, moved, jnp.asarray(xi[:7]), 0) for xi in x])
+        assert np.mean((d > -0.01) & (d < 0.03)) > 0.5, d
     return dict(stage_ref=stage_ref, term_ref=term_ref, stage=stage,
                 stage_v=stage_v, term=term, term_v=term_v, rows=rows.numpy(),
                 jrows=jrows)
@@ -199,11 +245,14 @@ def test_uncovered_kind_raises_on_cuda(panda):
     """A spec the kernels do not cover raises before anything is allocated
     on the device; there is no quiet fallback."""
     jm, _, p = panda
-    full = to_port_spec(pallas_test_spec(None, T))  # has collision_distance
+    full = to_port_spec(pallas_test_spec(None, T))
+    full = dataclasses.replace(full, running_costs=full.running_costs + (
+        tspec.CostItem(name="vel", kind="frame_velocity",
+                       frame="panda_hand_tcp"),))
     cuda = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="collision_distance"):
+    with pytest.raises(NotImplementedError, match="frame_velocity"):
         cuda_costs.make_cuda_stage(jm, p, full, True, device=cuda)
-    with pytest.raises(NotImplementedError, match="collision_distance"):
+    with pytest.raises(NotImplementedError, match="frame_velocity"):
         cuda_costs.make_cuda_terminal(
             jm, p, dataclasses.replace(full, terminal_costs=full.running_costs),
             False, device=cuda)
