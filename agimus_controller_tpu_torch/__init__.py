@@ -6,13 +6,17 @@ reference is found at the same path there; a Pallas module `pallas_X.py`
 becomes `cuda_X.py`, whose hand-written kernels live under `csrc/`.
 
 - ``models`` — URDF -> `RobotModel` topology + `ModelParams` tensors.
-- ``ocp``    — static problem specs and runtime reference dicts.
+- ``ocp``    — static problem specs, the YAML compiler, runtime reference
+               dicts and the constraint rows.
 - ``ops``    — component-form rigid-body numerics (plain PyTorch) and the
                fused stage/terminal kernels (`ops/cuda_costs.py`).
-- ``solver`` — the unconstrained batch multiple-shooting SQP.
+- ``solver`` — the batch multiple-shooting SQP with its ADMM branch.
 - ``mpc``    — reference buffer, device-resident ring, fused MPC tick.
+- ``trajectories`` — reference generators and the visual-servoing state
+               machine.
 
-This package never imports JAX.
+Every entry point runs on the card (``device="cuda"``) unless the caller
+passes ``device="cpu"`` (`device.py`). This package never imports JAX.
 """
 
 __version__ = "0.1.0"

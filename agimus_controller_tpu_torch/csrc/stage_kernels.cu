@@ -16,8 +16,9 @@
 //
 // What bounds it on this card: latency and registers, not bandwidth. K1
 // does tens of thousands of flops per node (dual-number passes: 2NJ RNEA
-// tangents plus NJ tangents per control_grav/frame/collision item, each a
-// full forward-kinematics pass) against ~2 KB of
+// tangents plus NJ tangents per control_grav/frame/visual-servoing/
+// collision item and 2NJ per frame-velocity item, each a full
+// forward-kinematics pass) against ~2 KB of
 // outputs; the MPC tick has N = 100 nodes, one block, which fills under
 // one SM of 132, and the per-thread locals spill to local memory. This
 // simple design does nothing about that yet. The fast design will split a

@@ -14,9 +14,12 @@
 //     tangent of (q, v), through the templated `rnea`.
 //   - gravity-torque Jacobian of control_grav (Pallas: `jax.linearize`,
 //     pallas_costs.py:333): forward dual numbers, one pass per joint.
-//   - frame and collision residual Jacobians, log6/log3 of FK and the
-//     capsule distance (Pallas: `jax.linearize`, pallas_costs.py:381):
-//     forward dual numbers, one pass per joint.
+//   - frame, visual-servoing and collision residual Jacobians, log6/log3
+//     of FK and the capsule distance (Pallas: `jax.linearize`,
+//     pallas_costs.py:381): forward dual numbers, one pass per joint.
+//   - frame-velocity residual Jacobians, a function of q and v (Pallas:
+//     `jax.linearize` over q and v, pallas_costs.py:384-390): one pass per
+//     entry of (q, v), 2 NJ passes.
 // A dual pass computes exactly what one `jax.linearize` tangent computes.
 //
 // Activations (pallas_costs.py:188-208): weighted_quad on every kind; exp
@@ -46,6 +49,10 @@ namespace ag {
 // unscaled) and one 17-float block per geometry of its pair: parent joint
 // (-1: world-fixed), rot 9, trans 3, radius, half length, and the ref-row
 // offsets of the streamed rot/trans of a world-fixed geometry (else -1).
+// Items without geometry reuse its first slots: a visual-servoing item
+// holds the ref-row offsets of its object transform `wMo` (rot 9, trans
+// 3), a frame-velocity item its convention code (V_*); the frame-velocity
+// reference `ee_vel` sits at I_REF.
 constexpr int JSTRIDE = 31;
 constexpr int J_ROT = 0, J_TRANS = 9, J_AXIS = 12, J_TYPE = 15, J_PARENT = 16,
               J_MASS = 17, J_COM = 18, J_INER = 21, J_ARM = 30;
@@ -56,9 +63,13 @@ constexpr int I_KIND = 0, I_WEIGHT = 1, I_PJOINT = 2, I_FROT = 3,
 constexpr int GSTRIDE = 17;
 constexpr int G_PJOINT = 0, G_ROT = 1, G_TRANS = 10, G_RADIUS = 13,
               G_HALFLEN = 14, G_REF_ROT = 15, G_REF_TRANS = 16;
+constexpr int I_WMO_ROT = I_GEOM, I_WMO_TRANS = I_GEOM + 1,
+              I_VEL_FRAME = I_GEOM + 2;
 constexpr int K_STATE = 0, K_CONTROL = 1, K_CONTROL_GRAV = 2,
               K_FRAME_PLACEMENT = 3, K_FRAME_TRANSLATION = 4,
-              K_FRAME_ROTATION = 5, K_COLLISION = 6;
+              K_FRAME_ROTATION = 5, K_COLLISION = 6, K_VISUAL_SERVOING = 7,
+              K_FRAME_VELOCITY = 8;
+constexpr int V_WORLD = 0, V_LOCAL = 1, V_LOCAL_WORLD_ALIGNED = 2;
 constexpr int A_WEIGHTED_QUAD = 0, A_EXP = 1, A_QUAD_EXP = 2;
 
 // ---- forward-mode dual number ---------------------------------------------
@@ -500,11 +511,47 @@ AG_FN S collision_residual(const float* C, const float* D, const float* row,
                              G2[G_RADIUS], G2[G_HALFLEN]);
 }
 
-// Residual of a frame or collision cost item at q; returns its dimension
-// (6, 3 or 1).
+// Spatial velocity [w; v] of the item's frame (placement Rf, pf) at the
+// world placements oR, op and joint velocities v, in the item's convention
+// (`batched_costs._frame_velocity_c`, Pallas :266-271): the twist of the
+// root-to-frame joint chain at the world origin, moved to the frame origin
+// (v - pf x w) and, for V_LOCAL, rotated into the frame.
+template <int NJ, class S>
+AG_FN void frame_velocity(const float* C, const float* D, const M3<S>* oR,
+                          const V3<S>* op, const S* v, const M3<S>& Rf,
+                          const V3<S>& pf, S* out) {
+  int chain[NJ], n = 0;
+  for (int j = (int)D[I_PJOINT]; j >= 0; j = parent_of(C, j)) chain[n++] = j;
+  V3<S> w = zero3<S>(), v0 = zero3<S>();
+  for (int c = n - 1; c >= 0; --c) {  // root first, as the plain version
+    int i = chain[c];
+    V3<S> ax = load3<S>(C + i * JSTRIDE + J_AXIS);
+    if (revolute(C, i)) {
+      V3<S> Sw = matvec(oR[i], ax);
+      w = w + scale<S>(v[i], Sw);
+      v0 = v0 + scale<S>(v[i], cross(op[i], Sw));
+    } else {
+      v0 = v0 + scale<S>(v[i], matvec(oR[i], ax));
+    }
+  }
+  int conv = (int)D[I_VEL_FRAME];
+  if (conv != V_WORLD) v0 = v0 - cross(pf, w);
+  if (conv == V_LOCAL) {
+    w = mattvec(Rf, w);
+    v0 = mattvec(Rf, v0);
+  }
+  for (int i = 0; i < 3; ++i) {
+    out[i] = w[i];
+    out[3 + i] = v0[i];
+  }
+}
+
+// Residual of a frame, visual-servoing, frame-velocity or collision cost
+// item at (q, v); returns its dimension (6, 3 or 1). Only frame_velocity
+// reads v.
 template <int NJ, class S>
 AG_FN int frame_residual(const float* C, const float* D, const float* row,
-                         int kind, const S* q, S* r) {
+                         int kind, const S* q, const S* v, S* r) {
   if (kind == K_COLLISION) {
     r[0] = collision_residual<NJ, S>(C, D, row, q);
     return 1;
@@ -515,8 +562,21 @@ AG_FN int frame_residual(const float* C, const float* D, const float* row,
   int j = (int)D[I_PJOINT];
   M3<S> Rf = matmul(oR[j], load9<S>(D + I_FROT));
   V3<S> pf = matvec(oR[j], load3<S>(D + I_FTRANS)) + op[j];
+  if (kind == K_FRAME_VELOCITY) {
+    frame_velocity<NJ, S>(C, D, oR, op, v, Rf, pf, r);
+    const float* ref = row + (int)D[I_REF];
+    for (int i = 0; i < 6; ++i) r[i] = r[i] - S(ref[i]);
+    return 6;
+  }
   M3<S> refR = load9<S>(row + (int)D[I_REF]);
   V3<S> refp = load3<S>(row + (int)D[I_TRANS]);
+  if (kind == K_VISUAL_SERVOING) {
+    // target wMo * oMf_ref (Pallas `_pose_target_c`, :215-221)
+    M3<S> wR = load9<S>(row + (int)D[I_WMO_ROT]);
+    V3<S> wp = load3<S>(row + (int)D[I_WMO_TRANS]);
+    refp = matvec(wR, refp) + wp;
+    refR = matmul(wR, refR);
+  }
   if (kind == K_FRAME_TRANSLATION) {
     V3<S> d = pf - refp;
     for (int i = 0; i < 3; ++i) r[i] = d[i];
@@ -661,26 +721,32 @@ AG_FN void node_costs(const float* C, int n_items, const float* row,
           }
         }
       }
-    } else {  // frame and collision kinds: residual of q only
-      float r[6], Jc[NJ][6];  // Jc[k][i] = d r_i / d q_k
+    } else {  // frame, visual-servoing and collision kinds: residual of q;
+              // frame_velocity: of q and v
+      // Jc[k][i] = d r_i / d x_k over the nd tangents (x = (q, v))
+      const int nd = kind == K_FRAME_VELOCITY ? NX : NJ;
+      float r[6], Jc[NX][6];
       int nr = 0;
       if (DERIVS) {
-        for (int k = 0; k < NJ; ++k) {
-          Dual qd[NJ], rd[6];
-          for (int i = 0; i < NJ; ++i) qd[i] = Dual(q[i], i == k ? 1.f : 0.f);
-          nr = frame_residual<NJ, Dual>(C, D, row, kind, qd, rd);
+        for (int k = 0; k < nd; ++k) {
+          Dual qd[NJ], vd[NJ], rd[6];
+          for (int i = 0; i < NJ; ++i) {
+            qd[i] = Dual(q[i], i == k ? 1.f : 0.f);
+            vd[i] = Dual(v[i], NJ + i == k ? 1.f : 0.f);
+          }
+          nr = frame_residual<NJ, Dual>(C, D, row, kind, qd, vd, rd);
           for (int i = 0; i < nr; ++i) {
             r[i] = rd[i].v;
             Jc[k][i] = rd[i].d;
           }
         }
       } else {
-        nr = frame_residual<NJ, float>(C, D, row, kind, q, r);
+        nr = frame_residual<NJ, float>(C, D, row, kind, q, v, r);
       }
       float a_dr[6], a_drr[6];
       li = activation(D, row, nr, r, a_dr, a_drr);
       if (DERIVS) {
-        for (int k = 0; k < NJ; ++k) {
+        for (int k = 0; k < nd; ++k) {
           float s = 0.f;
           for (int i = 0; i < nr; ++i) s += Jc[k][i] * a_dr[i];
           lx[k] += wgt * s;

@@ -13,6 +13,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
+
 
 class ModelParams(NamedTuple):
     """Numeric model constants (tensors).
@@ -48,9 +50,10 @@ class ModelParams(NamedTuple):
 
 
 def params_from_numpy(p, dtype: torch.dtype = torch.float64,
-                      device: torch.device | str = "cpu") -> ModelParams:
+                      device: torch.device | str = DEFAULT_DEVICE) -> ModelParams:
     """Port's `ModelParams` from any object carrying the same fields as numpy
     arrays (e.g. the JAX package's `ModelParams`)."""
+    device = resolve_device(device)
     return ModelParams(*(
         torch.as_tensor(np.asarray(getattr(p, f)), dtype=dtype, device=device)
         for f in ModelParams._fields))

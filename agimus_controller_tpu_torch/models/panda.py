@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
 from .urdf import build_model_from_urdf
 
 # default joint armature used throughout the reference configs
@@ -211,7 +212,7 @@ def load_panda(
     self_collision: bool = False,
     collision_pairs=(),
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT_DEVICE,
     free_flyer: bool = False,
 ):
     """Build the Panda (RobotModel, ModelParams) with tensors on ``device``.

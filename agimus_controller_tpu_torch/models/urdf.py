@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from .model import Frame, Geometry, RobotModel, params_from_numpy
 
 
@@ -296,7 +297,7 @@ def build_model_from_urdf(
     self_collision: bool = False,
     gravity: Sequence[float] = (0.0, 0.0, -9.81),
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT_DEVICE,
     free_flyer: bool = False,
 ):
     """Compile a URDF (plus optional env URDF + SRDF) into static arrays.
@@ -318,6 +319,7 @@ def build_model_from_urdf(
     cover either the full extended model or just the original joints (base
     entries are then zero-filled).
     """
+    device = resolve_device(device)
     name, links, joints, root = _parse_urdf(_read(urdf))
 
     n_ff = 0

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.model import RobotModel
 from ..ocp.spec import ProblemSpec
 from .buffer import DTFactorsNSeq, TrajectoryBuffer, WeightedTrajectoryPoint
@@ -185,7 +186,7 @@ class RefRing:
 
     def __init__(self, layout: RowLayout, dt_factor_n_seq: DTFactorsNSeq,
                  capacity: int = 4096, dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         self.layout = layout
         self._hidx = dt_factor_n_seq.horizon_indexes()
         span = int(self._hidx[-1]) + 1
@@ -196,7 +197,7 @@ class RefRing:
         self._dtype = dtype
         self._host = np.zeros((cap, layout.width), _NP_DTYPE[dtype])
         self._device = torch.zeros((cap, layout.width), dtype=dtype,
-                                   device=device)
+                                   device=resolve_device(device))
         self._read = 0
         self._write = 0
         self._synced = 0  # rows [0, synced) are on device
@@ -294,7 +295,8 @@ class PackedTrajectoryBuffer(TrajectoryBuffer):
 
     def __init__(self, dt_factor_n_seq: DTFactorsNSeq, layout: RowLayout,
                  min_capacity: int = 4096, dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
+        device = resolve_device(device)
         super().__init__(dt_factor_n_seq, min_capacity)
         self.ring = RefRing(layout, self.dt_factor_n_seq,
                             capacity=self._cap, dtype=dtype, device=device)

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.model import ModelParams, RobotModel
 from ..ocp.spec import ProblemSpec
 from ..ops.batched_dynamics import _StaticModel
@@ -61,7 +62,8 @@ class FusedTick:
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, ring: RefRing,
                  settings: CSQPSettings = CSQPSettings(),
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
+        device = resolve_device(device)
         ts = np.asarray(spec.timesteps())
         self._dt = float(ts[0])
         self._all_uniform = bool(np.all(ts == self._dt))
@@ -109,7 +111,7 @@ class FusedTick:
 
 def make_fused_tick(model: RobotModel, params: ModelParams, spec: ProblemSpec,
                     ring: RefRing, settings: CSQPSettings = CSQPSettings(),
-                    device: torch.device | str = "cpu") -> FusedTick:
+                    device: torch.device | str = DEFAULT_DEVICE) -> FusedTick:
     """Build the fused tick for `device` (see `FusedTick`)."""
     return FusedTick(model, params, spec, ring, settings, device)
 
@@ -124,8 +126,8 @@ class FusedTickRunner:
     def __init__(self, model, params, spec, ring: RefRing, base_refs,
                  settings: CSQPSettings = CSQPSettings(),
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
-        self.device = torch.device(device)
+                 device: torch.device | str = DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self._tick = make_fused_tick(model, params, spec, ring, settings,
                                      self.device)
         self._ring = ring

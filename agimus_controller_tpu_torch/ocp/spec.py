@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.model import RobotModel
 
 
@@ -167,7 +168,7 @@ class ProblemSpec:
 
 def default_references(
     spec: ProblemSpec, model: RobotModel, dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT_DEVICE,
 ) -> Dict[str, torch.Tensor]:
     """Allocate the runtime refs dict with neutral values.
 
@@ -179,7 +180,7 @@ def default_references(
     """
     T = spec.horizon
     nxs = spec.state_dim(model)
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=resolve_device(device))
     refs: Dict[str, torch.Tensor] = {}
     eye3 = torch.eye(3, **kw).expand(T + 1, 3, 3).contiguous()
     if spec.soft_contact is not None:
@@ -211,9 +212,11 @@ def default_references(
 
 
 def refs_from_numpy(refs, dtype: torch.dtype = torch.float64,
-                    device: torch.device | str = "cpu") -> Dict[str, torch.Tensor]:
+                    device: torch.device | str = DEFAULT_DEVICE
+                    ) -> Dict[str, torch.Tensor]:
     """Port's refs dict from any mapping of array-likes (e.g. a JAX refs
     dict), converted through numpy."""
+    device = resolve_device(device)
     return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
             for k, v in refs.items()}
 

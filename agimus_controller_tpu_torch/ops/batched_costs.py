@@ -1,10 +1,10 @@
 """Component-form kinematics and SE(3) log maps in plain PyTorch.
 
-The pieces of the JAX package's `ops/batched_costs.py` that the frame and
-collision cost kinds need: world joint placements, frame poses, rotation ->
-quaternion, the SO(3)/SE(3) logs, geometry placements and the capsule
-distance. Same component layout as `batched_dynamics`: every scalar is an
-`[N]` tensor.
+The pieces of the JAX package's `ops/batched_costs.py` that the frame,
+frame-velocity, visual-servoing and collision cost kinds need: world joint
+placements, frame poses and spatial velocities, rotation -> quaternion, the
+SO(3)/SE(3) logs, geometry placements and the capsule distance. Same
+component layout as `batched_dynamics`: every scalar is an `[N]` tensor.
 """
 
 from __future__ import annotations
@@ -21,10 +21,12 @@ from .batched_dynamics import (
     _dot,
     _joint_transforms,
     _matmul,
+    _mattvec,
     _matvec,
     _scale,
     _sub,
 )
+from .kinematics import _ancestors as _ancestors_static
 
 SUPPORTED_KINDS = (
     "state",
@@ -121,6 +123,37 @@ def _frame_pose_c(model: RobotModel, params: ModelParams, oR, op,
     fp = tuple(float(x) for x in params.frame_trans[frame_id])
     j = fr.parent_joint
     return _matmul(oR[j], fR), _add(_matvec(oR[j], fp), op[j])
+
+
+def _frame_velocity_c(model: RobotModel, sm: _StaticModel, oR, op,
+                      v: List, frame_id: int, reference_frame: str,
+                      Rf, pf):
+    """Spatial velocity [w(3); v(3)] 6-tuple of a frame, component form.
+
+    The frame Jacobian times v in the pinocchio conventions (`world`,
+    `local`, else `local_world_aligned`), as `kinematics.frame_velocity`."""
+    fr = model.frames[frame_id]
+    zero3 = (0.0, 0.0, 0.0)
+    w, v0 = zero3, zero3  # world spatial twist at the world origin
+    for i in _ancestors_static(model, fr.parent_joint):
+        ax = sm.axis[i]
+        if sm.types[i] == "revolute":
+            Sw = _matvec(oR[i], ax)
+            col_w = Sw
+            col_v = _cross(op[i], Sw)  # R Sv (=0) + p x (R Sw)
+        else:
+            col_w = zero3
+            col_v = _matvec(oR[i], ax)
+        w = _add(w, _scale(v[i], col_w))
+        v0 = _add(v0, _scale(v[i], col_v))
+    if reference_frame == "world":
+        return w + v0
+    # v at the frame origin: v0 - pf x w  (motion_act_inv's v - p x w term)
+    v_at = _sub(v0, _cross(pf, w))
+    if reference_frame == "local":
+        return _mattvec(Rf, w) + _mattvec(Rf, v_at)
+    # local_world_aligned: local parts rotated back to world
+    return w + v_at
 
 
 def _one_below(x, eps):

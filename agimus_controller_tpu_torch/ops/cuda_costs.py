@@ -21,13 +21,16 @@ constants and a cost-descriptor table from one packed float buffer
 (`_pack_constants`), so one build serves every model with the same number of
 joints.
 
-Covered cost kinds: state, control, control_grav, frame_placement,
-frame_translation, frame_rotation with the weighted-quad activation, and
-collision_distance with any activation (weighted_quad, exp, quad_exp), its
-per-node `w_coll` scale when `update=True`, and the world-fixed geometry
-placements streamed as `geom_rot`/`geom_trans` refs. frame_velocity and
-visual_servoing raise NotImplementedError (ROADMAP queue 2), as do the exp
-activations on other kinds, which the Pallas kernels do not take either.
+Covered: every spec the Pallas kernels take (`pallas_costs._supported`).
+The kinds state, control, control_grav, frame_placement, frame_translation,
+frame_rotation, visual_servoing (the target `wMo · oMf_ref` composed from
+the streamed `wMo_rot`/`wMo_trans:<object>` refs) and frame_velocity (the
+frame's world / local / local-world-aligned velocity, a residual of q and
+v) with the weighted-quad activation; collision_distance with any
+activation (weighted_quad, exp, quad_exp), its per-node `w_coll` scale when
+`update=True`, and the world-fixed geometry placements streamed as
+`geom_rot`/`geom_trans` refs. Soft contact and the exp activations on other
+kinds raise NotImplementedError, as the Pallas kernels refuse them too.
 
 Reference parity: Crocoddyl `CostModelSum.calc/calcDiff` over the DSL cost
 items (`ocp_croco_generic.py:560-592`), fused with the DAM step.
@@ -41,6 +44,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.model import ModelParams, RobotModel
 from ..ocp.spec import CostItem, ProblemSpec
 from . import _build
@@ -49,16 +53,22 @@ from .batched_costs import (
     _capsule_distance_c,
     _fk_world,
     _frame_pose_c,
+    _frame_velocity_c,
     _geom_placement_c,
     _log3_c,
     _log6_c,
 )
-from .batched_dynamics import _StaticModel, _matmul, _matvec, _sub
+from .batched_dynamics import _StaticModel, _add, _matmul, _matvec, _sub
 from .cuda_dynamics import dynamics_terms
 
+# in the order of the kernels' kind codes (`K_*`, `csrc/stage_kernels.cuh`)
 COVERED_KINDS = ("state", "control", "control_grav", "frame_placement",
-                 "frame_translation", "frame_rotation", "collision_distance")
-_FRAME_KINDS = ("frame_placement", "frame_translation", "frame_rotation")
+                 "frame_translation", "frame_rotation", "collision_distance",
+                 "visual_servoing", "frame_velocity")
+_FRAME_KINDS = ("frame_placement", "frame_translation", "frame_rotation",
+                "visual_servoing", "frame_velocity")
+_POSE_KINDS = ("frame_placement", "frame_translation", "frame_rotation",
+               "visual_servoing")
 ACTIVATIONS = ("weighted_quad", "exp", "quad_exp")
 KERNEL_NJ = (2, 7)  # joint counts the kernels are instantiated for
 
@@ -71,8 +81,18 @@ _I_ACT, _I_ALPHA, _I_WCOLL, _I_GEOM = 46, 47, 48, 49
 # per collision geometry (two per item): parent joint, rot 9, trans 3,
 # radius, half length, then the ref-row offsets of its streamed rot/trans
 _GSTRIDE = 17
+# items without geometry reuse the geometry slots: a visual-servoing item
+# holds the ref-row offsets of its `wMo` rot/trans, a frame-velocity item
+# its convention code
+_I_WMO_ROT, _I_WMO_TRANS, _I_VEL_FRAME = _I_GEOM, _I_GEOM + 1, _I_GEOM + 2
 _KIND_CODE = {k: i for i, k in enumerate(COVERED_KINDS)}
 _ACT_CODE = {a: i for i, a in enumerate(ACTIVATIONS)}
+
+
+def _vel_frame_code(reference_frame: str) -> int:
+    """world 0, local 1, anything else local_world_aligned 2 (the rule of
+    `_frame_velocity_c` and the Pallas bodies)."""
+    return {"world": 0, "local": 1}.get(reference_frame, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -103,15 +123,23 @@ def _ref_layout(model: RobotModel,
                 add("w_u", model.nv)
             elif item.kind == "control_grav":
                 add("w_u", model.nv)
-            elif item.kind in _FRAME_KINDS:
+            elif item.kind in _POSE_KINDS:
                 add(f"ee_rot:{item.frame}", 9)
                 add(f"ee_trans:{item.frame}", 3)
                 add(f"w_ee:{item.frame}", 6)
+            elif item.kind == "frame_velocity":
+                add(f"ee_vel:{item.frame}", 6)
+                add(f"w_ee_vel:{item.frame}", 6)
             elif item.kind == "collision_distance":
                 add("w_coll", 1)
-        elif item.kind in _FRAME_KINDS:
+        elif item.kind in _POSE_KINDS:
             add(f"ee_rot:{item.frame}", 9)
             add(f"ee_trans:{item.frame}", 3)
+        elif item.kind == "frame_velocity":
+            add(f"ee_vel:{item.frame}", 6)
+        if item.kind == "visual_servoing":
+            add(f"wMo_rot:{item.object_frame}", 9, per_node=False)
+            add(f"wMo_trans:{item.object_frame}", 3, per_node=False)
         if item.kind == "collision_distance":
             # runtime placement overrides of world-fixed (obstacle) geoms
             for g in model.collision_pairs[item.pair_id]:
@@ -138,7 +166,9 @@ def gather_node_refs(layout, refs: Dict, t_idx: torch.Tensor,
 
     t_idx [N] int node times. Returns [N, total_comp] (at least one column),
     on t_idx's device. A `__geom_rot:{g}` / `__geom_trans:{g}` column holds
-    row g of the global `geom_rot` / `geom_trans` refs."""
+    row g of the global `geom_rot` / `geom_trans` refs; the other global
+    (`per_node=False`) columns, the `wMo_*` transforms, are broadcast to
+    every node."""
     N = t_idx.shape[0]
     cols = []
     for key, ncomp, per_node in layout:
@@ -191,12 +221,14 @@ def _weights_c(item: CostItem, rget, nr: int):
             return rget("w_x")
         if item.kind in ("control", "control_grav"):
             return rget("w_u")
-        if item.kind == "frame_placement":
+        if item.kind in ("frame_placement", "visual_servoing"):
             return rget(f"w_ee:{item.frame}")
         if item.kind == "frame_rotation":
             return rget(f"w_ee:{item.frame}")[:3]
         if item.kind == "frame_translation":
             return rget(f"w_ee:{item.frame}")[3:]
+        if item.kind == "frame_velocity":
+            return rget(f"w_ee_vel:{item.frame}")
     return _static_weights(item, nr)
 
 
@@ -235,9 +267,21 @@ def _geom_pose_c(model, params, oR, op, g: int, rget):
     return _geom_placement_c(model, params, oR, op, g, {})
 
 
-def _residual_c(item: CostItem, model, params, sm, q, rget):
-    """Residual components of the frame and collision kinds; list of nr
-    tensors."""
+def _pose_target_c(item: CostItem, rget):
+    """Target (R 9-tuple, p 3-tuple) of a pose item; the visual-servoing
+    target is `wMo · oMf_ref` (Pallas `_pose_target_c`, :211-222)."""
+    eR = tuple(rget(f"ee_rot:{item.frame}"))
+    ep = tuple(rget(f"ee_trans:{item.frame}"))
+    if item.kind != "visual_servoing":
+        return eR, ep
+    wR = tuple(rget(f"wMo_rot:{item.object_frame}"))
+    wp = tuple(rget(f"wMo_trans:{item.object_frame}"))
+    return _matmul(wR, eR), _add(_matvec(wR, ep), wp)
+
+
+def _residual_c(item: CostItem, model, params, sm, q, v, rget):
+    """Residual components of the frame, visual-servoing, frame-velocity and
+    collision kinds; list of nr tensors."""
     oR, op = _fk_world(sm, q)
     if item.kind == "collision_distance":
         gi, gj = model.collision_pairs[item.pair_id]
@@ -249,8 +293,12 @@ def _residual_c(item: CostItem, model, params, sm, q, rget):
             R2, p2, f(params.geom_radius, gj), f(params.geom_halflen, gj))]
     fid = model.frame_id(item.frame)
     R, p = _frame_pose_c(model, params, oR, op, fid)
-    refR = tuple(rget(f"ee_rot:{item.frame}"))
-    refp = tuple(rget(f"ee_trans:{item.frame}"))
+    if item.kind == "frame_velocity":
+        nu = _frame_velocity_c(model, sm, oR, op, v, fid,
+                               item.reference_frame, R, p)
+        ref = rget(f"ee_vel:{item.frame}")
+        return [nu[i] - ref[i] for i in range(6)]
+    refR, refp = _pose_target_c(item, rget)
     if item.kind == "frame_translation":
         return list(_sub(p, refp))
     rRT = (refR[0], refR[3], refR[6], refR[1], refR[4], refR[7],
@@ -271,9 +319,10 @@ def _item_terms_c(item: CostItem, model, params, sm, q, v, u, rget,
     """Add one weighted cost item's value (and GN derivatives) into acc.
 
     Derivative routes: control_grav takes the closed-form gravity Jacobian
-    (`analytic_derivs.gravity_torque_with_dq`); the frame and collision
-    kinds take forward tangents of the residual (`torch.func.jvp`, one per
-    joint)."""
+    (`analytic_derivs.gravity_torque_with_dq`); the frame, visual-servoing
+    and collision kinds take forward tangents of the residual
+    (`torch.func.jvp`, one per joint), frame_velocity one per entry of
+    (q, v)."""
     nj = sm.nj
     nx = 2 * nj
     zero = torch.zeros_like(q[0])
@@ -340,30 +389,34 @@ def _item_terms_c(item: CostItem, model, params, sm, q, v, u, rget,
                         _accumulate(acc, "lxx", k2 * nx + k, wgt * h)
         return
 
-    # frame and collision kinds: residuals of q only
+    # frame, visual-servoing and collision kinds: residuals of q;
+    # frame_velocity: of q and v (the Pallas bodies' `ndiff`, :373-390)
     nr = item.residual_dim(model)
+    ndiff = nx if item.kind == "frame_velocity" else nj
     if want_derivs:
-        def r_of(qstack):
+        def r_of(z):
+            zl = list(z.unbind(0))
+            vl = zl[nj:] if ndiff == nx else v
             return torch.stack(_residual_c(
-                item, model, params, sm, list(qstack.unbind(0)), rget))
+                item, model, params, sm, zl[:nj], vl, rget))
 
-        qstack = torch.stack(q)
+        z = torch.stack(q + v if ndiff == nx else q)
         Jcols = []
-        for k in range(nj):
-            e = torch.zeros_like(qstack)
+        for k in range(ndiff):
+            e = torch.zeros_like(z)
             e[k] = 1.0
-            r_st, jcol = torch.func.jvp(r_of, (qstack,), (e,))
+            r_st, jcol = torch.func.jvp(r_of, (z,), (e,))
             Jcols.append(jcol)  # [nr, N]
         r = list(r_st.unbind(0))
     else:
-        r = _residual_c(item, model, params, sm, q, rget)
+        r = _residual_c(item, model, params, sm, q, v, rget)
 
     w = _weights_c(item, rget, nr)
     l, a_dr, a_drr = _activation_c(item, r, w, nr)
     acc["l"] = acc["l"] + wgt * l
     if not want_derivs:
         return
-    for k in range(nj):
+    for k in range(ndiff):
         s = 0.0
         for i in range(nr):
             s = s + Jcols[k][i] * a_dr[i]
@@ -407,14 +460,15 @@ def _dense(comps, zero, N, shape):
 
 def _check_supported(spec: ProblemSpec, model: RobotModel,
                      device: torch.device):
+    """Refuses what the Pallas kernels refuse (`pallas_costs._supported`),
+    a frame fixed to the root, and joint counts without a kernel."""
     if spec.soft_contact is not None:
         raise NotImplementedError(
             "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
     for item in spec.all_costs():
         if item.kind not in COVERED_KINDS:
             raise NotImplementedError(
-                f"cost kind {item.kind!r} is not covered by the stage kernels "
-                "yet (ROADMAP queue 2: K1-K4 coverage)")
+                f"cost kind {item.kind!r} is not covered by the stage kernels")
         # as the Pallas kernels: the exp activations only on collision items
         if item.activation != "weighted_quad" and \
                 item.kind != "collision_distance":
@@ -462,8 +516,15 @@ def _pack_constants(model: RobotModel, params: ModelParams, items,
             d[_I_PJOINT] = model.frames[fid].parent_joint
             d[_I_FROT:_I_FROT + 9] = P["frame_rot"][fid].reshape(-1)
             d[_I_FTRANS:_I_FTRANS + 3] = P["frame_trans"][fid]
+        if item.kind in _POSE_KINDS:
             d[_I_REF] = off(f"ee_rot:{item.frame}")
             d[_I_TRANS] = off(f"ee_trans:{item.frame}")
+        if item.kind == "visual_servoing":
+            d[_I_WMO_ROT] = off(f"wMo_rot:{item.object_frame}")
+            d[_I_WMO_TRANS] = off(f"wMo_trans:{item.object_frame}")
+        if item.kind == "frame_velocity":
+            d[_I_REF] = off(f"ee_vel:{item.frame}")  # read with any weights
+            d[_I_VEL_FRAME] = _vel_frame_code(item.reference_frame)
         d[_I_ACT] = _ACT_CODE[item.activation]
         d[_I_ALPHA] = item.act_alpha
         if item.kind == "collision_distance":
@@ -488,6 +549,8 @@ def _pack_constants(model: RobotModel, params: ModelParams, items,
                 "frame_placement": (None, f"w_ee:{item.frame}", 0),
                 "frame_rotation": (None, f"w_ee:{item.frame}", 0),
                 "frame_translation": (None, f"w_ee:{item.frame}", 3),
+                "visual_servoing": (None, f"w_ee:{item.frame}", 0),
+                "frame_velocity": (None, f"w_ee_vel:{item.frame}", 0),
             }[item.kind]
             if ref_key is not None:
                 d[_I_REF] = off(ref_key)
@@ -522,8 +585,9 @@ class _StageBase:
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, items, derivs: bool,
                  device: torch.device | str):
-        self.device = torch.device(device)
-        _check_supported(spec, model, self.device)
+        # the spec first: an uncovered spec raises the same on any machine
+        _check_supported(spec, model, torch.device(device))
+        self.device = resolve_device(device)
         self.model, self.params, self.derivs = model, params, derivs
         self.nj = model.nj
         self.sm = _StaticModel(model, params)
@@ -565,7 +629,7 @@ class StageKernel(_StageBase):
     (xnext, Fx, Fu, l, lx, lu, lxx, lxu, luu) or (xnext, l), all dt-scaled
     cost terms, node-major: the JAX `make_pallas_stage` run's shapes."""
 
-    def __init__(self, model, params, spec, derivs, device="cpu"):
+    def __init__(self, model, params, spec, derivs, device=DEFAULT_DEVICE):
         super().__init__(model, params, spec, spec.running_costs, derivs,
                          device)
 
@@ -628,7 +692,7 @@ class TerminalKernel(_StageBase):
     `__call__(x [N,nx], refs)` returns (l, lx, lxx) or (l,): cost items at
     t = horizon with u = 0 and no dt scale."""
 
-    def __init__(self, model, params, spec, derivs, device="cpu"):
+    def __init__(self, model, params, spec, derivs, device=DEFAULT_DEVICE):
         super().__init__(model, params, spec, spec.terminal_costs, derivs,
                          device)
         self.horizon = spec.horizon
@@ -675,13 +739,13 @@ class TerminalKernel(_StageBase):
 
 
 def make_cuda_stage(model: RobotModel, params: ModelParams, spec: ProblemSpec,
-                    derivs: bool, device: torch.device | str = "cpu"):
+                    derivs: bool, device: torch.device | str = DEFAULT_DEVICE):
     """K1/K2 wrapper for `device`; see `StageKernel`."""
     return StageKernel(model, params, spec, derivs, device)
 
 
 def make_cuda_terminal(model: RobotModel, params: ModelParams,
                        spec: ProblemSpec, derivs: bool,
-                       device: torch.device | str = "cpu"):
+                       device: torch.device | str = DEFAULT_DEVICE):
     """K3/K4 wrapper for `device`; see `TerminalKernel`."""
     return TerminalKernel(model, params, spec, derivs, device)

@@ -1,9 +1,10 @@
 """Forward kinematics on tensors: joint and frame placements.
 
 Port of the JAX package's `ops/kinematics.py` (`joint_placements`,
-`frame_placement`; pinocchio `forwardKinematics` / `updateFramePlacements`).
+`frame_placement`, `frame_jacobian`, `frame_velocity`; pinocchio
+`forwardKinematics` / `updateFramePlacements` / `computeFrameJacobian`).
 Single-sample over a static topology (the joint loop unrolls in Python);
-batch with `torch.func.vmap`.
+batch with `torch.func.vmap`. Motion vectors are `[w; v]`.
 """
 
 from __future__ import annotations
@@ -46,3 +47,58 @@ def frame_placement(model: RobotModel, params: ModelParams, q, frame_id: int):
     rots, trans = joint_placements(model, params, q)
     return spatial.se3_mul((rots[fr.parent_joint], trans[fr.parent_joint]),
                            (fR, fp))
+
+
+def _ancestors(model: RobotModel, joint: int):
+    """The joints from the root down to `joint`."""
+    out = []
+    j = joint
+    while j >= 0:
+        out.append(j)
+        j = model.parents[j]
+    return out[::-1]
+
+
+def _joint_motion_subspace(model: RobotModel, params: ModelParams, i: int):
+    """S of joint i, `[6]`: [axis; 0] revolute, [0; axis] prismatic."""
+    axis = params.axis[i]
+    zero = torch.zeros_like(axis)
+    if model.joint_types[i] == "revolute":
+        return torch.cat([axis, zero])
+    return torch.cat([zero, axis])
+
+
+def frame_jacobian(model: RobotModel, params: ModelParams, q, frame_id: int,
+                   reference_frame: str = "local_world_aligned"):
+    """Geometric Jacobian of a frame, `[6, nv]`, rows `[w; v]`.
+
+    ``reference_frame``: "world", "local", or (any other value)
+    "local_world_aligned", the pinocchio conventions."""
+    fr = model.frames[frame_id]
+    rots, trans = joint_placements(model, params, q)
+    oMf = spatial.se3_mul(
+        (rots[fr.parent_joint], trans[fr.parent_joint]),
+        (params.frame_rot[frame_id], params.frame_trans[frame_id]))
+    cols = []
+    anc = set(_ancestors(model, fr.parent_joint))
+    for i in range(model.nj):
+        if i not in anc:
+            cols.append(torch.zeros(6, dtype=q.dtype, device=q.device))
+            continue
+        S = _joint_motion_subspace(model, params, i)
+        S_world = spatial.motion_act((rots[i], trans[i]), S)
+        if reference_frame == "world":
+            cols.append(S_world)
+        elif reference_frame == "local":
+            cols.append(spatial.motion_act_inv(oMf, S_world))
+        else:  # local_world_aligned: local linear/angular parts rotated to world
+            S_local = spatial.motion_act_inv(oMf, S_world)
+            R = oMf[0]
+            cols.append(torch.cat([R @ S_local[:3], R @ S_local[3:]]))
+    return torch.stack(cols, dim=-1)
+
+
+def frame_velocity(model: RobotModel, params: ModelParams, q, v,
+                   frame_id: int, reference_frame: str = "local_world_aligned"):
+    """Spatial velocity `[w; v]` of a frame (J @ v)."""
+    return frame_jacobian(model, params, q, frame_id, reference_frame) @ v

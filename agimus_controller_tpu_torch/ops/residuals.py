@@ -1,8 +1,8 @@
-"""Residuals r(x, u, ref) on tensors: the ones constraints reach.
+"""Residuals r(x, u, ref) on tensors.
 
-Port of the part of the JAX package's `ops/residuals.py` that
-`ocp/costs.py::_con_residual` calls: state, control, frame placement,
-translation and rotation, and the collision distance (crocoddyl / colmpc
+Port of the JAX package's `ops/residuals.py` without the control-grav
+residual: state, control, frame placement, translation, rotation and
+velocity, visual servoing and the collision distance (crocoddyl / colmpc
 residual models of the YAML DSL, `ocp/ocp_croco_generic.py:154-557`).
 Single-sample; Jacobians come from `torch.func` at the assembly level.
 """
@@ -50,6 +50,30 @@ def frame_rotation_residual(model: RobotModel, params: ModelParams, x,
     q = x[..., :model.nq]
     R, _ = _kinematics.frame_placement(model, params, q, frame_id)
     return spatial.log3(torch.swapaxes(ref_rot, -1, -2) @ R)
+
+
+def frame_velocity_residual(model: RobotModel, params: ModelParams, x,
+                            frame_id: int, ref_vel,
+                            reference_frame: str = "world"):
+    """r = nu_f(q, v) - nuref, `[6]` [w; v] (`ResidualModelFrameVelocity`)."""
+    nq = model.nq
+    q, v = x[..., :nq], x[..., nq:]
+    nu = _kinematics.frame_velocity(model, params, q, v, frame_id,
+                                    reference_frame)
+    return nu - ref_vel
+
+
+def visual_servoing_residual(model: RobotModel, params: ModelParams, x,
+                             frame_id: int, wMo_rot, wMo_trans, oMf_ref_rot,
+                             oMf_ref_trans):
+    """Frame-placement residual against the composed target
+    wMf_target = wMo_vision * oMf_target (`ResidualModelVisualServoing`,
+    `ocp_croco_generic.py:436-495`); the vision transform wMo is a runtime
+    input."""
+    ref_rot, ref_trans = spatial.se3_mul((wMo_rot, wMo_trans),
+                                         (oMf_ref_rot, oMf_ref_trans))
+    return frame_placement_residual(model, params, x, frame_id, ref_rot,
+                                    ref_trans)
 
 
 def collision_distance_residual(model: RobotModel, params: ModelParams, x,

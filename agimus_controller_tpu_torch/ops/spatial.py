@@ -1,5 +1,6 @@
-"""SO(3)/SE(3) maps on tensors: the part of the JAX package's
-`ops/spatial.py` that kinematics, collision and the frame residuals call.
+"""SO(3)/SE(3) maps and 6-D motion/force operations on tensors: the part
+of the JAX package's `ops/spatial.py` that kinematics, dynamics, collision
+and the residuals call.
 
 Conventions (as in the JAX package): a placement is the pair ``(R, p)`` with
 ``x_A = R @ x_B + p``; twists are ``[w; v]``. Every function takes leading
@@ -104,3 +105,61 @@ def se3_inv(m):
     R, p = m
     Rt = torch.swapaxes(R, -1, -2)
     return Rt, -torch.einsum("...ij,...j->...i", Rt, p)
+
+
+def _mv(R, x):
+    return torch.einsum("...ij,...j->...i", R, x)
+
+
+def motion_cross(m1, m2):
+    """Spatial motion cross product  m1 x m2."""
+    w1, v1 = m1[..., :3], m1[..., 3:]
+    w2, v2 = m2[..., :3], m2[..., 3:]
+    return torch.cat([torch.linalg.cross(w1, w2),
+                      torch.linalg.cross(w1, v2) + torch.linalg.cross(v1, w2)],
+                     dim=-1)
+
+
+def motion_cross_force(m, f):
+    """Spatial force cross product  m x* f  (dual of motion_cross)."""
+    w, v = m[..., :3], m[..., 3:]
+    n, fl = f[..., :3], f[..., 3:]
+    return torch.cat([torch.linalg.cross(w, n) + torch.linalg.cross(v, fl),
+                      torch.linalg.cross(w, fl)], dim=-1)
+
+
+def motion_act(m, nu):
+    """Motion vector from frame B to frame A, given the placement
+    ``m = (R, p)`` of B in A."""
+    R, p = m
+    w = _mv(R, nu[..., :3])
+    v = _mv(R, nu[..., 3:]) + torch.linalg.cross(p, w)
+    return torch.cat([w, v], dim=-1)
+
+
+def motion_act_inv(m, nu):
+    """Motion vector from frame A to frame B (inverse of `motion_act`)."""
+    R, p = m
+    Rt = torch.swapaxes(R, -1, -2)
+    w_a = nu[..., :3]
+    w = _mv(Rt, w_a)
+    v = _mv(Rt, nu[..., 3:] - torch.linalg.cross(p, w_a))
+    return torch.cat([w, v], dim=-1)
+
+
+def force_act(m, f):
+    """Force vector from frame B to frame A, given ``m = (R, p)``."""
+    R, p = m
+    fl = _mv(R, f[..., 3:])
+    n = _mv(R, f[..., :3]) + torch.linalg.cross(p, fl)
+    return torch.cat([n, fl], dim=-1)
+
+
+def inertia_apply(mass, com, I_com, nu):
+    """Body spatial inertia (mass, CoM offset, rotational inertia about the
+    CoM, in the body frame) applied to a local motion ``[w; v]``: the
+    momentum ``[n; f]`` about the body origin."""
+    w, v = nu[..., :3], nu[..., 3:]
+    p_lin = mass[..., None] * (v + torch.linalg.cross(w, com))
+    n = _mv(I_com, w) + torch.linalg.cross(com, p_lin)
+    return torch.cat([n, p_lin], dim=-1)

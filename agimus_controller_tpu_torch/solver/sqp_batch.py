@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.model import ModelParams, RobotModel
 from ..ocp.costs import build_constraint_functions
 from ..ocp.spec import ProblemSpec
@@ -99,13 +100,13 @@ class BatchSQP:
 
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, settings: CSQPSettings = CSQPSettings(),
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         if spec.soft_contact is not None:
             raise NotImplementedError(
                 "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
         self.T = spec.horizon
         self.settings = settings
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.stage_dk = make_cuda_stage(model, params, spec, True, self.device)
         self.stage_vk = make_cuda_stage(model, params, spec, False, self.device)
         self.term_dk = make_cuda_terminal(model, params, spec, True, self.device)
@@ -607,7 +608,7 @@ class _ADMM:
 
 def make_batch_sqp(model: RobotModel, params: ModelParams, spec: ProblemSpec,
                    settings: CSQPSettings = CSQPSettings(),
-                   device: torch.device | str = "cpu") -> BatchSQP:
+                   device: torch.device | str = DEFAULT_DEVICE) -> BatchSQP:
     """Build the batch SQP solver for `device` (see `BatchSQP`). Unlike the
     JAX factory it takes no `CostFunctions`: the constraint rows come from
     `spec` (`ocp.costs.build_constraint_functions`)."""

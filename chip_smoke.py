@@ -3,22 +3,29 @@
     python3 chip_smoke.py
 
 Builds the hand-written stage kernels (K1-K4) from `agimus_controller_tpu_torch/
-csrc/`, holds each against its plain-PyTorch version on the card on three
+csrc/`, holds each against its plain-PyTorch version on the card on five
 specs (the flagship goal tracking, the Pallas kernels' test spec with its
-collision item, and the shipped collision-avoidance YAML) with the collision
-term live, then drives the port's two main paths through `FusedTickRunner`:
+collision item, the shipped collision-avoidance YAML, the visual-servoing
+OCP `VS_OCP` and a visual-servoing + frame-velocity spec) with every term
+live, times each call and computes its bound, then drives the port's three
+main paths through `FusedTickRunner`, every entry point on the card:
 
 - the flagship chain: Panda, T=100, f32, unconstrained, checked to converge
   onto the streamed goal;
 - the collision path: Panda, T=19, f32, the shipped collision-avoidance OCP
   (quad_exp collision cost and a hard 1 cm distance constraint, solved by
   the batch SQP's ADMM branch) with a streamed goal that pulls link 7 onto
-  the band, checked to converge with the band held and active.
+  the band, checked to converge with the band held and active;
+- the visual-servoing path: Panda, T=19, f32, `VS_OCP` fed by a
+  `GenericVisualServoingTrajectory` over a quintic move, with the object
+  detected 2 cm from where the references were re-expressed, checked to
+  converge with the planned end effector on the detected target.
 
 Each path must have launched every kernel. Exits non-zero without a result
 when there is no CUDA device or any phase fails. The line before the last
-is a JSON object with the kernels' launches, errors and times; the last line
-is `{"ok": true, "device": {...}}`.
+is the card's name and power limit, the one before it a JSON object with
+the kernels' launches, errors, times and bounds; the last line is
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -52,6 +59,10 @@ KERNELS = (  # (name, factory, derivs, Pallas site it replaces)
      "agimus_controller_tpu/ops/pallas_costs.py:676"),
 )
 SOURCE = "agimus_controller_tpu_torch/csrc/stage_kernels.cu"
+# published H100 SXM peaks: device memory rate and fp32 outside the tensor
+# cores (the kernels' arithmetic)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
 PAIR = [("panda_link7_capsule", "obstacle_sphere")]
 ENV_URDF = """<?xml version="1.0"?>
 <robot name="env">
@@ -70,8 +81,8 @@ ENV_URDF = """<?xml version="1.0"?>
 
 
 
-def _cost(name, residual, activation, update=True):
-    return {"name": name, "update": update, "weight": 1.0,
+def _cost(name, residual, activation, update=True, weight=1.0):
+    return {"name": name, "update": update, "weight": weight,
             "cost": {"class": "CostModelResidual", "activation": activation,
                      "residual": residual}}
 
@@ -105,6 +116,43 @@ COLLISION_OCP = {
         "class": "IntegratedActionModelEuler",
         "differential": {"class": _DAM, "costs": [_STATE, _GOAL, _DISTANCE]}},
 }
+
+
+_VS = _cost("visual_servoing", {"class": "ResidualModelVisualServoing",
+                               "robot_frame": "panda_hand_tcp",
+                               "object_frame": "object"}, _QUAD)
+
+
+def _ee_velocity(reference_frame):
+    """End-effector velocity damping with static weights: the dynamic-id
+    frame velocity residual, bound to the end effector."""
+    return _cost("ee_velocity", {"class": "ResidualModelFrameVelocity", "id": 0,
+                                 "reference_frame": reference_frame},
+                 {"class": "ActivationModelWeightedQuad",
+                  "weights": [1.0, 1.0, 1.0, 1.0, 1.0, 1.0]},
+                 update=False, weight=0.1)
+
+
+# A visual-servoing controller in the reference's YAML format (no shipped
+# definition has these residuals): the streamed state and control
+# references, the visual-servoing pose term on the hand, whose target is the
+# streamed object-frame pose composed with the detected object transform
+# `wMo_*:object`, and an end-effector velocity damping.
+VS_OCP = {
+    "running_model": {
+        "class": "IntegratedActionModelEuler",
+        "differential": {
+            "class": _DAM,
+            "costs": [_STATE,
+                      _cost("control_reg", {"class": "ResidualModelControl"},
+                            _QUAD),
+                      _VS, _ee_velocity("LOCAL_WORLD_ALIGNED")]}},
+    "terminal_model": {
+        "class": "IntegratedActionModelEuler",
+        "differential": {"class": _DAM,
+                         "costs": [_STATE, _VS, _ee_velocity("LOCAL")]}},
+}
+VEL_FRAMES = ("world", "local", "local_world_aligned")
 
 
 def _sync(device):
@@ -189,10 +237,57 @@ def yaml_spec(T: int, model, dt: float = 0.01):
                          default_ee_frame="panda_hand_tcp")
 
 
+def vs_spec(T: int, model, dt: float = 0.01):
+    """The visual-servoing OCP `VS_OCP`, compiled by the port."""
+    from agimus_controller_tpu_torch.ocp.yaml_compiler import load_ocp_spec
+
+    return load_ocp_spec(VS_OCP, model, horizon=T, dt=dt,
+                         default_ee_frame="panda_hand_tcp")
+
+
+def fv_spec(T: int):
+    """A visual-servoing item and three frame-velocity items on the hand,
+    one per convention, streamed weights, in the running and the terminal
+    model (the JAX cost-pack tests' frame-velocity spec)."""
+    from agimus_controller_tpu_torch.ocp.spec import CostItem, ProblemSpec
+
+    hand = dict(update=True, frame="panda_hand_tcp")
+
+    def items(w_vs, w_vel):
+        return (CostItem(name="vs", kind="visual_servoing", weight=w_vs,
+                         object_frame="object", **hand),) + tuple(
+            CostItem(name=f"vel_{rf}", kind="frame_velocity", weight=w_vel,
+                     reference_frame=rf, **hand) for rf in VEL_FRAMES)
+
+    return ProblemSpec(running_costs=items(3.0, 1.0),
+                       terminal_costs=items(9.0, 4.0), horizon=T, dt=0.01)
+
+
 SPECS = {"flagship": lambda T, model: flagship_spec(T),
          "mixed": lambda T, model: mixed_spec(T),
-         "full": lambda T, model: full_spec(T), "yaml": yaml_spec}
-CHECKED_SPECS = ("flagship", "full", "yaml")  # phase 3 of the smoke run
+         "full": lambda T, model: full_spec(T), "yaml": yaml_spec,
+         "vs": vs_spec, "fv": lambda T, model: fv_spec(T)}
+CHECKED_SPECS = ("flagship", "full", "yaml", "vs", "fv")  # phase 3
+
+
+def moving_refs(spec, rng, Tn):
+    """Numpy refs that make the visual-servoing and frame-velocity terms
+    live, for a spec that has them (else {}): a non-identity object
+    transform `wMo`, randomized pose weights, frame velocity references and
+    their weights. The caller also draws v with scale 0.5."""
+    from agimus_controller_tpu_torch.ops.spatial import exp3
+
+    kinds = {i.kind for i in spec.all_costs()}
+    out = {}
+    if "visual_servoing" in kinds:
+        out["wMo_rot:object"] = exp3(torch.as_tensor(
+            rng.normal(size=3) * 0.5)).numpy()
+        out["wMo_trans:object"] = rng.normal(size=3) * 0.2
+        out["w_ee:panda_hand_tcp"] = rng.uniform(0.1, 2.0, (Tn, 6))
+    if "frame_velocity" in kinds:
+        out["ee_vel:panda_hand_tcp"] = rng.normal(size=(Tn, 6)) * 0.3
+        out["w_ee_vel:panda_hand_tcp"] = rng.uniform(0.1, 2.0, (Tn, 6))
+    return out
 
 
 def _collision_items(spec):
@@ -222,7 +317,9 @@ def randomized_inputs(spec, model, N, seed, device):
     pose, u ~ 2 N(0, 1); node times uniform over the horizon. With a
     collision item the obstacle sphere is streamed (`geom_trans`) 1 cm from
     the link-7 capsule at the ready pose, `w_coll` is randomized and x stays
-    within ~0.02 rad of the ready pose, so the collision term is live."""
+    within ~0.02 rad of the ready pose, so the collision term is live. With
+    visual-servoing or frame-velocity items, `moving_refs` and v ~ 0.5
+    N(0, 1) make those terms live."""
     from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
     from agimus_controller_tpu_torch.ocp.spec import default_references
 
@@ -242,7 +339,7 @@ def randomized_inputs(spec, model, N, seed, device):
     if _collision_items(spec):
         refs["w_coll"] = f(rng.uniform(0.5, 1.5, (Tn,)))
         _, params64 = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
         refs["geom_trans"] = f(obstacle_near_link7(model, params64))
         noise = 0.02
     x = f(np.concatenate([np.tile(PANDA_Q_READY, (N, 1)), np.zeros((N, 7))], 1)
@@ -250,6 +347,10 @@ def randomized_inputs(spec, model, N, seed, device):
     u = f(rng.normal(size=(N, 7)) * 2.0)
     t_idx = torch.as_tensor(rng.integers(0, T, size=(N,)), device=device)
     dt = f(spec.timesteps())[t_idx]
+    moving = moving_refs(spec, rng, Tn)
+    if moving:
+        refs.update({k: f(v) for k, v in moving.items()})
+        x[:, 7:] = f(rng.normal(size=(N, 7)) * 0.5)
     return refs, x, u, dt, t_idx
 
 
@@ -260,7 +361,7 @@ def live_share(spec, model, refs, x):
     from agimus_controller_tpu_torch.ops.collision import pair_distance
 
     _, params64 = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
-                             dtype=torch.float64)
+                             dtype=torch.float64, device="cpu")
     params64 = params64._replace(geom_trans=refs["geom_trans"].double().cpu())
     d = torch.func.vmap(lambda q: pair_distance(model, params64, q, 0))(
         x[:, :7].double().cpu())
@@ -304,14 +405,82 @@ def check_outputs(name, got, want, labels):
     return errs
 
 
-def check_kernels(model, params, device, sizes=(100, 102_400)):
-    """K1-K4 vs their plain versions on the same CUDA inputs, f32, on the
-    three checked specs. Returns {kernel: {spec: {N: numbers}}}."""
+def count_ops(fn) -> int:
+    """Element operations of `fn()`: every pointwise ATen op it runs,
+    counted once per element of its output (a TorchDispatchMode)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                self.n += sum(o.numel() for o in outs
+                              if isinstance(o, torch.Tensor))
+            return out
+
+    with Count() as c:
+        fn()
+    return c.n
+
+
+def ops_per_node(model_cpu, params_cpu, spec, kind, derivs, refs, x, u, dt,
+                 t_idx) -> int:
+    """Operations of one wrapper call per node: `count_ops` of the plain
+    version on the run's first node, on the CPU (the count does not depend
+    on the device). The plain version repeats the kernel's arithmetic in
+    component form; its derivatives take closed forms and one `jvp` per
+    tangent where the kernel runs one dual-number pass per tangent."""
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
         make_cuda_terminal,
     )
 
+    cpu = lambda t: t[:1].cpu()
+    refs = {k: v.cpu() for k, v in refs.items()}
+    if kind == "stage":
+        k = make_cuda_stage(model_cpu, params_cpu, spec, derivs, "cpu")
+        return count_ops(lambda: k.plain(cpu(x), cpu(u), cpu(dt), cpu(t_idx),
+                                         refs))
+    k = make_cuda_terminal(model_cpu, params_cpu, spec, derivs, "cpu")
+    return count_ops(lambda: k.plain(cpu(x), refs))
+
+
+def bound_ms(k, kind, n_nodes, ops_node):
+    """Least time of one call on the card: the larger of the bytes the
+    kernel must move (x, u, dt, the gathered ref rows and the packed
+    constants read once; every output written once) over the memory rate
+    and its operations over the fp32 rate. Returns (ms, "bytes" or
+    "operations")."""
+    nx, nj = 2 * k.nj, k.nj
+    per_node_in = nx + k.width + (nj + 1 if kind == "stage" else 0)
+    if kind == "stage":
+        per_node_out = (nx + 1 + nx * nx + nx * nj + nx + nj + nx * nx
+                        + nx * nj + nj * nj) if k.derivs else nx + 1
+    else:
+        per_node_out = 1 + nx + nx * nx if k.derivs else 1
+    n_bytes = 4 * (n_nodes * (per_node_in + per_node_out)
+                   + k._consts.numel())
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_nodes * ops_node / PEAK_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_kernels(model, params, device, sizes=(100, 102_400)):
+    """K1-K4 vs their plain versions on the same CUDA inputs, f32, on the
+    checked specs, with each call's time and bound. Returns {kernel: {spec:
+    {N: numbers}}}."""
+    from agimus_controller_tpu_torch.models.panda import load_panda
+    from agimus_controller_tpu_torch.ops.cuda_costs import (
+        make_cuda_stage,
+        make_cuda_terminal,
+    )
+
+    model_cpu, params_cpu = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
+                                       dtype=torch.float32, device="cpu")
     report = {}
     for spec_name in CHECKED_SPECS:
         spec = SPECS[spec_name](100, model)
@@ -338,18 +507,24 @@ def check_kernels(model, params, device, sizes=(100, 102_400)):
                 errs = check_outputs(f"{name} {spec_name} N={n_nodes}", got,
                                      plain(), labels)
                 ms = cuda_time_ms(run, reps=50)
-                # the plain versions at 102 400 nodes take seconds a call
-                plain_ms = cuda_time_ms(plain, reps=5 if n_nodes <= 1024 else 2,
-                                        warmup=1)
+                # the plain versions take up to seconds a call; the check
+                # above was their warm-up
+                plain_ms = cuda_time_ms(plain, reps=2, warmup=0)
+                if N == sizes[0]:
+                    ops_node = ops_per_node(model_cpu, params_cpu, spec, kind,
+                                            derivs, refs, x, u, dt, t_idx)
+                b_ms, b_by = bound_ms(k, kind, n_nodes, ops_node)
                 live = (f"  collision term live on "
                         f"{live_share(spec, model, refs, x):.0%} of nodes"
                         if "geom_trans" in refs else "")
                 print(f"{name:20s} {spec_name:8s} N={n_nodes:6d}  kernel "
-                      f"{ms:9.4f} ms  plain {plain_ms:9.3f} ms  max abs err "
-                      + " ".join(f"{lab}={e:.2e}" for lab, e in errs.items())
-                      + live)
+                      f"{ms:9.4f} ms  plain {plain_ms:9.3f} ms  bound "
+                      f"{b_ms:.6f} ms ({b_by}, {ops_node} ops/node)  max abs "
+                      "err " + " ".join(f"{lab}={e:.2e}"
+                                        for lab, e in errs.items()) + live)
                 report.setdefault(name, {}).setdefault(spec_name, {})[
-                    n_nodes] = dict(ms=ms, plain_ms=plain_ms,
+                    n_nodes] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by,
                                     max_abs_err=max(errs.values()))
     return report
 
@@ -384,7 +559,7 @@ def build_slice(device, n_ticks: int = 120):
     fid = model.frame_id("panda_hand_tcp")
 
     # host-side set-up numbers (f64, CPU): EE pose at q0 and gravity torque
-    _, params64 = load_panda(dtype=torch.float64)
+    _, params64 = load_panda(dtype=torch.float64, device="cpu")
     sm64 = _StaticModel(model, params64)
 
     def ee_pose(q):
@@ -516,7 +691,7 @@ def run_collision_path(device, n_settle: int = 20, n_timed: int = 20):
     model, params = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
                                dtype=dtype, device=device)
     _, params64 = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
-                             dtype=torch.float64)
+                             dtype=torch.float64, device="cpu")
     spec = yaml_spec(T, model)
     q0 = np.asarray(PANDA_Q_READY)
     x0 = np.concatenate([q0, np.zeros(7)])
@@ -620,6 +795,176 @@ def run_collision_path(device, n_settle: int = 20, n_timed: int = 20):
         f"{d_min * 1e3:.3f} mm (band 10 mm); launches {launches}")
 
 
+# the object pose first detected (the JAX cost-pack tests' vision
+# transform), and the later detection streamed to the solver: 2 cm along x
+WMO_ROTVEC, WMO_TRANS = (0.2, -0.1, 0.3), (0.4, 0.1, 0.2)
+WMO_SHIFT = (0.02, 0.0, 0.0)
+# a quintic joint-space move from the ready pose
+VS_MOVE = (0.15, -0.1, 0.1, 0.15, 0.0, 0.1, 0.0)
+# the weights of the JAX trajectory tests' visual-servoing run, with w_q
+# and w_qdot lowered from 1 to 0.1: at 1 the state and velocity references
+# hold the planned end effector 7-9 mm from the detected target after the
+# 41 ticks, at 0.1 it reaches 1.7 mm (CPU rehearsals of this chain, f32)
+VS_WEIGHTS = dict(w_q=np.full(7, 0.1), w_qdot=np.full(7, 0.1),
+                  w_qddot=np.zeros(7), w_robot_effort=np.full(7, 1e-3),
+                  w_pose=np.full(6, 10.0))
+VS_RAMP = dict(max_weight=50.0, percent=0.95, time_reach_percent=0.5)
+VS_MAX = dict(w_increasing_max_rotation=25.0,
+              w_increasing_max_collision_avoidance=4.0,
+              w_collision_avoidance=1.0)
+
+
+def vs_trajectory(model, params, n_points: int, dt: float):
+    """The streamed references of the visual-servoing path: a
+    `GenericTrajectory` over a quintic move from the ready pose (lasting 60%
+    of the points, then held), fed to a `GenericVisualServoingTrajectory`
+    whose window covers every point. Returns (generator, first detection
+    (R, p))."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+    from agimus_controller_tpu_torch.ops.spatial import exp3
+    from agimus_controller_tpu_torch.trajectories import (
+        GenericTrajectory,
+        GenericVisualServoingTrajectory,
+        QuinticTrajectory,
+        WeightIncreasing,
+    )
+
+    q0, move = np.asarray(PANDA_Q_READY), np.asarray(VS_MOVE)
+    ramp = QuinticTrajectory([0.6 * n_points * dt] * 7)
+    pva = [ramp.get_value_at_t(i * dt) for i in range(n_points)]
+    gt = GenericTrajectory("panda_hand_tcp", **VS_WEIGHTS)
+    gt.initialize(model, params, q0)
+    traj = gt.build_trajectory_from_q_dq_ddq_arrays(
+        [q0 + move * p for p, _, _ in pva], [move * v for _, v, _ in pva],
+        [move * a for _, _, a in pva])
+    vs = GenericVisualServoingTrajectory(
+        "panda_hand_tcp", dt, **VS_WEIGHTS,
+        w_increasing=WeightIncreasing(**VS_RAMP), **VS_MAX)
+    vs.initialize(model, params, q0)
+    wMo = (exp3(torch.as_tensor(WMO_ROTVEC, dtype=torch.float64)).numpy(),
+           np.asarray(WMO_TRANS))
+    vs.add_trajectory(traj, visual_servoing_idx_range=(0, n_points),
+                      init_in_world_M_object=wMo)
+    return vs, wMo
+
+
+def run_vs_path(device, n_settle: int = 20, n_timed: int = 20):
+    """Drive the visual-servoing path: `VS_OCP` on the Panda, T=19, dt 0.01,
+    f32, through a `GenericVisualServoingTrajectory`, a
+    `PackedTrajectoryBuffer` and a `FusedTickRunner`, with the object
+    detected 2 cm along x from where the trajectory was re-expressed. A
+    first solve at limit 100, `n_settle` ticks at limit 2, `n_timed` timed
+    ticks at limit 2, one final tick at limit 10; each tick starts from the
+    previous plan's next state, drifted by 0.002 rad. Returns (launches per
+    kernel, summary line)."""
+    from agimus_controller_tpu_torch.models.panda import load_panda
+    from agimus_controller_tpu_torch.mpc.buffer import DTFactorsNSeq
+    from agimus_controller_tpu_torch.mpc.ring import PackedTrajectoryBuffer, RowLayout
+    from agimus_controller_tpu_torch.mpc.tick import FusedTickRunner
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+    from agimus_controller_tpu_torch.ops.kinematics import frame_placement
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+
+    T, dt, dtype = 19, 0.01, torch.float32
+    model, params = load_panda(dtype=dtype, device=device)
+    _, params_traj = load_panda(dtype=torch.float64, device=device)
+    _, params64 = load_panda(dtype=torch.float64, device="cpu")
+    spec = vs_spec(T, model, dt)
+    n_ticks = n_settle + n_timed + 1
+    n_points = 3 * T + n_ticks + 1
+    vs, (R_o, p_o) = vs_trajectory(model, params_traj, n_points, dt)
+    layout = RowLayout(spec, model)
+    buf = PackedTrajectoryBuffer(DTFactorsNSeq(factors=[1], n_steps=[T]),
+                                 layout, dtype=dtype, device=device)
+    for i in range(n_points):
+        buf.append(vs.get_traj_point_at_t(i * dt))
+    p_det = p_o + np.asarray(WMO_SHIFT)
+    refs = default_references(spec, model, dtype=dtype, device=device)
+    refs["wMo_rot:object"] = torch.as_tensor(R_o, dtype=dtype, device=device)
+    refs["wMo_trans:object"] = torch.as_tensor(p_det, dtype=dtype,
+                                               device=device)
+    runner = FusedTickRunner(
+        model, params, spec, buf.ring, refs,
+        CSQPSettings(max_iters=10, reg_init=1e-7, termination_tolerance=1e-4),
+        dtype=dtype, device=device)
+    solver = runner.solver
+    field = {f.key: f for f in layout.fields}
+    w_ee, ee_trans = (field[f"{k}:panda_hand_tcp"] for k in ("w_ee", "ee_trans"))
+    first = vs.trajectory[0]
+    x0 = np.concatenate([first.robot_configuration, first.robot_velocity])
+    drift = torch.as_tensor(np.concatenate(
+        [np.random.default_rng(0).normal(size=(n_ticks, 7)) * 0.002,
+         np.zeros((n_ticks, 7))], 1), dtype=dtype, device=device)
+
+    def tick(i, limit):
+        return runner.step(runner.last.xs[1] + drift[i], limit=limit)
+
+    for k in solver.kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    runner.initialize(x0, np.tile(x0[None], (T + 1, 1)),
+                      np.tile(first.robot_effort[None], (T, 1)), limit=100)
+    _, _, kkt0, it0, conv0 = runner.fetch()
+    first_s = time.perf_counter() - t0
+    after_init = [k.launches for k in solver.kernels]
+    for i in range(n_settle):
+        tick(i, 2)
+    _sync(device)
+    syncs0 = solver.host_syncs
+    times, w_min = [], np.inf
+    for i in range(n_settle, n_settle + n_timed):
+        rows = buf.ring.host_horizon_rows()
+        w_min = min(w_min, float(rows[0, w_ee.offset:w_ee.offset + 6].min()))
+        t0 = time.perf_counter()
+        tick(i, 2)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    syncs = (solver.host_syncs - syncs0) / n_timed
+    rows = buf.ring.host_horizon_rows()
+    tick(n_ticks - 1, 10)
+    K0, u0, kkt, iters, conv = runner.fetch()
+    launches = dict(zip([k[0] for k in KERNELS],
+                        (k.launches for k in solver.kernels)))
+
+    for (name, a), b in zip(zip(launches, after_init), launches.values()):
+        if b <= a:
+            raise AssertionError(
+                f"visual-servoing path: {name} was not launched during the ticks")
+    if not (np.all(np.isfinite(u0)) and np.all(np.isfinite(K0))):
+        raise AssertionError("visual-servoing path: non-finite control message")
+    if not conv:
+        raise AssertionError(
+            f"visual-servoing path: final tick did not converge (kkt={kkt:.2e})")
+    if not w_min > 0.0:
+        raise AssertionError(
+            f"visual-servoing path: streamed pose weight {w_min} on a timed tick")
+    # the planned terminal end effector against the terminal node's target
+    # under the streamed (shifted) detection and under the first one
+    term = rows[-1].astype(np.float64)
+    p_ref = term[ee_trans.offset:ee_trans.offset + 3]  # in the object frame
+    xT = runner.last.xs[-1].double().cpu()
+    _, pT = frame_placement(model, params64, xT[:7],
+                            model.frame_id("panda_hand_tcp"))
+    pT = pT.numpy()
+    d_det = float(np.linalg.norm(pT - (R_o @ p_ref + p_det)))
+    d_first = float(np.linalg.norm(pT - (R_o @ p_ref + p_o)))
+    if not (d_det < 0.01 and d_det < d_first):
+        raise AssertionError(
+            f"visual-servoing path: terminal end effector {d_det * 1e3:.2f} mm "
+            f"from the detected target, {d_first * 1e3:.2f} mm from the first "
+            "detection's")
+    return launches, (
+        f"visual-servoing path: first solve {first_s:.2f} s, iters={it0} "
+        f"kkt={kkt0:.2e} conv={conv0}; tick median "
+        f"{float(np.median(times)) * 1e3:.3f} ms over {n_timed} ticks at "
+        f"limit 2 (host clock, synchronized); {syncs:.2f} host syncs per "
+        f"tick; min streamed pose weight on the timed ticks {w_min:.3f}; "
+        f"final tick iters={iters} kkt={kkt:.2e} conv={conv}; terminal end "
+        f"effector {d_det * 1e3:.3f} mm from the detected target, "
+        f"{d_first * 1e3:.3f} mm from the first detection's; launches "
+        f"{launches}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -653,14 +998,18 @@ def main():
                                dtype=torch.float32, device=device)
     report = check_kernels(model, params, device)
 
-    # -- 4. the main paths: the flagship chain, then the collision path
-    launches, slice_stats = run_slice(device)
-    print(slice_stats)
-    coll_launches, coll_stats = run_collision_path(device)
-    print(coll_stats)
+    # -- 4. the main paths: the flagship chain, the collision path and the
+    # visual-servoing path
+    launches = {name: 0 for name, *_ in KERNELS}
+    for run in (run_slice, run_collision_path, run_vs_path):
+        path_launches, stats = run(device)
+        print(stats)
+        for name in launches:
+            launches[name] += path_launches[name]
 
-    # -- 5. result: launches over both paths, the max error over every
-    # checked spec and size, times at the flagship tick shape
+    # -- 5. result: launches over the three paths, the max error over every
+    # checked spec and size, times and bounds at the flagship tick shape
+    # (no single PyTorch call computes a fused stage: no library time)
     kernels = []
     for name, kind, derivs, replaces in KERNELS:
         tick_n = 100 if kind == "stage" else 1
@@ -668,10 +1017,10 @@ def main():
         err = max(v["max_abs_err"] for per_spec in report[name].values()
                   for v in per_spec.values())
         kernels.append(dict(name=name, route="cuda", source=SOURCE,
-                            replaces=replaces,
-                            launches=launches[name] + coll_launches[name],
+                            replaces=replaces, launches=launches[name],
                             max_abs_err=err, ms=r["ms"],
-                            plain_ms=r["plain_ms"]))
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -124,7 +124,7 @@ class Case:
                            collision_pairs=[("l2_capsule", "obstacle")],
                            dtype=np.float64)
         self.jm, self.jp = jm, jp
-        self.p = params_from_numpy(jp, dtype=torch.float64)
+        self.p = params_from_numpy(jp, dtype=torch.float64, device="cpu")
         self.js = _jax_spec(name, jm)
         self.ps = to_port_spec(self.js)
         self.cf = build_cost_functions(jm, jp, self.js, dtype=jnp.float64)
@@ -177,9 +177,11 @@ class Case:
                                            JaxSettings(**SETTINGS)))
         ref = solve(jnp.asarray(x0s), {k: jnp.asarray(v) for k, v in refs.items()},
                     jnp.asarray(xs), jnp.asarray(us), None, jnp.asarray(y0))
-        port = make_batch_sqp(self.jm, self.p, self.ps, CSQPSettings(**SETTINGS))
+        port = make_batch_sqp(self.jm, self.p, self.ps, CSQPSettings(**SETTINGS),
+                              device="cpu")
         t = torch.as_tensor
-        sol = port(t(x0s), refs_from_numpy(refs), t(xs), t(us), None, t(y0))
+        sol = port(t(x0s), refs_from_numpy(refs, device="cpu"), t(xs), t(us),
+                   None, t(y0))
         return ref, sol
 
     # -- a chained fused-tick run ----------------------------------------
@@ -209,7 +211,7 @@ class Case:
         seq = DTFactorsNSeq(factors=[1], n_steps=[T])
         jbuf = JaxBuffer(seq, JaxRowLayout(self.js, self.jm), dtype=jnp.float64)
         pbuf = PackedTrajectoryBuffer(seq, RowLayout(self.ps, self.jm),
-                                      dtype=torch.float64)
+                                      dtype=torch.float64, device="cpu")
         for i in range(3 * T):
             jbuf.append(self._point(i))
             pbuf.append(self._point(i))
@@ -217,12 +219,14 @@ class Case:
         jrefs = dict(jspec.default_references(self.js, self.jm,
                                               dtype=jnp.float64))
         jrefs.update({k: jnp.asarray(v) for k, v in base.items()})
-        prefs = tspec.default_references(self.ps, self.jm, dtype=torch.float64)
-        prefs.update(refs_from_numpy(base))
+        prefs = tspec.default_references(self.ps, self.jm, dtype=torch.float64,
+                                         device="cpu")
+        prefs.update(refs_from_numpy(base, device="cpu"))
         jrun = JaxRunner(self.jm, self.jp, self.js, self.cf, jbuf.ring, jrefs,
                          JaxSettings(**SETTINGS), dtype=jnp.float64)
         prun = FusedTickRunner(self.jm, self.p, self.ps, pbuf.ring, prefs,
-                               CSQPSettings(**SETTINGS), dtype=torch.float64)
+                               CSQPSettings(**SETTINGS), dtype=torch.float64,
+                               device="cpu")
         xs0 = np.tile(self.x0[None], (T + 1, 1))
         us0 = np.tile(self.tau_g[None], (T, 1))
         jrun.initialize(self.x0, xs0, us0, limit=50)

@@ -52,7 +52,7 @@ t = torch.as_tensor
 def panda():
     jm, jp = jax_load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
                             dtype=np.float64)
-    return jm, jp, params_from_numpy(jp, dtype=torch.float64)
+    return jm, jp, params_from_numpy(jp, dtype=torch.float64, device="cpu")
 
 
 def _qs(n, seed, scale=0.3):
@@ -183,7 +183,7 @@ def test_component_capsule_distance_matches_jax(panda, override):
     oR, op = batched_costs._fk_world(sm, list(t(qs).unbind(1)))
     joR, jop = jbc._fk_world(jsm, [jnp.asarray(qs[:, i]) for i in range(7)])
     gi, gj = jm.collision_pairs[0]
-    prefs = refs_from_numpy(refs)
+    prefs = refs_from_numpy(refs, device="cpu")
     jrefs = {k: jnp.asarray(v) for k, v in refs.items()}
     poses = [batched_costs._geom_placement_c(jm, p, oR, op, g, prefs)
              for g in (gi, gj)]
@@ -299,11 +299,11 @@ def constraint_case(request, panda):
         Gx=np.concatenate([Gx, GxT[None]]),
         Gu=np.concatenate([Gu, np.zeros_like(Gu[:1])]))
     ps = to_port_spec(js)
-    solver = make_batch_sqp(jm, p, ps, CSQPSettings())
+    solver = make_batch_sqp(jm, p, ps, CSQPSettings(), device="cpu")
     got = dict(zip(("g", "lb", "ub", "Gx", "Gu"), (a.numpy() for a in solver.constraints_of(
-        t(xs), t(us), refs_from_numpy(refs)))))
+        t(xs), t(us), refs_from_numpy(refs, device="cpu")))))
     vals = dict(zip(("g", "lb", "ub"), (a.numpy() for a in solver.constraint_vals(
-        t(xs), t(us), refs_from_numpy(refs)))))
+        t(xs), t(us), refs_from_numpy(refs, device="cpu")))))
     pcf = build_constraint_functions(jm, p, ps)
     return dict(want=want, got=got, vals=vals, cf=cf, pcf=pcf)
 

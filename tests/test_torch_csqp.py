@@ -60,13 +60,15 @@ def test_tick_carries_duals_of_every_row(case):
     was fixed at one column, which broke every such spec)."""
     seq = DTFactorsNSeq(factors=[1], n_steps=[T])
     buf = PackedTrajectoryBuffer(seq, RowLayout(case.ps, case.jm),
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     for i in range(3 * T):
         buf.append(case._point(i))
-    refs = tspec.default_references(case.ps, case.jm, dtype=torch.float64)
-    refs.update(refs_from_numpy(case.base_refs()))
+    refs = tspec.default_references(case.ps, case.jm, dtype=torch.float64,
+                                    device="cpu")
+    refs.update(refs_from_numpy(case.base_refs(), device="cpu"))
     runner = FusedTickRunner(case.jm, case.p, case.ps, buf.ring, refs,
-                             CSQPSettings(**SETTINGS), dtype=torch.float64)
+                             CSQPSettings(**SETTINGS), dtype=torch.float64,
+                             device="cpu")
     out = runner.initialize(case.x0, np.tile(case.x0[None], (T + 1, 1)),
                             np.tile(case.tau_g[None], (T, 1)), limit=5)
     assert tuple(out.y.shape) == (T + 1, 3)

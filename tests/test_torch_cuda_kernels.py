@@ -4,9 +4,10 @@ Marked `cuda`: skips without a CUDA device (a CUDA kernel has no CPU
 mode; its math is held against the JAX package on the CPU by
 `test_torch_stage.py` through the plain versions). The specs are
 `chip_smoke.py`'s: the flagship goal tracking, the Pallas test spec without
-("mixed") and with ("full") its collision item, and the shipped
-collision-avoidance YAML; the collision specs get inputs that keep the
-collision term live. On a GPU machine:
+("mixed") and with ("full") its collision item, the shipped
+collision-avoidance YAML, the visual-servoing OCP ("vs") and the
+visual-servoing + frame-velocity spec ("fv"); the inputs keep the
+collision, visual-servoing and frame-velocity terms live. On a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
@@ -41,7 +42,8 @@ def panda(device):
 
 @pytest.mark.parametrize("N", SIZES)
 @pytest.mark.parametrize("kernel", [k[0] for k in smoke.KERNELS])
-@pytest.mark.parametrize("spec_name", ["flagship", "mixed", "full", "yaml"])
+@pytest.mark.parametrize("spec_name", ["flagship", "mixed", "full", "yaml",
+                                       "vs", "fv"])
 def test_kernel_matches_plain(device, panda, spec_name, kernel, N):
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,

@@ -37,7 +37,7 @@ PAIR = [("panda_link7_capsule", "obstacle_sphere")]
 def case():
     jm, jp = jax_load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
                             dtype=np.float64)
-    p = params_from_numpy(jp, dtype=torch.float64)
+    p = params_from_numpy(jp, dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(0)
     x = np.concatenate([np.tile(PANDA_Q_READY, (N, 1)), np.zeros((N, NJ))], 1)
     x = x + rng.normal(size=(N, 2 * NJ)) * 0.3

@@ -63,3 +63,12 @@ def test_module_imports_without_jax(import_results, module):
 def test_collision_path_module_is_probed(module):
     """The collision path's modules are among the modules probed above."""
     assert f"{PKG}.{module}" in MODULES
+
+
+@pytest.mark.parametrize("module", [
+    "device", "ops.dynamics", "trajectories", "trajectories.base",
+    "trajectories.generic"])
+def test_vs_path_module_is_probed(module):
+    """The visual-servoing path's new modules are among the modules probed
+    above."""
+    assert f"{PKG}.{module}" in MODULES

@@ -20,12 +20,12 @@ def _build(name):
         jm, jp = jax_load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
                                 dtype=np.float64)
         m, p = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     else:
         arm = np.array([0.1, 0.1])
         jm, jp = jax_build(URDF_2DOF, armature=arm, dtype=np.float64)
         m, p = build_model_from_urdf(URDF_2DOF, armature=arm,
-                                     dtype=torch.float64)
+                                     dtype=torch.float64, device="cpu")
     return jm, jp, m, p
 
 
@@ -58,19 +58,21 @@ def test_params_field_equal(built, field):
 
 def test_params_from_numpy_round_trip(built):
     _, jp, _, p = built
-    carried = params_from_numpy(jp, dtype=torch.float64)
+    carried = params_from_numpy(jp, dtype=torch.float64, device="cpu")
     back = params_from_numpy(
-        ModelParams(*(t.numpy() for t in carried)), dtype=torch.float64)
+        ModelParams(*(t.numpy() for t in carried)), dtype=torch.float64,
+        device="cpu")
     for f in ModelParams._fields:
         np.testing.assert_array_equal(getattr(carried, f).numpy(),
                                       getattr(p, f).numpy())
         np.testing.assert_array_equal(getattr(back, f).numpy(),
                                       getattr(p, f).numpy())
-    f32 = params_from_numpy(jp, dtype=torch.float32)
+    f32 = params_from_numpy(jp, dtype=torch.float32, device="cpu")
     assert all(getattr(f32, f).dtype == torch.float32 for f in ModelParams._fields)
 
 
 def test_xacro_not_ported():
     with pytest.raises(NotImplementedError):
         build_model_from_urdf(
-            '<robot xmlns:xacro="http://www.ros.org/wiki/xacro" name="r"/>')
+            '<robot xmlns:xacro="http://www.ros.org/wiki/xacro" name="r"/>',
+            device="cpu")

@@ -6,11 +6,16 @@ kernels' own CPU tests do (`_item_terms_c` + `dynamics_terms` on component
 arrays, per-node refs from `gather_node_refs`), on the flagship goal-tracking
 spec, on the Pallas test spec without and with its collision item
 (quad_exp, alpha 1e-2, `update=True`; plus the pair under the exp activation
-in the terminal model), and on the shipped collision-avoidance YAML
-(quad_exp, alpha 1e-4). The collision specs get a randomized `w_coll`
-and a `geom_trans` override that puts the obstacle sphere 1 cm from the
-link-7 capsule at the ready pose, so the collision term is live. Tolerances
-in f64: x+ and l atol 1e-10; every derivative block atol 1e-8, rtol 1e-8.
+in the terminal model), on the shipped collision-avoidance YAML
+(quad_exp, alpha 1e-4), on `chip_smoke.py`'s visual-servoing OCP (`vs`:
+the visual-servoing pose term and static-weight frame-velocity damping) and
+on its `fv` spec (visual servoing plus one frame-velocity item per
+convention). The collision specs get a randomized `w_coll` and a
+`geom_trans` override that puts the obstacle sphere 1 cm from the link-7
+capsule at the ready pose, so the collision term is live; the `vs` and `fv`
+specs get a non-identity object transform, randomized pose and velocity
+references and weights, and joint velocities of scale 0.5. Tolerances in
+f64: x+ and l atol 1e-10; every derivative block atol 1e-8, rtol 1e-8.
 """
 
 import dataclasses
@@ -96,9 +101,21 @@ def yaml_jax_spec(model):
         horizon=T, dt=0.01, default_ee_frame="panda_hand_tcp")
 
 
+def to_jax_spec(s):
+    items = lambda seq: tuple(jspec.CostItem(**dataclasses.asdict(i)) for i in seq)
+    return jspec.ProblemSpec(
+        running_costs=items(s.running_costs),
+        terminal_costs=items(s.terminal_costs), horizon=s.horizon, dt=s.dt,
+        dt_factor_n_seq=s.dt_factor_n_seq)
+
+
 SPECS = {"flagship": lambda jm: flagship_jax_spec(),
          "mixed": lambda jm: mixed_jax_spec(),
-         "full": lambda jm: full_jax_spec(), "yaml": yaml_jax_spec}
+         "full": lambda jm: full_jax_spec(), "yaml": yaml_jax_spec,
+         "vs": lambda jm: jax_load_ocp_spec(
+             chip_smoke.VS_OCP, jm, horizon=T, dt=0.01,
+             default_ee_frame="panda_hand_tcp"),
+         "fv": lambda jm: to_jax_spec(chip_smoke.fv_spec(T))}
 
 
 def _jax_eval(jm, jp, spec, items, refs, x, u, t_idx, dts, running):
@@ -150,7 +167,7 @@ def _jax_eval(jm, jp, spec, items, refs, x, u, t_idx, dts, running):
 def panda():
     jm, jp = jax_load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
                             dtype=np.float64)
-    return jm, jp, params_from_numpy(jp, dtype=torch.float64)
+    return jm, jp, params_from_numpy(jp, dtype=torch.float64, device="cpu")
 
 
 @pytest.fixture(scope="module", params=sorted(SPECS))
@@ -179,21 +196,28 @@ def case(request, panda):
     u = rng.normal(size=(N, 7)) * 2.0
     t_idx = rng.integers(0, T, size=(N,))
     dts = np.asarray(js.timesteps())[t_idx]
+    moving = chip_smoke.moving_refs(js, rng, Tn)
+    if moving:
+        refs.update(moving)
+        x[:, 7:] = rng.normal(size=(N, 7)) * 0.5
     jrefs = {k: jnp.asarray(v) for k, v in refs.items()}
     stage_ref, jrows = _jax_eval(jm, jp, js, js.running_costs, jrefs, x, u,
                                  t_idx, dts, True)
     term_ref, _ = _jax_eval(jm, jp, js, js.terminal_costs, jrefs, x, u,
                             np.full(N, T), dts, False)
 
-    trefs = refs_from_numpy(refs)
+    trefs = refs_from_numpy(refs, device="cpu")
     tt = lambda a: torch.as_tensor(a)
     args = (tt(x), tt(u), tt(dts), tt(t_idx), trefs)
-    stage = dict(zip(STAGE_OUT, cuda_costs.make_cuda_stage(jm, p, ps, True)(*args)))
-    stage_v = dict(zip(("xnext", "l"),
-                       cuda_costs.make_cuda_stage(jm, p, ps, False)(*args)))
-    term = dict(zip(TERM_OUT, cuda_costs.make_cuda_terminal(jm, p, ps, True)(
-        tt(x), trefs)))
-    (term_v,) = cuda_costs.make_cuda_terminal(jm, p, ps, False)(tt(x), trefs)
+    cpu = dict(device="cpu")
+    stage = dict(zip(STAGE_OUT, cuda_costs.make_cuda_stage(jm, p, ps, True,
+                                                           **cpu)(*args)))
+    stage_v = dict(zip(("xnext", "l"), cuda_costs.make_cuda_stage(
+        jm, p, ps, False, **cpu)(*args)))
+    term = dict(zip(TERM_OUT, cuda_costs.make_cuda_terminal(
+        jm, p, ps, True, **cpu)(tt(x), trefs)))
+    (term_v,) = cuda_costs.make_cuda_terminal(jm, p, ps, False, **cpu)(
+        tt(x), trefs)
     layout = cuda_costs._ref_layout(jm, tuple(ps.running_costs))
     rows = cuda_costs.gather_node_refs(
         layout, cuda_costs.with_geom_defaults(layout, trefs, p), tt(t_idx),
@@ -246,16 +270,12 @@ def test_uncovered_kind_raises_on_cuda(panda):
     on the device; there is no quiet fallback."""
     jm, _, p = panda
     full = to_port_spec(pallas_test_spec(None, T))
-    full = dataclasses.replace(full, running_costs=full.running_costs + (
-        tspec.CostItem(name="vel", kind="frame_velocity",
-                       frame="panda_hand_tcp"),))
+    soft = dataclasses.replace(full, soft_contact=object())
     cuda = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="frame_velocity"):
-        cuda_costs.make_cuda_stage(jm, p, full, True, device=cuda)
-    with pytest.raises(NotImplementedError, match="frame_velocity"):
-        cuda_costs.make_cuda_terminal(
-            jm, p, dataclasses.replace(full, terminal_costs=full.running_costs),
-            False, device=cuda)
+    with pytest.raises(NotImplementedError, match="soft contact"):
+        cuda_costs.make_cuda_stage(jm, p, soft, True, device=cuda)
+    with pytest.raises(NotImplementedError, match="soft contact"):
+        cuda_costs.make_cuda_terminal(jm, p, soft, False, device=cuda)
     exp = to_port_spec(flagship_jax_spec())
     exp = dataclasses.replace(exp, running_costs=exp.running_costs[:1] + (
         tspec.CostItem(name="g", kind="frame_placement", activation="exp",

@@ -65,7 +65,8 @@ def arm():
         jm, jp, jnp.asarray(Q0), jm.frame_id("tip")))
     tau_g = np.asarray(dynamics.rnea(jm, jp, jnp.asarray(Q0), jnp.zeros(2),
                                      jnp.zeros(2)))
-    return dict(jm=jm, jp=jp, p=params_from_numpy(jp, dtype=torch.float64),
+    return dict(jm=jm, jp=jp, p=params_from_numpy(jp, dtype=torch.float64,
+                                                  device="cpu"),
                 js=js, ps=to_port_spec(js), R0=R0, p0=p0, tau_g=tau_g,
                 cf=build_cost_functions(jm, jp, js, dtype=jnp.float64))
 
@@ -88,7 +89,7 @@ def _buffers(arm, n):
     seq = DTFactorsNSeq(factors=[1], n_steps=[T])
     jbuf = JaxBuffer(seq, JaxRowLayout(arm["js"], arm["jm"]), dtype=jnp.float64)
     pbuf = PackedTrajectoryBuffer(seq, RowLayout(arm["ps"], arm["jm"]),
-                                  dtype=torch.float64)
+                                  dtype=torch.float64, device="cpu")
     for i in range(n):
         jbuf.append(_point(i, arm))
         pbuf.append(_point(i, arm))
@@ -112,7 +113,8 @@ def horizon(arm):
     jrefs = jbuf.ring.layout.unpack_refs(
         jrows, jax_default_refs(arm["js"], arm["jm"], dtype=jnp.float64))
     prefs = pbuf.ring.layout.unpack_refs(
-        prows, default_references(arm["ps"], arm["jm"], dtype=torch.float64))
+        prows, default_references(arm["ps"], arm["jm"], dtype=torch.float64,
+                                  device="cpu"))
     return jrefs, prefs, np.asarray(jrows), prows.numpy()
 
 
@@ -139,7 +141,8 @@ def test_batch_sqp_matches_jax(arm, horizon, B):
     solve = jax.jit(jax_make_batch_sqp(arm["jm"], arm["jp"], arm["js"],
                                        arm["cf"], JaxSettings(**SETTINGS)))
     ref = solve(jnp.asarray(x0s), jrefs, jnp.asarray(xs), jnp.asarray(us))
-    port = make_batch_sqp(arm["jm"], arm["p"], arm["ps"], CSQPSettings(**SETTINGS))
+    port = make_batch_sqp(arm["jm"], arm["p"], arm["ps"], CSQPSettings(**SETTINGS),
+                          device="cpu")
     t = torch.as_tensor
     sol = port(t(x0s), prefs, t(xs), t(us))
     for f in ("xs", "us", "K", "k", "cost", "kkt", "gap_norm"):
@@ -161,8 +164,9 @@ def chained(arm):
                      JaxSettings(**SETTINGS), dtype=jnp.float64)
     prun = FusedTickRunner(arm["jm"], arm["p"], arm["ps"], pbuf.ring,
                            default_references(arm["ps"], arm["jm"],
-                                              dtype=torch.float64),
-                           CSQPSettings(**SETTINGS), dtype=torch.float64)
+                                              dtype=torch.float64, device="cpu"),
+                           CSQPSettings(**SETTINGS), dtype=torch.float64,
+                           device="cpu")
     x0 = np.concatenate([Q0, np.zeros(2)])
     xs0 = np.tile(x0[None], (T + 1, 1))
     us0 = np.tile(arm["tau_g"][None], (T, 1))
@@ -198,9 +202,9 @@ def test_nonuniform_shift_matches_jax_integrator(arm):
                                dt_factor_n_seq=((1, 4), (2, 2)))
     seq = DTFactorsNSeq(factors=[1, 2], n_steps=[4, 2])
     buf = PackedTrajectoryBuffer(seq, RowLayout(spec, arm["jm"]),
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     tick = make_fused_tick(arm["jm"], arm["p"], spec, buf.ring,
-                           CSQPSettings(**SETTINGS))
+                           CSQPSettings(**SETTINGS), device="cpu")
     rng = np.random.default_rng(3)
     xs = rng.normal(size=(7, 4)) * 0.3
     us = rng.normal(size=(6, 2))

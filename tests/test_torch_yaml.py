@@ -1,10 +1,11 @@
 """The port's YAML OCP compiler vs the JAX package's, field by field.
 
-Both shipped definitions (read from `agimus_controller_tpu/ocp/definitions/`)
-and a control-limit YAML written here compile to equal specs, from a path,
-from text and from an already-parsed tree; `chip_smoke.py`'s copy of the
-collision-avoidance tree, which lets the card's machine run without PyYAML,
-equals `yaml.safe_load` of the file.
+Both shipped definitions (read from `agimus_controller_tpu/ocp/definitions/`),
+a control-limit YAML written here and `chip_smoke.py`'s visual-servoing OCP
+`VS_OCP` compile to equal specs, from a path, from text and from an
+already-parsed tree; `chip_smoke.py`'s copy of the collision-avoidance tree,
+which lets the card's machine run without PyYAML, equals `yaml.safe_load` of
+the file.
 """
 
 import dataclasses
@@ -63,7 +64,8 @@ terminal_model:
         residual: {class: ResidualModelFrameRotation, frame_id: panda_hand_tcp}
 """
 SOURCES = {"goal_reaching": GOAL_YAML, "collision": COLLISION_YAML,
-           "control_limit": CONTROL_LIMIT_YAML}
+           "control_limit": CONTROL_LIMIT_YAML,
+           "visual_servoing": yaml.safe_dump(chip_smoke.VS_OCP)}
 
 
 @pytest.fixture(scope="module")
@@ -117,3 +119,23 @@ def test_collision_spec_from_constant(model):
     assert (con.kind, con.lower, con.upper, con.terminal) == (
         "collision_distance", (0.01,), (float("inf"),), True)
     assert torch.isfinite(torch.tensor(spec.timesteps())).all()
+
+
+def test_vs_spec_from_constant(model):
+    """The compiled `VS_OCP`: the visual-servoing term on the hand with the
+    `object` transform, and the static-weight velocity damping bound to the
+    hand, local-world-aligned while running and local at the end."""
+    spec = load_ocp_spec(chip_smoke.VS_OCP, model, horizon=19, dt=0.01,
+                         default_ee_frame="panda_hand_tcp")
+    for items, conv in ((spec.running_costs, "local_world_aligned"),
+                        (spec.terminal_costs, "local")):
+        (vs,) = [i for i in items if i.kind == "visual_servoing"]
+        (vel,) = [i for i in items if i.kind == "frame_velocity"]
+        assert (vs.frame, vs.object_frame, vs.update) == (
+            "panda_hand_tcp", "object", True)
+        assert (vel.frame, vel.reference_frame, vel.update) == (
+            "panda_hand_tcp", conv, False)
+        assert vel.act_weights == (1.0,) * 6
+    assert [i.kind for i in spec.running_costs] == [
+        "state", "control", "visual_servoing", "frame_velocity"]
+    assert not spec.constraints
