@@ -8,9 +8,12 @@ becomes `cuda_X.py`, whose hand-written kernels live under `csrc/`.
 - ``models`` — URDF -> `RobotModel` topology + `ModelParams` tensors.
 - ``ocp``    — static problem specs, the YAML compiler, runtime reference
                dicts and the constraint rows.
-- ``ops``    — component-form rigid-body numerics (plain PyTorch) and the
-               fused stage/terminal kernels (`ops/cuda_costs.py`).
-- ``solver`` — the batch multiple-shooting SQP with its ADMM branch.
+- ``ops``    — component-form rigid-body numerics and batched cost packs
+               (plain PyTorch), the fused stage/terminal kernels
+               (`ops/cuda_costs.py`) and the dynamics-step kernels
+               (`ops/cuda_dynamics.py`).
+- ``solver`` — the batch multiple-shooting SQP with its ADMM branch, and
+               the batch FDDP.
 - ``mpc``    — reference buffer, device-resident ring, fused MPC tick.
 - ``trajectories`` — reference generators and the visual-servoing state
                machine.

@@ -5,6 +5,7 @@
 //   ag_stage(derivs=0)    K2  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_stage(derivs=False)
 //   ag_terminal(derivs=1) K3  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_terminal(derivs=True)
 //   ag_terminal(derivs=0) K4  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_terminal(derivs=False)
+// (K3/K4 live in terminal_kernels.cu, so the two build in parallel.)
 // (the Pallas stage body inlines pallas_dynamics.py::dynamics_terms, as
 // stage_node does here).
 //
@@ -31,16 +32,12 @@
 
 #include <cuda_runtime.h>
 
+#include "kernel_common.cuh"
 #include "stage_kernels.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;
-
-__device__ void load_constants(float* C, const float* consts, int len) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x) C[i] = consts[i];
-  __syncthreads();
-}
+using ag::kBlock;
 
 template <int NJ, bool DERIVS>
 __global__ void stage_kernel(int N, const float* x, const float* u,
@@ -50,22 +47,11 @@ __global__ void stage_kernel(int N, const float* x, const float* u,
                              float* lx, float* lu, float* lxx, float* lxu,
                              float* luu) {
   extern __shared__ float C[];
-  load_constants(C, consts, consts_len);
+  ag::load_constants(C, consts, consts_len);
   int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   ag::stage_node<NJ, DERIVS>(n, x, u, dt, rows, W, C, n_items, xnext, Fx, Fu,
                              l, lx, lu, lxx, lxu, luu);
-}
-
-template <int NJ, bool DERIVS>
-__global__ void terminal_kernel(int N, const float* x, const float* rows,
-                                int W, const float* consts, int consts_len,
-                                int n_items, float* l, float* lx, float* lxx) {
-  extern __shared__ float C[];
-  load_constants(C, consts, consts_len);
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  ag::terminal_node<NJ, DERIVS>(n, x, rows, W, C, n_items, l, lx, lxx);
 }
 
 }  // namespace
@@ -91,25 +77,6 @@ int ag_stage(int nj, int derivs, int N, const float* x, const float* u,
   else if (nj == 2) AG_STAGE(2, false);
   else return (int)cudaErrorInvalidValue;
 #undef AG_STAGE
-  return (int)cudaGetLastError();
-}
-
-int ag_terminal(int nj, int derivs, int N, const float* x, const float* rows,
-                int W, const float* consts, int consts_len, int n_items,
-                float* l, float* lx, float* lxx, void* stream) {
-  if (N <= 0) return 0;
-  dim3 grid((N + kBlock - 1) / kBlock), block(kBlock);
-  size_t smem = (size_t)consts_len * sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-#define AG_TERM(NJ, D)                                                   \
-  terminal_kernel<NJ, D><<<grid, block, smem, s>>>(                      \
-      N, x, rows, W, consts, consts_len, n_items, l, lx, lxx)
-  if (nj == 7 && derivs) AG_TERM(7, true);
-  else if (nj == 7) AG_TERM(7, false);
-  else if (nj == 2 && derivs) AG_TERM(2, true);
-  else if (nj == 2) AG_TERM(2, false);
-  else return (int)cudaErrorInvalidValue;
-#undef AG_TERM
   return (int)cudaGetLastError();
 }
 

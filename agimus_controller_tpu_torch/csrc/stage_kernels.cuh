@@ -1,9 +1,11 @@
-// Per-node programs of the fused stage kernels K1-K4 (see stage_kernels.cu).
+// Per-node programs of the fused stage kernels K1-K4 (see stage_kernels.cu)
+// and of the dynamics-step kernels K5a/K5b (step_kernels.cu).
 //
-// One call computes one node: the semi-implicit Euler step with Fx/Fu, and
-// the Gauss-Newton pack of every cost item of the descriptor table. The
-// same math, in plain PyTorch component form, is
-// `ops/cuda_dynamics.py::dynamics_terms` and `ops/cuda_costs.py::_item_terms_c`.
+// One call computes one node: the semi-implicit Euler step with Fx/Fu
+// (`dynamics_node`, all of K5a/K5b), and for K1-K4 the Gauss-Newton pack of
+// every cost item of the descriptor table. The same math, in plain PyTorch
+// component form, is `ops/cuda_dynamics.py::dynamics_terms` and
+// `ops/cuda_costs.py::_item_terms_c`.
 //
 // Every function here is `__host__ __device__` and free of CUDA built-ins,
 // so the header also compiles as host C++.
@@ -763,27 +765,17 @@ AG_FN void node_costs(const float* C, int n_items, const float* row,
   }
 }
 
-// ---- one node of K1 (DERIVS) / K2 ------------------------------------------
-// Inputs node-major: x [N, 2NJ], u [N, NJ], dt [N], rows [N, W]. Outputs
-// node-major in the shapes of the JAX `make_pallas_stage` run; unused
-// outputs may be null when DERIVS is false.
+// ---- the dynamics of one node (K5a; K5b when DERIVS) -----------------------
+// Semi-implicit Euler step at (q, v, u, dt = h): joint transforms, RNEA bias,
+// mass matrix, Cholesky, x+ into xo [NX]; when DERIVS also Fx into fx
+// [NX*NX] and Fu into fu [NX*NJ] (row-major): 2 NJ dual-number RNEA passes
+// and the M^-1 columns. The joint transforms at q are left in R, P for the
+// caller's cost items. The Pallas body is `pallas_dynamics.py::dynamics_terms`.
 template <int NJ, bool DERIVS>
-AG_FN void stage_node(int n, const float* x, const float* u, const float* dt,
-                      const float* rows, int W, const float* C, int n_items,
-                      float* xnext, float* Fx, float* Fu, float* l, float* lx,
-                      float* lu, float* lxx, float* lxu, float* luu) {
+AG_FN void dynamics_node(const float* C, const float* q, const float* v,
+                         const float* un, float h, M3<float>* R, V3<float>* P,
+                         float* xo, float* fx, float* fu) {
   constexpr int NX = 2 * NJ;
-  const float* row = rows + (long)n * W;
-  float q[NJ], v[NJ], un[NJ];
-  for (int i = 0; i < NJ; ++i) {
-    q[i] = x[(long)n * NX + i];
-    v[i] = x[(long)n * NX + NJ + i];
-    un[i] = u[(long)n * NJ + i];
-  }
-  float h = dt[n];
-
-  M3<float> R[NJ];
-  V3<float> P[NJ];
   joint_transforms<NJ, float>(C, q, R, P);
   float z[NJ], b[NJ], M[NJ * NJ], L[NJ * NJ], rhs[NJ], a[NJ];
   for (int i = 0; i < NJ; ++i) z[i] = 0.f;
@@ -792,18 +784,12 @@ AG_FN void stage_node(int n, const float* x, const float* u, const float* dt,
   chol_factor<NJ>(M, L);
   for (int i = 0; i < NJ; ++i) rhs[i] = un[i] - b[i];
   chol_solve<NJ>(L, rhs, a);
-  float* xo = xnext + (long)n * NX;
   for (int i = 0; i < NJ; ++i) {
     float vn = v[i] + h * a[i];
     xo[NJ + i] = vn;
     xo[i] = q[i] + h * vn;
   }
-
-  float* lxn = nullptr; float* lun = nullptr; float* lxxn = nullptr;
-  float* lxun = nullptr; float* luun = nullptr;
   if (DERIVS) {
-    float* fx = Fx + (long)n * NX * NX;
-    float* fu = Fu + (long)n * NX * NJ;
     float h2 = h * h;
     // Fx: da/d(q,v) = -M^-1 d rnea(q, v, a)/d(q, v), a held fixed
     for (int k = 0; k < NX; ++k) {
@@ -841,6 +827,37 @@ AG_FN void stage_node(int n, const float* x, const float* u, const float* dt,
         fu[(NJ + i) * NJ + j] = h * col[i];
       }
     }
+  }
+}
+
+// ---- one node of K1 (DERIVS) / K2 ------------------------------------------
+// Inputs node-major: x [N, 2NJ], u [N, NJ], dt [N], rows [N, W]. Outputs
+// node-major in the shapes of the JAX `make_pallas_stage` run; unused
+// outputs may be null when DERIVS is false.
+template <int NJ, bool DERIVS>
+AG_FN void stage_node(int n, const float* x, const float* u, const float* dt,
+                      const float* rows, int W, const float* C, int n_items,
+                      float* xnext, float* Fx, float* Fu, float* l, float* lx,
+                      float* lu, float* lxx, float* lxu, float* luu) {
+  constexpr int NX = 2 * NJ;
+  const float* row = rows + (long)n * W;
+  float q[NJ], v[NJ], un[NJ];
+  for (int i = 0; i < NJ; ++i) {
+    q[i] = x[(long)n * NX + i];
+    v[i] = x[(long)n * NX + NJ + i];
+    un[i] = u[(long)n * NJ + i];
+  }
+  float h = dt[n];
+
+  M3<float> R[NJ];
+  V3<float> P[NJ];
+  dynamics_node<NJ, DERIVS>(C, q, v, un, h, R, P, xnext + (long)n * NX,
+                            DERIVS ? Fx + (long)n * NX * NX : nullptr,
+                            DERIVS ? Fu + (long)n * NX * NJ : nullptr);
+
+  float* lxn = nullptr; float* lun = nullptr; float* lxxn = nullptr;
+  float* lxun = nullptr; float* luun = nullptr;
+  if (DERIVS) {
     lxn = lx + (long)n * NX;
     lun = lu + (long)n * NJ;
     lxxn = lxx + (long)n * NX * NX;

@@ -242,7 +242,8 @@ class _Mat66:
         return ((out[0], out[1], out[2]), (out[3], out[4], out[5]))
 
 
-def gravity_torque_with_dq(sm: _StaticModel, q: List, Xs=None):
+def gravity_torque_with_dq(sm: _StaticModel, q: List, Xs=None,
+                           with_dq: bool = True):
     """Gravity torque g(q) = rnea(q, 0, 0) and its Jacobian dg/dq, closed
     form.  At v = a = 0 the general derivatives collapse: every body's
     spatial acceleration is the gravity twist a_root = (0, -g), so
@@ -253,8 +254,9 @@ def gravity_torque_with_dq(sm: _StaticModel, q: List, Xs=None):
         dg_i/dq_j = <s_i, d_j>               (j descendant-or-self of i)
                   = <IC_i s_i, a_root x s_j> (j strict ancestor of i)
 
-    Returns (g: list of nj [B] arrays, Dg: nested list [i][j]).  Used by the
-    control-grav residual pack (reference: `ResidualModelControlGrav`,
+    Returns (g: list of nj [B] arrays, Dg: nested list [i][j]; None when
+    not ``with_dq``, for callers that need the cost value only).  Used by
+    the control-grav residual pack (reference: `ResidualModelControlGrav`,
     `ocp_croco_generic.py:186-197`) where it replaces nj autodiff tangent
     passes with ~100 fused flops per joint.
     """
@@ -297,6 +299,8 @@ def gravity_torque_with_dq(sm: _StaticModel, q: List, Xs=None):
     fA = [(_scale(-1.0, _cross(IC[j].hc, gvec)),
            _scale(-IC[j].M, gvec)) for j in range(nj)]
     tau = [_v6_dot(s[i], fA[i]) for i in range(nj)]
+    if not with_dq:
+        return tau, None
 
     b1 = [_mcross(a_root, s[j]) for j in range(nj)]
     d = [_v6_add(_fcross(s[j], fA[j]), IC[j].apply(b1[j]))

@@ -11,6 +11,7 @@ ONE kernel launch per stage. Port of the JAX package's
     K4  make_cuda_terminal(derivs=False)  l
 
 Each wrapper launches the hand-written CUDA kernel of `csrc/stage_kernels.cu`
+(K1/K2) or `csrc/terminal_kernels.cu` (K3/K4)
 on CUDA tensors, and runs its plain-PyTorch version (`plain`, the same math
 in component form) on CPU tensors. There is no fallback from one to the
 other: a CUDA tensor reaches the kernel or the wrapper raises.
@@ -59,7 +60,13 @@ from .batched_costs import (
     _log6_c,
 )
 from .batched_dynamics import _StaticModel, _add, _matmul, _matvec, _sub
-from .cuda_dynamics import dynamics_terms
+from .cuda_dynamics import (
+    KERNEL_NJ,
+    _check_input,
+    _pack_model,
+    _ptr,
+    dynamics_terms,
+)
 
 # in the order of the kernels' kind codes (`K_*`, `csrc/stage_kernels.cuh`)
 COVERED_KINDS = ("state", "control", "control_grav", "frame_placement",
@@ -70,10 +77,9 @@ _FRAME_KINDS = ("frame_placement", "frame_translation", "frame_rotation",
 _POSE_KINDS = ("frame_placement", "frame_translation", "frame_rotation",
                "visual_servoing")
 ACTIVATIONS = ("weighted_quad", "exp", "quad_exp")
-KERNEL_NJ = (2, 7)  # joint counts the kernels are instantiated for
 
-# packed-constants layout; must match `csrc/stage_kernels.cuh`
-_JSTRIDE = 31  # rot 9, trans 3, axis 3, type, parent, mass, com 3, inertia 9, armature
+# cost-descriptor layout after the packed model constants (`_pack_model`);
+# must match `csrc/stage_kernels.cuh`
 _ISTRIDE = 84
 _I_KIND, _I_WEIGHT, _I_PJOINT, _I_FROT, _I_FTRANS = 0, 1, 2, 3, 12
 _I_REF, _I_W, _I_TRANS, _I_SREF, _I_SW = 15, 16, 17, 18, 32
@@ -488,20 +494,8 @@ def _check_supported(spec: ProblemSpec, model: RobotModel,
 def _pack_constants(model: RobotModel, params: ModelParams, items,
                     offsets) -> np.ndarray:
     """Model constants + cost-descriptor table as one float32 buffer."""
-    nj = model.nj
     P = {f: getattr(params, f).detach().to("cpu", torch.float64).numpy()
          for f in ModelParams._fields}
-    joints = np.zeros((nj, _JSTRIDE))
-    for i in range(nj):
-        joints[i, 0:9] = P["joint_rot"][i].reshape(-1)
-        joints[i, 9:12] = P["joint_trans"][i]
-        joints[i, 12:15] = P["axis"][i]
-        joints[i, 15] = 0.0 if model.joint_types[i] == "revolute" else 1.0
-        joints[i, 16] = model.parents[i]
-        joints[i, 17] = P["mass"][i]
-        joints[i, 18:21] = P["com"][i]
-        joints[i, 21:30] = P["inertia"][i].reshape(-1)
-        joints[i, 30] = P["armature"][i]
     desc = np.zeros((len(items), _ISTRIDE))
     desc[:, _I_REF:_I_TRANS + 1] = -1.0
     desc[:, _I_WCOLL] = -1.0
@@ -560,23 +554,8 @@ def _pack_constants(model: RobotModel, params: ModelParams, items,
             if item.kind in ("state", "control"):
                 sref = item.static_ref or (0.0,) * nr
                 d[_I_SREF:_I_SREF + nr] = [float(s) for s in sref[:nr]]
-    return np.concatenate([joints.reshape(-1), P["gravity"],
+    return np.concatenate([_pack_model(model, params),
                            desc.reshape(-1)]).astype(np.float32)
-
-
-def _check_input(name, t, device, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the kernel on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 for the CUDA kernel, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 class _StageBase:

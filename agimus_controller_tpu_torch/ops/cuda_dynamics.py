@@ -1,8 +1,20 @@
-"""Plain-PyTorch semi-implicit Euler step with its Jacobians, per node.
+"""Dynamics-step kernels K5a/K5b and the semi-implicit Euler step per node.
 
-`dynamics_terms` is the reference math of the device function that the
-stage kernels (`csrc/stage_kernels.cuh::stage_node`, wrapped by
-`ops/cuda_costs.py`) run for every node: joint transforms, RNEA bias, CRBA
+Port of the JAX package's `ops/pallas_dynamics.py`:
+
+    K5a  make_cuda_step         x+                (make_pallas_step)
+    K5b  make_cuda_step_derivs  x+, Fx, Fu        (make_pallas_step_derivs)
+
+Each wrapper (`StepKernel`) launches the hand-written CUDA kernel of
+`csrc/step_kernels.cu` on CUDA tensors and runs its plain-PyTorch version
+(`dynamics_terms`) on CPU tensors; a CUDA tensor reaches the kernel or the
+wrapper raises. They are also the port's counterpart of the XLA steps
+`ops/batched_dynamics.py::make_batched_step(_with_derivs)`, which have the
+same semantics: the port's batch FDDP calls them directly.
+
+`dynamics_terms` is the reference math of the device function
+`csrc/stage_kernels.cuh::dynamics_node` that K5a/K5b and the stage kernels
+(`ops/cuda_costs.py`) run for every node: joint transforms, RNEA bias, CRBA
 mass matrix, unrolled Cholesky, and Fx/Fu through the RNEA identity
 
     d a / d(q,v) = -M~^-1 d rnea(q, v, a) / d(q, v)   (a held fixed)
@@ -17,8 +29,14 @@ independent routes.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..models.model import ModelParams, RobotModel
+from . import _build
 from .analytic_derivs import rnea_qv_derivatives
 from .batched_dynamics import (
     _StaticModel,
@@ -125,3 +143,134 @@ def euler_step(sm: _StaticModel, x, u, dt):
         sm, list(x[:, :nj].unbind(1)), list(x[:, nj:].unbind(1)),
         list(u.unbind(1)), dtt, False)
     return torch.stack(xn, 1)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+KERNEL_NJ = (2, 7)  # joint counts the kernels are instantiated for
+# packed model constants; must match `csrc/stage_kernels.cuh` (J_*): per
+# joint rot 9, trans 3, axis 3, type, parent, mass, com 3, inertia 9,
+# armature; then gravity 3
+_JSTRIDE = 31
+
+
+def _pack_model(model: RobotModel, params: ModelParams) -> np.ndarray:
+    """Joint constants and gravity as one float64 vector (the head of every
+    kernel's packed constants)."""
+    nj = model.nj
+    P = {f: getattr(params, f).detach().to("cpu", torch.float64).numpy()
+         for f in ("joint_rot", "joint_trans", "axis", "mass", "com",
+                   "inertia", "armature", "gravity")}
+    joints = np.zeros((nj, _JSTRIDE))
+    for i in range(nj):
+        joints[i, 0:9] = P["joint_rot"][i].reshape(-1)
+        joints[i, 9:12] = P["joint_trans"][i]
+        joints[i, 12:15] = P["axis"][i]
+        joints[i, 15] = 0.0 if model.joint_types[i] == "revolute" else 1.0
+        joints[i, 16] = model.parents[i]
+        joints[i, 17] = P["mass"][i]
+        joints[i, 18:21] = P["com"][i]
+        joints[i, 21:30] = P["inertia"][i].reshape(-1)
+        joints[i, 30] = P["armature"][i]
+    return np.concatenate([joints.reshape(-1), P["gravity"]])
+
+
+def _check_input(name, t, device, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the kernel on {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32 for the CUDA kernel, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+class StepKernel:
+    """K5a (derivs=False) / K5b (derivs=True): the semi-implicit Euler step.
+
+    `__call__(x [N,nx], u [N,nj], dt)` with dt a Python float, a 0-d tensor
+    or an [N] tensor returns x+ [N,nx], or (x+, Fx [N,nx,nx], Fu [N,nx,nj])
+    with derivs, node-major: the shapes of the JAX `make_pallas_step(_derivs)`
+    dense entry."""
+
+    def __init__(self, model: RobotModel, params: ModelParams, derivs: bool,
+                 device: torch.device | str = DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and model.nj not in KERNEL_NJ:
+            raise NotImplementedError(
+                f"the step kernels are instantiated for nj in {KERNEL_NJ}, "
+                f"not {model.nj}")
+        self.nj, self.derivs = model.nj, derivs
+        self.sm = _StaticModel(model, params)
+        self.launches = 0  # kernel launches (CUDA path only)
+        self._consts = None
+        if self.device.type == "cuda":
+            self._consts = torch.as_tensor(
+                _pack_model(model, params).astype(np.float32),
+                device=self.device)
+
+    def __call__(self, x, u, dt):
+        if x.device.type == "cpu":
+            return self.plain(x, u, dt)
+        if self._consts is None or x.device != self.device:
+            raise ValueError(
+                f"wrapper built for {self.device}, called with {x.device}")
+        lib = _build.load_library()
+        N, nj = x.shape[0], self.nj
+        nx = 2 * nj
+        if not isinstance(dt, torch.Tensor):
+            dt = torch.full((N,), dt, dtype=x.dtype, device=x.device)
+        elif dt.ndim == 0:
+            dt = dt.expand(N).contiguous()
+        for name, t, shape in (("x", x, (N, nx)), ("u", u, (N, nj)),
+                               ("dt", dt, (N,))):
+            _check_input(name, t, self.device, shape)
+        new = lambda *s: torch.empty((N,) + s, dtype=x.dtype, device=x.device)
+        outs = (new(nx), new(nx, nx), new(nx, nj)) if self.derivs else (new(nx),)
+        ptrs = [_ptr(o) for o in outs] + [None] * (3 - len(outs))
+        err = lib.ag_step(
+            nj, int(self.derivs), N, _ptr(x), _ptr(u), _ptr(dt),
+            _ptr(self._consts), self._consts.numel(), *ptrs,
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"step kernel launch failed: {_build.error_string(err)}")
+        self.launches += 1
+        return outs if self.derivs else outs[0]
+
+    def plain(self, x, u, dt):
+        """The plain-PyTorch version (`dynamics_terms`), on the inputs' own
+        device."""
+        N, nj = x.shape[0], self.nj
+        nx = 2 * nj
+        dtt = x.new_zeros(N) + dt
+        xn, fx, fu = dynamics_terms(
+            self.sm, list(x[:, :nj].unbind(1)), list(x[:, nj:].unbind(1)),
+            list(u.unbind(1)), dtt, self.derivs)
+        xn = torch.stack(xn, 1)
+        if not self.derivs:
+            return xn
+        zero = x.new_zeros(N)
+        dense = lambda comps, shape: torch.stack(
+            [c + zero for c in comps], 1).reshape((N,) + shape)
+        return xn, dense(fx, (nx, nx)), dense(fu, (nx, nj))
+
+
+def make_cuda_step(model: RobotModel, params: ModelParams,
+                   device: torch.device | str = DEFAULT_DEVICE) -> StepKernel:
+    """K5a wrapper for `device`: `step(x, u, dt) -> x+` (see `StepKernel`)."""
+    return StepKernel(model, params, False, device)
+
+
+def make_cuda_step_derivs(model: RobotModel, params: ModelParams,
+                          device: torch.device | str = DEFAULT_DEVICE
+                          ) -> StepKernel:
+    """K5b wrapper for `device`: `f(x, u, dt) -> (x+, Fx, Fu)` (see
+    `StepKernel`)."""
+    return StepKernel(model, params, True, device)

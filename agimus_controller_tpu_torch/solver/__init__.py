@@ -1,1 +1,2 @@
-"""OCP solvers: the unconstrained batch multiple-shooting SQP (`sqp_batch`)."""
+"""OCP solvers: the batch multiple-shooting SQP (`sqp_batch`) and the batch
+FDDP (`fddp_batch`)."""

@@ -1,33 +1,21 @@
 """Solver settings of the batch SQP (mim_solvers `SolverCSQP` semantics).
 
-The settings dataclasses of the JAX package's `solver/fddp.py`
-(`SolverSettings`) and `solver/csqp.py` (`CSQPSettings`), with the same
-fields and defaults. The port's batch solver reads all of them: the ADMM
-fields (`max_qp_iters`, `eps_*`, `rho`, `adaptive_rho`,
-`constraint_envelope`, `envelope_tol`, `soc_iters`) drive its constrained
-branch. `sweep_f64` is not ported: the sweeps run in the trajectory dtype.
+`CSQPSettings` of the JAX package's `solver/csqp.py`, with the same fields
+and defaults, over `SolverSettings` (whose home is `solver/fddp.py`, as in
+the JAX package; imported here so every existing import keeps working). The
+port's batch solver reads all of them: the ADMM fields (`max_qp_iters`,
+`eps_*`, `rho`, `adaptive_rho`, `constraint_envelope`, `envelope_tol`,
+`soc_iters`) drive its constrained branch. `sweep_f64` is not ported: the
+sweeps run in the trajectory dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from .fddp import SolverSettings
 
-@dataclasses.dataclass(frozen=True)
-class SolverSettings:
-    """Static solver configuration (mirrors `OCPParamsBaseCroco`,
-    `ocp_param_base.py:31-85`, solver side)."""
-
-    max_iters: int = 10
-    n_alphas: int = 10  # step ladder alpha_i = 0.5 ** i
-    termination_tolerance: float = 1e-3  # KKT inf-norm
-    reg_init: float = 1e-9
-    reg_min: float = 1e-9
-    reg_max: float = 1e9
-    reg_inc: float = 10.0
-    reg_dec: float = 10.0
-    use_filter_line_search: bool = True  # mim_solvers default in the reference
-    accept_ratio: float = 0.1  # fraction of expected decrease to accept
+__all__ = ["CSQPSettings", "SolverSettings"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written stage kernels (K1-K4) from `agimus_controller_tpu_torch/
-csrc/`, holds each against its plain-PyTorch version on the card on five
-specs (the flagship goal tracking, the Pallas kernels' test spec with its
-collision item, the shipped collision-avoidance YAML, the visual-servoing
-OCP `VS_OCP` and a visual-servoing + frame-velocity spec) with every term
-live, times each call and computes its bound, then drives the port's three
-main paths through `FusedTickRunner`, every entry point on the card:
+Builds the hand-written kernels from `agimus_controller_tpu_torch/csrc/`:
+the stage kernels K1-K4 and the dynamics-step kernels K5a/K5b. Holds K1-K4
+against their plain-PyTorch versions on the card on five specs (the
+flagship goal tracking, the Pallas kernels' test spec with its collision
+item, the shipped collision-avoidance YAML, the visual-servoing OCP
+`VS_OCP` and a visual-servoing + frame-velocity spec) with every term live,
+and K5a/K5b at the batch path's shapes with per-node and scalar dt; times
+each call and computes its bound. Then drives the port's four main paths,
+every entry point on the card, the first three through `FusedTickRunner`:
 
 - the flagship chain: Panda, T=100, f32, unconstrained, checked to converge
   onto the streamed goal;
@@ -19,12 +21,18 @@ main paths through `FusedTickRunner`, every entry point on the card:
 - the visual-servoing path: Panda, T=19, f32, `VS_OCP` fed by a
   `GenericVisualServoingTrajectory` over a quintic move, with the object
   detected 2 cm from where the references were re-expressed, checked to
-  converge with the planned end effector on the detected target.
+  converge with the planned end effector on the detected target;
+- the batch path: `make_batch_fddp` at the JAX bench's batch width, Panda,
+  T=100, B=4096, f32, 10 iterations, the flagship spec with a goal 12 cm
+  from the ready pose and x0 perturbed per scenario, solved on three x0
+  variants (solves/s), after a B=8 solve of the first variant's rows 0-7
+  that the B=4096 solve must reproduce.
 
-Each path must have launched every kernel. Exits non-zero without a result
-when there is no CUDA device or any phase fails. The line before the last
-is the card's name and power limit, the one before it a JSON object with
-the kernels' launches, errors, times and bounds; the last line is
+The tick paths must have launched every stage kernel, the batch path both
+step kernels and no stage kernel. Exits non-zero without a result when
+there is no CUDA device or any phase fails. The line before the last is
+the card's name and power limit, the one before it a JSON object with the
+kernels' launches, errors, times and bounds; the last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -57,8 +65,19 @@ KERNELS = (  # (name, factory, derivs, Pallas site it replaces)
      "agimus_controller_tpu/ops/pallas_costs.py:676"),
     ("K4_terminal_value", "terminal", False,
      "agimus_controller_tpu/ops/pallas_costs.py:676"),
+    ("K5a_step", "step", False,
+     "agimus_controller_tpu/ops/pallas_dynamics.py:208"),
+    ("K5b_step_derivs", "step", True,
+     "agimus_controller_tpu/ops/pallas_dynamics.py:208"),
 )
-SOURCE = "agimus_controller_tpu_torch/csrc/stage_kernels.cu"
+STAGE_KERNELS = tuple(k for k in KERNELS if k[1] != "step")  # K1-K4
+STEP_KERNELS = tuple(k for k in KERNELS if k[1] == "step")  # K5a, K5b
+SOURCES = {"stage": "agimus_controller_tpu_torch/csrc/stage_kernels.cu",
+           "terminal": "agimus_controller_tpu_torch/csrc/terminal_kernels.cu",
+           "step": "agimus_controller_tpu_torch/csrc/step_kernels.cu"}
+# the batch path's shapes of the step kernels: K5a steps the B = 4096
+# scenarios of a rollout, K5b linearises all T x B = 409 600 nodes
+STEP_SIZES = {"K5a_step": 4096, "K5b_step_derivs": 409_600}
 # published H100 SXM peaks: device memory rate and fp32 outside the tensor
 # cores (the kernels' arithmetic)
 PEAK_BYTES_PER_S = 3.35e12
@@ -439,6 +458,11 @@ def ops_per_node(model_cpu, params_cpu, spec, kind, derivs, refs, x, u, dt,
     )
 
     cpu = lambda t: t[:1].cpu()
+    if kind == "step":
+        from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
+
+        k = StepKernel(model_cpu, params_cpu, derivs, "cpu")
+        return count_ops(lambda: k.plain(cpu(x), cpu(u), cpu(dt)))
     refs = {k: v.cpu() for k, v in refs.items()}
     if kind == "stage":
         k = make_cuda_stage(model_cpu, params_cpu, spec, derivs, "cpu")
@@ -455,11 +479,15 @@ def bound_ms(k, kind, n_nodes, ops_node):
     and its operations over the fp32 rate. Returns (ms, "bytes" or
     "operations")."""
     nx, nj = 2 * k.nj, k.nj
-    per_node_in = nx + k.width + (nj + 1 if kind == "stage" else 0)
-    if kind == "stage":
+    if kind == "step":
+        per_node_in = nx + nj + 1
+        per_node_out = nx + (nx * nx + nx * nj if k.derivs else 0)
+    elif kind == "stage":
+        per_node_in = nx + k.width + nj + 1
         per_node_out = (nx + 1 + nx * nx + nx * nj + nx + nj + nx * nx
                         + nx * nj + nj * nj) if k.derivs else nx + 1
     else:
+        per_node_in = nx + k.width
         per_node_out = 1 + nx + nx * nx if k.derivs else 1
     n_bytes = 4 * (n_nodes * (per_node_in + per_node_out)
                    + k._consts.numel())
@@ -484,7 +512,7 @@ def check_kernels(model, params, device, sizes=(100, 102_400)):
     report = {}
     for spec_name in CHECKED_SPECS:
         spec = SPECS[spec_name](100, model)
-        for name, kind, derivs, _ in KERNELS:
+        for name, kind, derivs, _ in STAGE_KERNELS:
             if kind == "stage":
                 k = make_cuda_stage(model, params, spec, derivs, device)
                 labels = STAGE_OUT if derivs else ("xnext", "l")
@@ -509,7 +537,7 @@ def check_kernels(model, params, device, sizes=(100, 102_400)):
                 ms = cuda_time_ms(run, reps=50)
                 # the plain versions take up to seconds a call; the check
                 # above was their warm-up
-                plain_ms = cuda_time_ms(plain, reps=2, warmup=0)
+                plain_ms = cuda_time_ms(plain, reps=1, warmup=0)
                 if N == sizes[0]:
                     ops_node = ops_per_node(model_cpu, params_cpu, spec, kind,
                                             derivs, refs, x, u, dt, t_idx)
@@ -529,7 +557,63 @@ def check_kernels(model, params, device, sizes=(100, 102_400)):
     return report
 
 
-def build_slice(device, n_ticks: int = 120):
+def step_inputs(N, seed, device, dt_kind):
+    """Random Panda nodes around the ready pose with v and u live:
+    q ~ ready + 0.1 N(0, 1), v ~ 0.5 N(0, 1), u ~ 2 N(0, 1); dt per node
+    uniform in [0.005, 0.03], or the scalar 0.01."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    x = f(np.concatenate([np.asarray(PANDA_Q_READY)[None]
+                          + rng.normal(size=(N, 7)) * 0.1,
+                          rng.normal(size=(N, 7)) * 0.5], 1))
+    u = f(rng.normal(size=(N, 7)) * 2.0)
+    dt = f(rng.uniform(0.005, 0.03, N)) if dt_kind == "per_node" else 0.01
+    return x, u, dt
+
+
+def check_step_kernels(model, params, device):
+    """K5a and K5b vs their plain versions on the same CUDA inputs, f32, at
+    the batch path's two sizes, with per-node and scalar dt; each call's
+    time (per-node dt) and bound. Returns {kernel: {N: numbers}}."""
+    from agimus_controller_tpu_torch.models.panda import load_panda
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
+
+    model_cpu, params_cpu = load_panda(dtype=torch.float32, device="cpu")
+    report = {}
+    for name, kind, derivs, _ in STEP_KERNELS:
+        k = StepKernel(model, params, derivs, device)
+        labels = ("xnext", "Fx", "Fu") if derivs else ("xnext",)
+        for N in sorted(STEP_SIZES.values()):
+            errs = {}
+            for dt_kind in ("scalar", "per_node"):
+                x, u, dt = step_inputs(N, N + derivs, device, dt_kind)
+                run = lambda: k(x, u, dt)
+                plain = lambda: k.plain(x, u, dt)
+                as_tuple = lambda o: o if derivs else (o,)
+                got = as_tuple(run())
+                torch.cuda.synchronize()
+                for lab, e in check_outputs(
+                        f"{name} N={N} {dt_kind} dt", got, as_tuple(plain()),
+                        labels).items():
+                    errs[lab] = max(errs.get(lab, 0.0), e)
+            ms = cuda_time_ms(run, reps=50 if N <= 4096 else 20)
+            plain_ms = cuda_time_ms(plain, reps=1, warmup=0)
+            ops_node = ops_per_node(model_cpu, params_cpu, None, kind, derivs,
+                                    None, x, u, dt, None)
+            b_ms, b_by = bound_ms(k, kind, N, ops_node)
+            print(f"{name:20s} {'':8s} N={N:6d}  kernel {ms:9.4f} ms  plain "
+                  f"{plain_ms:9.3f} ms  bound {b_ms:.6f} ms ({b_by}, "
+                  f"{ops_node} ops/node)  max abs err "
+                  + " ".join(f"{lab}={e:.2e}" for lab, e in errs.items()))
+            report.setdefault(name, {})[N] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=max(errs.values()))
+    return report
+
+
+def build_slice(device, n_ticks: int = 80):
     """The runtime bench scenario through the port: a PackedTrajectoryBuffer
     streaming a fixed end-effector goal and a FusedTickRunner over it, Panda,
     T=100, f32, plus the drifting measured states of the chain. Returns a
@@ -610,13 +694,14 @@ def build_slice(device, n_ticks: int = 120):
 
 
 def run_slice(device):
-    """Drive the main path: the first solve at limit 300, 120 ticks at
-    limit 2 with a drifting x0, one final tick at limit 10. Returns
-    (launches per kernel during the run, summary line)."""
+    """Drive the main path: the first solve at limit 300, 80 ticks at
+    limit 2 with a drifting x0 (20 settling, 3 timed chunks of 20), one
+    final tick at limit 10. Returns (launches per kernel during the run,
+    summary line)."""
     sl = build_slice(device)
     runner, x0_seq = sl.runner, sl.x0_seq
     solver = runner.solver
-    names = [k[0] for k in KERNELS]
+    names = [k[0] for k in STAGE_KERNELS]
 
     for k in solver.kernels:
         k.launches = 0
@@ -635,8 +720,8 @@ def run_slice(device):
 
     run_chunk(0, 20)  # settle into the warm-started regime
     syncs0 = solver.host_syncs
-    per_tick = [run_chunk(20 + 20 * j, 20) for j in range(5)]
-    syncs_per_tick = (solver.host_syncs - syncs0) / 100
+    per_tick = [run_chunk(20 + 20 * j, 20) for j in range(3)]
+    syncs_per_tick = (solver.host_syncs - syncs0) / 60
     tick_ms = float(np.median(per_tick)) * 1e3
     # final tick with the full iteration budget: the budget-capped chain
     # must have kept the loop converged
@@ -657,7 +742,7 @@ def run_slice(device):
         raise AssertionError(f"terminal EE error {ee_err:.4f} m >= 0.02 m")
     return launches, (
         f"slice: first solve {first_s:.2f} s, iters={it0} kkt={kkt0:.2e} "
-        f"conv={conv0}; tick median {tick_ms:.3f} ms over 5x20 ticks at "
+        f"conv={conv0}; tick median {tick_ms:.3f} ms over 3x20 ticks at "
         f"limit 2 (host clock, synchronized); {syncs_per_tick:.2f} host "
         f"syncs per tick in the solver loops; final tick iters={iters} "
         f"kkt={kkt:.2e} conv={conv}; terminal EE error {ee_err * 1e3:.2f} mm; "
@@ -759,7 +844,7 @@ def run_collision_path(device, n_settle: int = 20, n_timed: int = 20):
     admm = (solver.admm_iters - admm0) / n_timed
     runner.step(x0_seq[-1], limit=10)
     K0, u0, kkt, iters, conv = runner.fetch()
-    launches = dict(zip([k[0] for k in KERNELS],
+    launches = dict(zip([k[0] for k in STAGE_KERNELS],
                         (k.launches for k in solver.kernels)))
 
     for (name, a), b in zip(zip(launches, after_init), launches.values()):
@@ -923,7 +1008,7 @@ def run_vs_path(device, n_settle: int = 20, n_timed: int = 20):
     rows = buf.ring.host_horizon_rows()
     tick(n_ticks - 1, 10)
     K0, u0, kkt, iters, conv = runner.fetch()
-    launches = dict(zip([k[0] for k in KERNELS],
+    launches = dict(zip([k[0] for k in STAGE_KERNELS],
                         (k.launches for k in solver.kernels)))
 
     for (name, a), b in zip(zip(launches, after_init), launches.values()):
@@ -965,6 +1050,186 @@ def run_vs_path(device, n_settle: int = 20, n_timed: int = 20):
         f"{launches}")
 
 
+# the batch path: the JAX bench's batch mode (`bench.py:386-438`) with the
+# goal of `examples/batch_scenarios.py:54-59`
+BATCH_T, BATCH_B, BATCH_ROWS = 100, 4096, 8
+BATCH_GOAL = (0.1, 0.05, -0.05)  # from the end effector at the ready pose
+BATCH_X0_NOISE = 0.02  # rad on q, per scenario and variant
+BATCH_VARIANTS = 3  # x0 variants timed (the JAX bench times 5)
+
+
+def build_batch(device, n_variants: int = BATCH_VARIANTS):
+    """The batch problem: `flagship_spec(100)`, dt 0.01, f32, 10 iterations,
+    the goal FK(ready) + BATCH_GOAL, xs tiled from the ready state, us zero,
+    x0 variants ready + N(0, 0.02^2) on q (seed 0). Returns a namespace
+    (solver, refs, variants [B, nx] each, xs0, us0, goal, ee_dist)."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+    from agimus_controller_tpu_torch.ops.batched_costs import _fk_world, _frame_pose_c
+    from agimus_controller_tpu_torch.ops.batched_dynamics import _StaticModel
+    from agimus_controller_tpu_torch.solver.fddp import SolverSettings
+    from agimus_controller_tpu_torch.solver.fddp_batch import make_batch_fddp
+
+    T, B, dtype = BATCH_T, BATCH_B, torch.float32
+    model, params = load_panda(dtype=dtype, device=device)
+    _, params64 = load_panda(dtype=torch.float64, device="cpu")
+    sm64 = _StaticModel(model, params64)
+    fid = model.frame_id("panda_hand_tcp")
+
+    def ee_pose(q):
+        """End-effector placements at q [n, 7] (f64, CPU)."""
+        q = torch.as_tensor(q, dtype=torch.float64).cpu()
+        oR, op = _fk_world(sm64, list(q.unbind(1)))
+        R, p = _frame_pose_c(model, params64, oR, op, fid)
+        return (torch.stack(R, 1).reshape(-1, 3, 3).numpy(),
+                torch.stack(p, 1).numpy())
+
+    spec = flagship_spec(T)
+    q0 = np.asarray(PANDA_Q_READY)
+    x0 = np.concatenate([q0, np.zeros(7)])
+    R0, p0 = (a[0] for a in ee_pose(q0[None]))
+    goal = p0 + np.asarray(BATCH_GOAL)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    refs = default_references(spec, model, dtype=dtype, device=device)
+    refs["xref"] = f(np.tile(x0[None], (T + 1, 1)))
+    refs["ee_rot:panda_hand_tcp"] = f(np.tile(R0[None], (T + 1, 1, 1)))
+    refs["ee_trans:panda_hand_tcp"] = f(np.tile(goal[None], (T + 1, 1)))
+    rng = np.random.default_rng(0)
+    variants = [f(x0[None] + np.concatenate(
+        [rng.normal(size=(B, 7)) * BATCH_X0_NOISE, np.zeros((B, 7))], 1))
+        for _ in range(n_variants)]
+    solver = make_batch_fddp(model, params, spec, SolverSettings(max_iters=10),
+                             device=device)
+    ee_dist = lambda xs: np.linalg.norm(
+        ee_pose(xs[:, -1, :7].double().cpu())[1] - goal, axis=1)
+    return SimpleNamespace(
+        solver=solver, refs=refs, variants=variants, goal=goal,
+        xs0=f(np.tile(x0[None, None], (B, T + 1, 1))),
+        us0=torch.zeros((B, T, 7), dtype=dtype, device=device),
+        ee_dist=ee_dist)
+
+
+def solve_rows(bp, x0s):
+    """One batch solve from the first len(x0s) scenarios' starts."""
+    n = x0s.shape[0]
+    return bp.solver(x0s, bp.refs, bp.xs0[:n], bp.us0[:n])
+
+
+def batch_phases(bp, sol, device):
+    """Host-clock time (ms, synchronized) of each part of one FDDP
+    iteration at the solution's iterate: the K5b linearisation,
+    the cost pack over T*B nodes and the terminal pack, the component
+    Riccati sweep, and one line-search trial (T K5a steps, then the trial
+    cost of all nodes) with its two parts."""
+    s = bp.solver
+    x0s = bp.variants[0]
+    xs = sol.xs.transpose(0, 1).contiguous()
+    us = sol.us.transpose(0, 1).contiguous()
+    T, B = s.T, xs.shape[1]
+    _, dts_flat, t_flat = s._node_data(xs)
+    x_flat, u_flat = xs[:-1].reshape(T * B, -1), us.reshape(T * B, -1)
+
+    def timed(fn, reps=3):
+        fn()
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        _sync(device)
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    out = {}
+    out["K5b over T*B"], _ = timed(lambda: s.step_dk(x_flat, u_flat, dts_flat))
+    out["cost pack over T*B"], _ = timed(
+        lambda: s.pack.pack(x_flat, u_flat, t_flat, bp.refs))
+    out["terminal pack"], _ = timed(lambda: s.pack.term_pack(xs[-1], bp.refs))
+    _, (dyn, costs, term) = timed(lambda: s.derivs_of(xs, us, bp.refs), 1)
+    fs = s._gaps_of(x0s, xs, dyn[0])
+    reg = torch.full((B,), 1e-9, dtype=xs.dtype, device=xs.device)
+    out["Riccati sweep"], (ks, Ks, *_) = timed(
+        lambda: s.backward(dyn, costs, term, fs, reg))
+    out["trial (T K5a + cost)"], _ = timed(
+        lambda: s.rollout_alpha(0.5, x0s, xs, us, ks, Ks, fs, bp.refs))
+    out["trial cost of all nodes"], _ = timed(
+        lambda: s.total_cost(xs, us, bp.refs))
+    return out
+
+
+def run_batch_path(device):
+    """Drive the batch path: a B=8 solve of the first variant's rows 0-7
+    (also the warm-up), then B=4096 solves on the x0 variants, each timed by
+    the host clock ending in a synchronize. Returns (launches per kernel,
+    summary lines)."""
+    bp = build_batch(device)
+    solver = bp.solver
+    for k in solver.kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    small = solve_rows(bp, bp.variants[0][:BATCH_ROWS])
+    _sync(device)
+    small_s = time.perf_counter() - t0
+    times, sols, syncs = [], [], []
+    for x0s in bp.variants:
+        s0 = solver.host_syncs
+        t0 = time.perf_counter()
+        sols.append(solve_rows(bp, x0s))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        syncs.append(solver.host_syncs - s0)
+    launches = {name: k.launches for (name, *_), k in
+                zip(STEP_KERNELS, solver.kernels)}
+
+    for i, sol in enumerate(sols):
+        for field in ("xs", "us", "K", "k", "cost", "kkt", "gap_norm"):
+            if not bool(torch.isfinite(getattr(sol, field)).all()):
+                raise AssertionError(
+                    f"batch path: non-finite {field} in variant {i}")
+    big = sols[0]
+    rows = slice(0, BATCH_ROWS)
+    if not (torch.equal(big.iters[rows], small.iters)
+            and torch.equal(big.converged[rows], small.converged)):
+        raise AssertionError(
+            f"batch path: rows 0-{BATCH_ROWS - 1} of the B={BATCH_B} solve "
+            f"(iters {big.iters[rows].tolist()}, converged "
+            f"{big.converged[rows].tolist()}) differ from the B={BATCH_ROWS} "
+            f"solve (iters {small.iters.tolist()}, converged "
+            f"{small.converged.tolist()})")
+    du = float((big.us[rows] - small.us).abs().max())
+    if not du < 1e-3:
+        raise AssertionError(
+            f"batch path: rows 0-{BATCH_ROWS - 1} us differ from the "
+            f"B={BATCH_ROWS} solve by {du:.3e}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"batch path: {name} was not launched")
+
+    t_med = float(np.median(times))
+    dist = bp.ee_dist(big.xs)
+    dist_small = bp.ee_dist(small.xs)
+    phases = batch_phases(bp, big, device)
+    c = lambda a: a.double().cpu().numpy()
+    return launches, [
+        f"batch path (B={BATCH_ROWS}): {small_s:.2f} s, iters "
+        f"{small.iters.tolist()}, converged {small.converged.tolist()}, "
+        f"terminal end-effector distance to the goal (mm) "
+        + " ".join(f"{d * 1e3:.3f}" for d in dist_small),
+        f"batch path (B={BATCH_B}, T={BATCH_T}, f32, 10 iterations): solve "
+        f"times {' '.join(f'{t:.3f}' for t in times)} s (host clock, "
+        f"synchronized); median {t_med:.3f} s = {BATCH_B / t_med:.1f} "
+        f"solves/s; mean iterations {float(c(big.iters).mean()):.2f}; "
+        f"converged share {float(c(big.converged).mean()):.4f}; kkt median "
+        f"{float(np.median(c(big.kkt))):.3e} max {float(c(big.kkt).max()):.3e}"
+        f"; gap median {float(np.median(c(big.gap_norm))):.3e} max "
+        f"{float(c(big.gap_norm).max()):.3e}; median planned terminal "
+        f"end-effector distance to the goal {float(np.median(dist)) * 1e3:.3f}"
+        f" mm (start {np.linalg.norm(BATCH_GOAL) * 1e3:.1f} mm); host syncs "
+        f"per solve {' '.join(str(n) for n in syncs)}; rows 0-"
+        f"{BATCH_ROWS - 1} match the B={BATCH_ROWS} solve (us max abs diff "
+        f"{du:.3e}); launches {launches}",
+        f"batch path phases at B={BATCH_B} (ms, host clock, synchronized): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in phases.items())]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -997,30 +1262,40 @@ def main():
     model, params = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
                                dtype=torch.float32, device=device)
     report = check_kernels(model, params, device)
+    step_report = check_step_kernels(model, params, device)
 
-    # -- 4. the main paths: the flagship chain, the collision path and the
-    # visual-servoing path
+    # -- 4. the main paths: the flagship chain, the collision path, the
+    # visual-servoing path and the batch path
     launches = {name: 0 for name, *_ in KERNELS}
-    for run in (run_slice, run_collision_path, run_vs_path):
+    for run in (run_slice, run_collision_path, run_vs_path, run_batch_path):
         path_launches, stats = run(device)
-        print(stats)
-        for name in launches:
-            launches[name] += path_launches[name]
+        for line in [stats] if isinstance(stats, str) else stats:
+            print(line)
+        for name, n in path_launches.items():
+            launches[name] += n
 
-    # -- 5. result: launches over the three paths, the max error over every
-    # checked spec and size, times and bounds at the flagship tick shape
-    # (no single PyTorch call computes a fused stage: no library time)
+    # -- 5. result: launches over the four paths, the max error over every
+    # checked spec and size; times and bounds at the flagship tick shape for
+    # K1-K4 and at the batch path's shapes for K5a/K5b (no single PyTorch
+    # call computes a fused stage or a dynamics step: no library time)
     kernels = []
     for name, kind, derivs, replaces in KERNELS:
-        tick_n = 100 if kind == "stage" else 1
-        r = report[name]["flagship"][tick_n]
-        err = max(v["max_abs_err"] for per_spec in report[name].values()
-                  for v in per_spec.values())
-        kernels.append(dict(name=name, route="cuda", source=SOURCE,
+        if kind == "step":
+            per_size = step_report[name]
+            r = per_size[STEP_SIZES[name]]
+        else:
+            per_size = {(s, n): v for s, per_n in report[name].items()
+                        for n, v in per_n.items()}
+            r = report[name]["flagship"][100 if kind == "stage" else 1]
+        err = max(v["max_abs_err"] for v in per_size.values())
+        kernels.append(dict(name=name, route="cuda", source=SOURCES[kind],
                             replaces=replaces, launches=launches[name],
                             max_abs_err=err, ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main paths: {missing}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""K1-K4 on the card: each CUDA kernel vs its plain-PyTorch version, f32.
+"""K1-K5b on the card: each CUDA kernel vs its plain-PyTorch version, f32.
 
 Marked `cuda`: skips without a CUDA device (a CUDA kernel has no CPU
 mode; its math is held against the JAX package on the CPU by
@@ -7,7 +7,9 @@ mode; its math is held against the JAX package on the CPU by
 ("mixed") and with ("full") its collision item, the shipped
 collision-avoidance YAML, the visual-servoing OCP ("vs") and the
 visual-servoing + frame-velocity spec ("fv"); the inputs keep the
-collision, visual-servoing and frame-velocity terms live. On a GPU machine:
+collision, visual-servoing and frame-velocity terms live. The step kernels
+K5a/K5b take random Panda nodes with v and u live, with per-node and
+scalar dt. On a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
@@ -41,7 +43,7 @@ def panda(device):
 
 
 @pytest.mark.parametrize("N", SIZES)
-@pytest.mark.parametrize("kernel", [k[0] for k in smoke.KERNELS])
+@pytest.mark.parametrize("kernel", [k[0] for k in smoke.STAGE_KERNELS])
 @pytest.mark.parametrize("spec_name", ["flagship", "mixed", "full", "yaml",
                                        "vs", "fv"])
 def test_kernel_matches_plain(device, panda, spec_name, kernel, N):
@@ -52,7 +54,7 @@ def test_kernel_matches_plain(device, panda, spec_name, kernel, N):
 
     model, params = panda
     spec = smoke.SPECS[spec_name](100, model)
-    _, kind, derivs, _ = next(k for k in smoke.KERNELS if k[0] == kernel)
+    _, kind, derivs, _ = next(k for k in smoke.STAGE_KERNELS if k[0] == kernel)
     refs, x, u, dt, t_idx = smoke.randomized_inputs(spec, model, N, seed=N,
                                                     device=device)
     if kind == "stage":
@@ -82,4 +84,40 @@ def test_wrapper_rejects_bad_inputs(device, panda):
         k(x.t().contiguous().t(), u, dt, t_idx, refs)
     with pytest.raises(ValueError):
         k(x, u[:50], dt, t_idx, refs)
+    assert k.launches == 0
+
+
+@pytest.mark.parametrize("dt_kind", ["per_node", "scalar"])
+@pytest.mark.parametrize("N", (13, 4096))
+@pytest.mark.parametrize("kernel", [k[0] for k in smoke.STEP_KERNELS])
+def test_step_kernel_matches_plain(device, panda, kernel, N, dt_kind):
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
+
+    model, params = panda
+    derivs = kernel == "K5b_step_derivs"
+    x, u, dt = smoke.step_inputs(N, N, device, dt_kind)
+    k = StepKernel(model, params, derivs, device)
+    got, want = k(x, u, dt), k.plain(x, u, dt)
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    if not derivs:
+        got, want = (got,), (want,)
+    smoke.check_outputs(f"{kernel} N={N} {dt_kind} dt", got, want,
+                        ("xnext", "Fx", "Fu")[:len(got)])
+
+
+def test_step_wrapper_rejects_bad_inputs(device, panda):
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import make_cuda_step
+
+    model, params = panda
+    x, u, dt = smoke.step_inputs(64, 0, device, "per_node")
+    k = make_cuda_step(model, params, device)
+    with pytest.raises(TypeError):
+        k(x.double(), u, dt)
+    with pytest.raises(ValueError):
+        k(x.t().contiguous().t(), u, dt)
+    with pytest.raises(ValueError):
+        k(x, u, dt[:10])
+    with pytest.raises(ValueError):
+        k(x, u.cpu(), dt)
     assert k.launches == 0

@@ -37,6 +37,13 @@ from agimus_controller_tpu_torch.ops.cuda_costs import (
     make_cuda_stage,
     make_cuda_terminal,
 )
+from agimus_controller_tpu_torch.ops.batched_costs import make_batched_cost_pack
+from agimus_controller_tpu_torch.ops.cuda_dynamics import (
+    StepKernel,
+    make_cuda_step,
+    make_cuda_step_derivs,
+)
+from agimus_controller_tpu_torch.solver.fddp_batch import BatchFDDP, make_batch_fddp
 from agimus_controller_tpu_torch.solver.sqp_batch import BatchSQP, make_batch_sqp
 from tests.test_ring_control_loop import URDF_2DOF
 
@@ -83,6 +90,18 @@ ENTRY_POINTS = {
         a["model"], a["params"], a["spec"], True, **kw),
     "make_cuda_terminal": lambda a, kw: make_cuda_terminal(
         a["model"], a["params"], a["spec"], False, **kw),
+    "StepKernel": lambda a, kw: StepKernel(a["model"], a["params"], True,
+                                           **kw),
+    "make_cuda_step": lambda a, kw: make_cuda_step(a["model"], a["params"],
+                                                   **kw),
+    "make_cuda_step_derivs": lambda a, kw: make_cuda_step_derivs(
+        a["model"], a["params"], **kw),
+    "make_batched_cost_pack": lambda a, kw: make_batched_cost_pack(
+        a["model"], a["params"], a["spec"], **kw),
+    "BatchFDDP": lambda a, kw: BatchFDDP(a["model"], a["params"], a["spec"],
+                                         **kw),
+    "make_batch_fddp": lambda a, kw: make_batch_fddp(
+        a["model"], a["params"], a["spec"], **kw),
     "BatchSQP": lambda a, kw: BatchSQP(a["model"], a["params"], a["spec"],
                                        **kw),
     "make_batch_sqp": lambda a, kw: make_batch_sqp(

@@ -72,3 +72,11 @@ def test_vs_path_module_is_probed(module):
     """The visual-servoing path's new modules are among the modules probed
     above."""
     assert f"{PKG}.{module}" in MODULES
+
+
+@pytest.mark.parametrize("module", [
+    "ops.batched_costs", "ops.cuda_dynamics", "solver.fddp",
+    "solver.fddp_batch", "solver.riccati_components"])
+def test_batch_path_module_is_probed(module):
+    """The batch FDDP path's modules are among the modules probed above."""
+    assert f"{PKG}.{module}" in MODULES
