@@ -1,34 +1,50 @@
-// Fused stage kernels K1-K4 for Hopper (sm_90a), with a plain C interface.
+// Fused stage kernels K1/K2 for Hopper (sm_90a), with a plain C interface.
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   ag_stage(derivs=1)    K1  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_stage(derivs=True)
 //   ag_stage(derivs=0)    K2  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_stage(derivs=False)
-//   ag_terminal(derivs=1) K3  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_terminal(derivs=True)
-//   ag_terminal(derivs=0) K4  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_terminal(derivs=False)
-// (K3/K4 live in terminal_kernels.cu, so the two build in parallel.)
-// (the Pallas stage body inlines pallas_dynamics.py::dynamics_terms, as
-// stage_node does here).
+// (K3/K4, the terminal kernels, live in terminal_kernels.cu, so the two
+// build in parallel; the Pallas stage body inlines
+// pallas_dynamics.py::dynamics_terms, as K1/K2 run `dynamics_node`'s math.)
 //
-// Design: one thread per node over a 1-D grid, the ragged edge masked. Each
-// thread runs a long, branchy scalar program (tree recursions, a Cholesky,
-// log maps; templated on the joint count NJ, instantiated for 2 and 7).
-// The block first copies the packed model constants and cost descriptors
-// (a few KB) into shared memory.
+// Design. Both kernels gather each node's references themselves: the
+// wrapper passes a table by value (`ag::RefTable`, one source pointer,
+// row stride and component count per layout key) and the node times, and
+// the lanes of a node copy its ref row into shared memory
+// (`ag::gather_row`), so the call runs no torch op on the refs and the
+// tick's ring-row views are read in place. The constants and inputs come
+// in through `copy_in`, every thread's loads issued before its stores.
+//   K1: one node per LANES = 16 lanes (the power of two >= 2 NJ; 8 Panda
+//   nodes per 128-thread block). Every lane runs the primal step; lane k
+//   the RNEA tangent k of (q, v) and the M^-1 column k, and per cost item
+//   the residual's tangent k, writing Jacobian columns into the node's
+//   shared scratch; after a warp barrier each lane sums the Gauss-Newton
+//   terms of the output entries it owns (e = lane mod 16) in registers and
+//   stores each once, so a node's stores are consecutive across its lanes
+//   and no output is read back. The per-lane phases are the host/device
+//   functions `ag::k1_*` of stage_kernels.cuh, which a host harness runs
+//   lane by lane (tests/test_torch_stage_lanes.py).
+//   K2: 32 nodes per 64-thread block; warp 0 runs the step of the 32
+//   nodes, warp 1 their cost items, so a node's latency is the longer of
+//   the two chains and not their sum (measured against the one-warp form
+//   with the same gather: about half the time at the tick shape); x+
+//   leaves through shared memory, coalesced.
 //
-// What bounds it on this card: latency and registers, not bandwidth. K1
-// does tens of thousands of flops per node (dual-number passes: 2NJ RNEA
-// tangents plus NJ tangents per control_grav/frame/visual-servoing/
-// collision item and 2NJ per frame-velocity item, each a full
-// forward-kinematics pass) against ~2 KB of
-// outputs; the MPC tick has N = 100 nodes, one block, which fills under
-// one SM of 132, and the per-thread locals spill to local memory. This
-// simple design does nothing about that yet. The fast design will split a
-// node's tangent passes across the threads of a warp (one tangent per
-// lane), keep the Jacobian columns in shared memory, coalesce the
-// node-major stores through shared memory, and fuse K1 with K3.
+// What bounds it on this card: latency, not bandwidth (PERF.md has the
+// numbers). At the tick shape (N = 19-100, a few blocks) a K1 call lasts
+// one lane's chain: the primal step, one dual RNEA pass and one dual pass
+// per cost item, where the one-thread design ran ~30 dual passes in
+// sequence; a K2 call the longer of the step and the cost items. At
+// N = 102 400 K1 is slower than the one-thread design: every lane repeats
+// the primal step, so a node issues 16 primal steps where it issued one,
+// and each thread works through a 3 KB local frame (the per-joint arrays
+// of the tree recursions are indexed by runtime parent indices and stay in
+// local memory; no spills). More warps do not help: capped at 168
+// registers (three blocks per SM instead of two) K1 measured slower. The
+// main paths call K1/K2 only at the tick shape.
 //
 // Launch discipline: on the caller's stream, no synchronisation, no
-// allocation; each entry returns cudaGetLastError() of its launch.
+// allocation; `ag_stage` returns cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
 
@@ -39,45 +55,171 @@ namespace {
 
 using ag::kBlock;
 
-template <int NJ, bool DERIVS>
-__global__ void stage_kernel(int N, const float* x, const float* u,
-                             const float* dt, const float* rows, int W,
-                             const float* consts, int consts_len, int n_items,
-                             float* xnext, float* Fx, float* Fu, float* l,
-                             float* lx, float* lu, float* lxx, float* lxu,
-                             float* luu) {
-  extern __shared__ float C[];
-  ag::load_constants(C, consts, consts_len);
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  ag::stage_node<NJ, DERIVS>(n, x, u, dt, rows, W, C, n_items, xnext, Fx, Fu,
-                             l, lx, lu, lxx, lxu, luu);
+constexpr int kK2Nodes = 32;  // K2 nodes per block; two warps
+
+// Floats of shared memory before the node scratch: the packed constants,
+// rounded up to 16 bytes.
+inline __host__ __device__ int consts_span(int consts_len) {
+  return (consts_len + 3) & ~3;
+}
+
+// dst[i] = src[i], i < n, by threads tid of nt: each thread issues G loads
+// before their stores, so a few threads do not wait on memory once per value.
+template <int G>
+__device__ __forceinline__ void copy_in(float* dst, const float* __restrict__ src,
+                                        int n, int tid, int nt) {
+  for (int base = 0; base < n; base += G * nt) {
+    float buf[G];
+#pragma unroll
+    for (int c = 0; c < G; ++c) {
+      const int i = base + c * nt + tid;
+      buf[c] = i < n ? src[i] : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < G; ++c) {
+      const int i = base + c * nt + tid;
+      if (i < n) dst[i] = buf[c];
+    }
+  }
+}
+
+template <int NJ>
+__global__ void __launch_bounds__(kBlock)
+stage_k1_kernel(int N, const float* __restrict__ x, const float* __restrict__ u,
+                const float* __restrict__ dt, const long long* __restrict__ t_idx,
+                const ag::RefTable tab, int W, const float* consts,
+                int consts_len, int n_items, float* xnext, float* Fx,
+                float* Fu, float* l, float* lx, float* lu, float* lxx,
+                float* lxu, float* luu) {
+  typedef ag::K1Shape<NJ> K;
+  constexpr int LANES = K::LANES, NPB = kBlock / LANES;
+  extern __shared__ float sm[];
+  __shared__ ag::RefTable stab;
+  if (threadIdx.x == 0) stab = tab;
+  copy_in<8>(sm, consts, consts_len, threadIdx.x, kBlock);
+  __syncthreads();  // the constants and stab
+  const int node = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const long long n = (long long)blockIdx.x * NPB + node;
+  if (n >= N) return;  // whole nodes only: a node's lanes leave together
+  const unsigned mask =
+      (LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1u))
+      << ((threadIdx.x % 32) / LANES * LANES);
+  float* S = sm + consts_span(consts_len) + node * K::scratch(W);
+  const float* C = sm;
+  ag::k1_load<NJ>(lane, LANES, stab, t_idx[n], x + n * K::NX, u + n * NJ,
+                  dt[n], S);
+  __syncwarp(mask);
+  ag::K1Lane<NJ> st;
+  ag::k1_dynamics<NJ, LANES>(lane, C, S, st, xnext + n * K::NX);
+  for (int it = 0; it < n_items; ++it) {
+    ag::K1Item o = ag::k1_item_tangent<NJ, LANES>(lane, C, it, S, st);
+    __syncwarp(mask);
+    ag::k1_item_accumulate<NJ, LANES>(lane, o, S, st);
+    __syncwarp(mask);
+  }
+  ag::k1_store<NJ, LANES>(lane, S, st, n, Fx, Fu, l, lx, lu, lxx, lxu, luu);
+}
+
+template <int NJ>
+__global__ void __launch_bounds__(2 * kK2Nodes)
+stage_k2_kernel(int N, const float* __restrict__ x, const float* __restrict__ u,
+                const float* __restrict__ dt, const long long* __restrict__ t_idx,
+                const ag::RefTable tab, int W, const float* consts,
+                int consts_len, int n_items, float* xnext, float* l) {
+  constexpr int NX = 2 * NJ, B = kK2Nodes;
+  extern __shared__ float sm[];
+  __shared__ ag::RefTable stab;
+  if (threadIdx.x == 0) stab = tab;
+  float* X = sm + consts_span(consts_len);  // [B, NX]
+  float* U = X + B * NX;                     // [B, NJ]
+  float* H = U + B * NJ;                     // [B]
+  float* XO = H + B;                         // [B, NX] x+
+  float* ROWS = XO + B * NX;                 // [B, W]
+  const long long n0 = (long long)blockIdx.x * B;
+  const int nb = N - n0 < B ? (int)(N - n0) : B;
+  const int tid = threadIdx.x, j = tid % B, warp = tid / B;
+  copy_in<8>(sm, consts, consts_len, tid, 2 * B);
+  copy_in<4>(X, x + n0 * NX, nb * NX, tid, 2 * B);
+  copy_in<2>(U, u + n0 * NJ, nb * NJ, tid, 2 * B);
+  copy_in<1>(H, dt + n0, nb, tid, 2 * B);
+  __syncthreads();  // stab
+  if (j < nb) ag::gather_row<8>(stab, t_idx[n0 + j], warp, 2, ROWS + j * W);
+  __syncthreads();
+  if (j < nb) {
+    if (warp == 0)
+      ag::k2_step<NJ>(sm, X + j * NX, U + j * NJ, H[j], XO + j * NX);
+    else
+      l[n0 + j] = ag::k2_costs<NJ>(sm, n_items, ROWS + j * W, X + j * NX,
+                                   U + j * NJ, H[j]);
+  }
+  __syncthreads();
+  for (int i = tid; i < nb * NX; i += 2 * B) xnext[n0 * NX + i] = XO[i];
+}
+
+template <int NJ>
+cudaError_t launch(bool derivs, int N, const float* x, const float* u,
+                   const float* dt, const long long* t_idx,
+                   const ag::RefTable& tab, int W, const float* consts,
+                   int consts_len, int n_items, float* xnext, float* Fx,
+                   float* Fu, float* l, float* lx, float* lu, float* lxx,
+                   float* lxu, float* luu, cudaStream_t s) {
+  constexpr int NX = 2 * NJ;
+  if (derivs) {
+    typedef ag::K1Shape<NJ> K;
+    constexpr int NPB = kBlock / K::LANES;
+    size_t smem = sizeof(float) *
+                  ((size_t)consts_span(consts_len) + (size_t)NPB * K::scratch(W));
+    if (smem + sizeof(ag::RefTable) > 48 * 1024) {  // with the static table
+      cudaError_t e = cudaFuncSetAttribute(
+          stage_k1_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    stage_k1_kernel<NJ><<<(N + NPB - 1) / NPB, kBlock, smem, s>>>(
+        N, x, u, dt, t_idx, tab, W, consts, consts_len, n_items, xnext, Fx,
+        Fu, l, lx, lu, lxx, lxu, luu);
+  } else {
+    constexpr int B = kK2Nodes;
+    size_t smem = sizeof(float) * ((size_t)consts_span(consts_len) +
+                                   (size_t)B * (2 * NX + NJ + 1 + W));
+    if (smem + sizeof(ag::RefTable) > 48 * 1024) {  // with the static table
+      cudaError_t e = cudaFuncSetAttribute(
+          stage_k2_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    stage_k2_kernel<NJ><<<(N + B - 1) / B, 2 * B, smem, s>>>(
+        N, x, u, dt, t_idx, tab, W, consts, consts_len, n_items, xnext, l);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// x [N, 2nj], u [N, nj], dt [N], t_idx [N] (int64 node times), refs the
+// source table of the W-float ref row; outputs node-major in the shapes of
+// the JAX `make_pallas_stage` run (Fx, Fu, lx ... luu unused and may be
+// null when derivs is 0).
 int ag_stage(int nj, int derivs, int N, const float* x, const float* u,
-             const float* dt, const float* rows, int W, const float* consts,
+             const float* dt, const long long* t_idx,
+             const ag::RefTable* refs, int W, const float* consts,
              int consts_len, int n_items, float* xnext, float* Fx, float* Fu,
              float* l, float* lx, float* lu, float* lxx, float* lxu,
              float* luu, void* stream) {
   if (N <= 0) return 0;
-  dim3 grid((N + kBlock - 1) / kBlock), block(kBlock);
-  size_t smem = (size_t)consts_len * sizeof(float);
+  if (refs->n < 0 || refs->n > ag::kMaxRefs) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define AG_STAGE(NJ, D)                                                     \
-  stage_kernel<NJ, D><<<grid, block, smem, s>>>(                            \
-      N, x, u, dt, rows, W, consts, consts_len, n_items, xnext, Fx, Fu, l, \
-      lx, lu, lxx, lxu, luu)
-  if (nj == 7 && derivs) AG_STAGE(7, true);
-  else if (nj == 7) AG_STAGE(7, false);
-  else if (nj == 2 && derivs) AG_STAGE(2, true);
-  else if (nj == 2) AG_STAGE(2, false);
-  else return (int)cudaErrorInvalidValue;
-#undef AG_STAGE
-  return (int)cudaGetLastError();
+  if (nj == 7)
+    return (int)launch<7>(derivs != 0, N, x, u, dt, t_idx, *refs, W, consts,
+                          consts_len, n_items, xnext, Fx, Fu, l, lx, lu, lxx,
+                          lxu, luu, s);
+  if (nj == 2)
+    return (int)launch<2>(derivs != 0, N, x, u, dt, t_idx, *refs, W, consts,
+                          consts_len, n_items, xnext, Fx, Fu, l, lx, lu, lxx,
+                          lxu, luu, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* ag_error_string(int err) {

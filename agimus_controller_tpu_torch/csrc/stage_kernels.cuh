@@ -1,14 +1,18 @@
 // Per-node programs of the fused stage kernels K1-K4 (see stage_kernels.cu)
 // and of the dynamics-step kernels K5a/K5b (step_kernels.cu).
 //
-// One call computes one node: the semi-implicit Euler step with Fx/Fu
-// (`dynamics_node`, all of K5a/K5b), and for K1-K4 the Gauss-Newton pack of
-// every cost item of the descriptor table. The same math, in plain PyTorch
-// component form, is `ops/cuda_dynamics.py::dynamics_terms` and
+// The semi-implicit Euler step with Fx/Fu of one node (`dynamics_node`,
+// all of K5a/K5b), the Gauss-Newton pack of every cost item of the
+// descriptor table (`node_costs`, K2-K4), and K1's per-lane phases of the
+// same (`k1_*`: a node's tangent passes split over the lanes of a warp
+// slice). The same math, in plain PyTorch component form, is
+// `ops/cuda_dynamics.py::dynamics_terms` and
 // `ops/cuda_costs.py::_item_terms_c`.
 //
-// Every function here is `__host__ __device__` and free of CUDA built-ins,
-// so the header also compiles as host C++.
+// Every function here is `__host__ __device__` and free of CUDA built-ins
+// (a lane is an argument, the kernels place the barriers), so the header
+// also compiles as host C++ and a host harness can run a node lane by lane
+// (tests/stage_lanes_harness.cpp).
 //
 // Derivative routes (CUDA has no autodiff; the Pallas bodies use JAX's):
 //   - d rnea(q, v, a) / d(q, v) for Fx (Pallas: `jax.vjp`,
@@ -36,9 +40,11 @@
 #if defined(__CUDACC__)
 #define AG_HD __host__ __device__ __forceinline__
 #define AG_FN __host__ __device__ inline
+#define AG_UNROLL _Pragma("unroll")
 #else
 #define AG_HD inline
 #define AG_FN inline
+#define AG_UNROLL
 #endif
 
 namespace ag {
@@ -830,58 +836,412 @@ AG_FN void dynamics_node(const float* C, const float* q, const float* v,
   }
 }
 
-// ---- one node of K1 (DERIVS) / K2 ------------------------------------------
-// Inputs node-major: x [N, 2NJ], u [N, NJ], dt [N], rows [N, W]. Outputs
-// node-major in the shapes of the JAX `make_pallas_stage` run; unused
-// outputs may be null when DERIVS is false.
-template <int NJ, bool DERIVS>
-AG_FN void stage_node(int n, const float* x, const float* u, const float* dt,
-                      const float* rows, int W, const float* C, int n_items,
-                      float* xnext, float* Fx, float* Fu, float* l, float* lx,
-                      float* lu, float* lxx, float* lxu, float* luu) {
-  constexpr int NX = 2 * NJ;
-  const float* row = rows + (long)n * W;
-  float q[NJ], v[NJ], un[NJ];
-  for (int i = 0; i < NJ; ++i) {
-    q[i] = x[(long)n * NX + i];
-    v[i] = x[(long)n * NX + NJ + i];
-    un[i] = u[(long)n * NJ + i];
-  }
-  float h = dt[n];
+// ---- refs gathered in the kernel (K1/K2) ----------------------------------
+// One entry per layout key of `ops/cuda_costs.py::_ref_layout`, passed by
+// value as a kernel parameter: node time t's columns [off, off + ncomp) of
+// the packed ref row are src[(per_node ? t : row) * stride + i]. A null src
+// (a key the caller does not stream) reads 0. Must match
+// `ops/cuda_costs.py::RefSrc` / `RefTable`.
+constexpr int kMaxRefs = 24;
+struct RefSrc {
+  const float* src;
+  long long stride;  // floats between two node times, or geometry rows
+  int ncomp, per_node, row, off;
+};
+struct RefTable {
+  int n;
+  RefSrc e[kMaxRefs];
+};
 
+// Lane `lane` of `lanes` copies its share of node time t's ref row into
+// row. Per key, a lane issues all its loads (G of them; a key has at most
+// G * lanes components on this path) before its stores, so it waits on
+// memory once per key and not once per value.
+template <int G>
+AG_FN void gather_row(const RefTable& tab, long long t, int lane, int lanes,
+                      float* row) {
+  for (int k = 0; k < tab.n; ++k) {
+    const RefSrc& s = tab.e[k];
+    const long long base = (s.per_node ? t : (long long)s.row) * s.stride;
+    float buf[G];
+    AG_UNROLL
+    for (int c = 0; c < G; ++c) {
+      const int i = lane + c * lanes;
+      buf[c] = s.src && i < s.ncomp ? s.src[base + i] : 0.f;
+    }
+    AG_UNROLL
+    for (int c = 0; c < G; ++c) {
+      const int i = lane + c * lanes;
+      if (i < s.ncomp) row[s.off + i] = buf[c];
+    }
+    for (int i = lane + G * lanes; i < s.ncomp; i += lanes)
+      row[s.off + i] = s.src ? s.src[base + i] : 0.f;
+  }
+}
+
+// ---- K1: one node across the lanes of a warp slice ------------------------
+// LANES = the power of two >= 2 NJ lanes run one node (16 for the Panda).
+// Phases, with a warp barrier between them (the .cu kernel places them):
+//   k1_load      the node's x, u, dt and gathered ref row into its scratch;
+//   k1_dynamics  every lane the primal step (redundantly; one lane per
+//                component stores x+), then lane k the RNEA tangent k of
+//                (q, v) -> Fx column k and the M^-1 column k -> Fu column k,
+//                into the scratch;
+//   per cost item, in the table's order:
+//     k1_item_tangent     every lane the item's value; lane k its tangent
+//                         k -> row k of the item's Jacobian in the scratch;
+//     k1_item_accumulate  each lane adds the item's Gauss-Newton terms to
+//                         the output entries it owns (e = lane mod LANES of
+//                         the node's lx | lu | lxx | lxu | luu), in registers;
+//   k1_store     Fx, Fu from the scratch and the owned entries, dt-scaled,
+//                each stored once at consecutive addresses across the lanes.
+// The sums run in the order of the one-thread version, so the outputs are
+// the same numbers up to the order of the tangent evaluations.
+template <int NJ> struct K1Shape {
+  static constexpr int NX = 2 * NJ;
+  static constexpr int LANES =
+      NX <= 2 ? 2 : NX <= 4 ? 4 : NX <= 8 ? 8 : NX <= 16 ? 16 : 32;
+  // owned output entries: lx, lu, lxx, lxu, luu of one node
+  static constexpr int NE = NX + NJ + NX * NX + NX * NJ + NJ * NJ;
+  // loads per lane and ref key in the gather: the widest key is xref / w_x
+  // (NX) or a rotation (9)
+  static constexpr int GATHER = ((NX > 9 ? NX : 9) + LANES - 1) / LANES;
+  static constexpr int OWN = (NE + LANES - 1) / LANES;
+  // node scratch (floats): x, u, dt, Fx, Fu, one item's Jacobian (Jc [nd][6]
+  // or Jg [NJ][NJ]) and two item vectors, then the ref row of width W
+  static constexpr int S_X = 0, S_U = NX, S_H = NX + NJ, S_FX = S_H + 1,
+                       S_FU = S_FX + NX * NX, S_J = S_FU + NX * NJ;
+  static constexpr int J_SIZE = NX * 6 > NJ * NJ ? NX * 6 : NJ * NJ;
+  static constexpr int V_SIZE = NX > 6 ? NX : 6;  // r, w / da/dr, d2a/dr2
+  static constexpr int S_V1 = S_J + J_SIZE, S_V2 = S_V1 + V_SIZE,
+                       S_ROW = S_V2 + V_SIZE;
+  static AG_HD int scratch(int W) { return S_ROW + W; }
+};
+
+// What a lane keeps in registers across the phases of its node (x and u
+// are reread from the scratch, which keeps them out of the registers that
+// the dual passes need).
+template <int NJ> struct K1Lane {
+  float h;
+  float l;                        // sum over the items of weight * value
+  float acc[K1Shape<NJ>::OWN];    // the lane's output entries, unscaled
+};
+
+// One cost item as the accumulate phase reads it.
+struct K1Item {
+  int kind, nd, nr;  // kind code, Jacobian rows (tangents), residual size
+  float wgt;
+};
+
+template <int NJ>
+AG_FN void k1_load(int lane, int lanes, const RefTable& tab, long long t,
+                   const float* xn, const float* un, float h, float* S) {
+  typedef K1Shape<NJ> K;
+  gather_row<K::GATHER>(tab, t, lane, lanes, S + K::S_ROW);
+  for (int i = lane; i < K::NX; i += lanes) S[K::S_X + i] = xn[i];
+  for (int i = lane; i < NJ; i += lanes) S[K::S_U + i] = un[i];
+  if (lane == 0) S[K::S_H] = h;
+}
+
+// Phases A and B (the body of `dynamics_node` with derivs, split over lanes).
+template <int NJ, int LANES>
+AG_FN void k1_dynamics(int lane, const float* C, float* S, K1Lane<NJ>& st,
+                       float* xo) {
+  typedef K1Shape<NJ> K;
+  constexpr int NX = K::NX;
+  const float* q = S + K::S_X;
+  const float* v = S + K::S_X + NJ;
+  const float* u = S + K::S_U;
+  const float h = S[K::S_H];
+  st.h = h;
+  st.l = 0.f;
+  for (int j = 0; j < K::OWN; ++j) st.acc[j] = 0.f;
+  // A: the primal step, every lane
   M3<float> R[NJ];
   V3<float> P[NJ];
-  dynamics_node<NJ, DERIVS>(C, q, v, un, h, R, P, xnext + (long)n * NX,
-                            DERIVS ? Fx + (long)n * NX * NX : nullptr,
-                            DERIVS ? Fu + (long)n * NX * NJ : nullptr);
+  float qr[NJ], vr[NJ];
+  for (int i = 0; i < NJ; ++i) {
+    qr[i] = q[i];
+    vr[i] = v[i];
+  }
+  joint_transforms<NJ, float>(C, qr, R, P);
+  float z[NJ], b[NJ], M[NJ * NJ], L[NJ * NJ], rhs[NJ], a[NJ];
+  for (int i = 0; i < NJ; ++i) z[i] = 0.f;
+  rnea<NJ, float>(C, R, P, vr, z, b);
+  mass_matrix<NJ>(C, R, P, M);
+  chol_factor<NJ>(M, L);
+  for (int i = 0; i < NJ; ++i) rhs[i] = u[i] - b[i];
+  chol_solve<NJ>(L, rhs, a);
+  for (int i = 0; i < NJ; ++i) {
+    float vn = vr[i] + h * a[i];
+    if (lane == i) xo[i] = qr[i] + h * vn;
+    if (lane == NJ + i) xo[NJ + i] = vn;
+  }
+  // B: lane k the tangent k of (q, v); lanes >= NX repeat one and store
+  // nothing. da/d(q,v) = -M^-1 d rnea(q, v, a)/d(q, v), a held fixed.
+  const float h2 = h * h;
+  const int k = lane < NX ? lane : lane - NX;
+  Dual qd[NJ], vd[NJ], ad[NJ], td[NJ];
+  for (int i = 0; i < NJ; ++i) {
+    qd[i] = Dual(qr[i], k == i ? 1.f : 0.f);
+    vd[i] = Dual(vr[i], k == NJ + i ? 1.f : 0.f);
+    ad[i] = Dual(a[i]);
+  }
+  M3<Dual> Rd[NJ];
+  V3<Dual> Pd[NJ];
+  joint_transforms<NJ, Dual>(C, qd, Rd, Pd);
+  rnea<NJ, Dual>(C, Rd, Pd, vd, ad, td);
+  float col[NJ], da[NJ];
+  for (int i = 0; i < NJ; ++i) col[i] = -td[i].d;
+  chol_solve<NJ>(L, col, da);
+  float* fx = S + K::S_FX;
+  if (lane < NX) {
+    // semi-implicit Euler chain rule: v+ = v + dt a ; q+ = q + dt v+
+    for (int i = 0; i < NJ; ++i) {
+      if (k < NJ) {
+        fx[i * NX + k] = (k == i ? 1.f : 0.f) + h2 * da[i];
+        fx[(NJ + i) * NX + k] = h * da[i];
+      } else {
+        fx[i * NX + k] = (k - NJ == i ? h : 0.f) + h2 * da[i];
+        fx[(NJ + i) * NX + k] = (k - NJ == i ? 1.f : 0.f) + h * da[i];
+      }
+    }
+  }
+  // Fu: lane j < NJ the M^-1 column j
+  const int j = lane % NJ;
+  float e[NJ], mcol[NJ];
+  for (int i = 0; i < NJ; ++i) e[i] = i == j ? 1.f : 0.f;
+  chol_solve<NJ>(L, e, mcol);
+  float* fu = S + K::S_FU;
+  if (lane < NJ) {
+    for (int i = 0; i < NJ; ++i) {
+      fu[i * NJ + j] = h2 * mcol[i];
+      fu[(NJ + i) * NJ + j] = h * mcol[i];
+    }
+  }
+}
 
-  float* lxn = nullptr; float* lun = nullptr; float* lxxn = nullptr;
-  float* lxun = nullptr; float* luun = nullptr;
-  if (DERIVS) {
-    lxn = lx + (long)n * NX;
-    lun = lu + (long)n * NJ;
-    lxxn = lxx + (long)n * NX * NX;
-    lxun = lxu + (long)n * NX * NJ;
-    luun = luu + (long)n * NJ * NJ;
-    for (int i = 0; i < NX; ++i) lxn[i] = 0.f;
-    for (int i = 0; i < NJ; ++i) lun[i] = 0.f;
-    for (int i = 0; i < NX * NX; ++i) lxxn[i] = 0.f;
-    for (int i = 0; i < NX * NJ; ++i) lxun[i] = 0.f;
-    for (int i = 0; i < NJ * NJ; ++i) luun[i] = 0.f;
+// Phase C for cost item `it`: every lane its value (into st.l), lane k < nd
+// row k of its Jacobian; lane 0 the item vectors (state/control: r and w;
+// control_grav: w r and w; the residual kinds: da/dr and the Gauss-Newton
+// diagonal).
+template <int NJ, int LANES>
+AG_FN K1Item k1_item_tangent(int lane, const float* C, int it, float* S,
+                             K1Lane<NJ>& st) {
+  typedef K1Shape<NJ> K;
+  constexpr int NX = K::NX;
+  const float* D = C + NJ * JSTRIDE + 3 + it * ISTRIDE;
+  const float* row = S + K::S_ROW;
+  const float* x = S + K::S_X;  // q, v
+  const float* u = S + K::S_U;
+  float* J = S + K::S_J;
+  float* v1 = S + K::S_V1;
+  float* v2 = S + K::S_V2;
+  K1Item o;
+  o.kind = (int)D[I_KIND];
+  o.wgt = D[I_WEIGHT];
+  // streamed w_collision_avoidance scale of an update=True collision item
+  if ((int)D[I_WCOLL] >= 0) o.wgt *= row[(int)D[I_WCOLL]];
+  float li = 0.f;
+  if (o.kind == K_STATE || o.kind == K_CONTROL) {
+    const int n = o.kind == K_STATE ? NX : NJ;
+    for (int i = 0; i < n; ++i) {
+      float xi = o.kind == K_CONTROL ? u[i] : x[i];
+      float r = xi - item_ref(D, row, i);
+      float w = item_weight(D, row, i);
+      li += 0.5f * w * r * r;
+      if (lane == 0) {
+        v1[i] = r;
+        v2[i] = w;
+      }
+    }
+    o.nd = 0;
+    o.nr = n;
+  } else if (o.kind == K_CONTROL_GRAV) {
+    // J[k][i] = d g_i / d q_k
+    const int k = lane % NJ;
+    Dual qd[NJ], zd[NJ], td[NJ];
+    for (int i = 0; i < NJ; ++i) qd[i] = Dual(x[i], i == k ? 1.f : 0.f);
+    M3<Dual> Rd[NJ];
+    V3<Dual> Pd[NJ];
+    joint_transforms<NJ, Dual>(C, qd, Rd, Pd);
+    rnea<NJ, Dual>(C, Rd, Pd, zd, zd, td);
+    for (int i = 0; i < NJ; ++i) {
+      if (lane < NJ) J[k * NJ + i] = td[i].d;
+      float w = item_weight(D, row, i);
+      float r = u[i] - td[i].v;
+      li += 0.5f * w * r * r;
+      if (lane == 0) {
+        v1[i] = w * r;
+        v2[i] = w;
+      }
+    }
+    o.nd = NJ;
+    o.nr = NJ;
+  } else {  // frame, visual-servoing and collision kinds: residual of q;
+            // frame_velocity: of q and v. J[k][i] = d r_i / d x_k
+    o.nd = o.kind == K_FRAME_VELOCITY ? NX : NJ;
+    const int k = lane < o.nd ? lane : 0;
+    Dual qd[NJ], vd[NJ], rd[6];
+    for (int i = 0; i < NJ; ++i) {
+      qd[i] = Dual(x[i], i == k ? 1.f : 0.f);
+      vd[i] = Dual(x[NJ + i], NJ + i == k ? 1.f : 0.f);
+    }
+    o.nr = frame_residual<NJ, Dual>(C, D, row, o.kind, qd, vd, rd);
+    float r[6], a_dr[6], a_drr[6];
+    for (int i = 0; i < 6; ++i) {
+      r[i] = rd[i].v;
+      if (i < o.nr && lane < o.nd) J[k * 6 + i] = rd[i].d;
+    }
+    li = activation(D, row, o.nr, r, a_dr, a_drr);
+    if (lane == 0) {
+      for (int i = 0; i < o.nr; ++i) {
+        v1[i] = a_dr[i];
+        v2[i] = a_drr[i];
+      }
+    }
   }
+  st.l += o.wgt * li;
+  return o;
+}
+
+// The item's weighted Gauss-Newton term of output entry e of the node's
+// lx | lu | lxx | lxu | luu (row-major blocks), as the one-thread version
+// forms it; 0 where the item adds nothing.
+template <int NJ>
+AG_FN float k1_entry_term(const K1Item& o, int e, const float* J,
+                          const float* v1, const float* v2) {
+  constexpr int NX = 2 * NJ;
+  int blk, r = 0, c = 0;
+  if (e < NX) {
+    blk = 0; r = e;
+  } else if (e < NX + NJ) {
+    blk = 1; r = e - NX;
+  } else if (e < NX + NJ + NX * NX) {
+    blk = 2; r = (e - NX - NJ) / NX; c = (e - NX - NJ) % NX;
+  } else if (e < NX + NJ + NX * NX + NX * NJ) {
+    e -= NX + NJ + NX * NX;
+    blk = 3; r = e / NJ; c = e % NJ;
+  } else {
+    e -= NX + NJ + NX * NX + NX * NJ;
+    blk = 4; r = e / NJ; c = e % NJ;
+  }
+  const float wgt = o.wgt;
+  const int hi = r > c ? r : c, lo = r > c ? c : r;
+  if (o.kind == K_STATE) {
+    if (blk == 0) return wgt * v2[r] * v1[r];
+    return blk == 2 && r == c ? wgt * v2[r] : 0.f;
+  }
+  if (o.kind == K_CONTROL) {
+    if (blk == 1) return wgt * v2[r] * v1[r];
+    return blk == 4 && r == c ? wgt * v2[r] : 0.f;
+  }
+  if (o.kind == K_CONTROL_GRAV) {  // J_u = I, J_x = [-Jg, 0]
+    if (blk == 1) return wgt * v1[r];
+    if (blk == 4) return r == c ? wgt * v2[r] : 0.f;
+    if (blk == 0 && r < NJ) {
+      float s = 0.f;
+      for (int i = 0; i < NJ; ++i) s += J[r * NJ + i] * v1[i];
+      return -wgt * s;
+    }
+    if (blk == 3 && r < NJ) return -wgt * J[r * NJ + c] * v2[c];
+    if (blk == 2 && r < NJ && c < NJ) {
+      float hs = 0.f;
+      for (int i = 0; i < NJ; ++i) hs += J[hi * NJ + i] * v2[i] * J[lo * NJ + i];
+      return wgt * hs;
+    }
+    return 0.f;
+  }
+  if (blk == 0 && r < o.nd) {
+    float s = 0.f;
+    for (int i = 0; i < o.nr; ++i) s += J[r * 6 + i] * v1[i];
+    return wgt * s;
+  }
+  if (blk == 2 && r < o.nd && c < o.nd) {
+    float hs = 0.f;
+    for (int i = 0; i < o.nr; ++i) hs += J[hi * 6 + i] * v2[i] * J[lo * 6 + i];
+    return wgt * hs;
+  }
+  return 0.f;
+}
+
+// Phase D for one item: each lane adds the item's terms to its entries.
+template <int NJ, int LANES>
+AG_FN void k1_item_accumulate(int lane, const K1Item& o, const float* S,
+                              K1Lane<NJ>& st) {
+  typedef K1Shape<NJ> K;
+  AG_UNROLL
+  for (int j = 0; j < K::OWN; ++j) {
+    const int e = lane + j * LANES;
+    if (e < K::NE)
+      st.acc[j] += k1_entry_term<NJ>(o, e, S + K::S_J, S + K::S_V1,
+                                     S + K::S_V2);
+  }
+}
+
+// Stores the node's Fx, Fu (from the scratch), l and the lane's entries of
+// lx, lu, lxx, lxu, luu, dt-scaled (the running cost; the terminal model
+// has dt = 0 semantics, `ocp_croco_generic.py:808-812`).
+template <int NJ, int LANES>
+AG_FN void k1_store(int lane, const float* S, const K1Lane<NJ>& st,
+                    long long n, float* Fx, float* Fu, float* l, float* lx,
+                    float* lu, float* lxx, float* lxu, float* luu) {
+  typedef K1Shape<NJ> K;
+  constexpr int NX = K::NX;
+  for (int e = lane; e < NX * NX; e += LANES)
+    Fx[n * NX * NX + e] = S[K::S_FX + e];
+  for (int e = lane; e < NX * NJ; e += LANES)
+    Fu[n * NX * NJ + e] = S[K::S_FU + e];
+  if (lane == 0) l[n] = st.l * st.h;
+  AG_UNROLL
+  for (int j = 0; j < K::OWN; ++j) {
+    int e = lane + j * LANES;
+    if (e >= K::NE) continue;
+    const float val = st.acc[j] * st.h;
+    if (e < NX) { lx[n * NX + e] = val; continue; }
+    e -= NX;
+    if (e < NJ) { lu[n * NJ + e] = val; continue; }
+    e -= NJ;
+    if (e < NX * NX) { lxx[n * NX * NX + e] = val; continue; }
+    e -= NX * NX;
+    if (e < NX * NJ) { lxu[n * NX * NJ + e] = val; continue; }
+    luu[n * NJ * NJ + e - NX * NJ] = val;
+  }
+}
+
+// ---- K2: the step and the cost items of one node, on two warps -------------
+// Inputs node-major, x [NX], u [NJ], dt, the gathered ref row; the step
+// writes x+ into xo [NX], the costs return the dt-scaled l.
+template <int NJ>
+AG_FN void k2_step(const float* C, const float* xn, const float* un, float h,
+                   float* xo) {
+  float q[NJ], v[NJ], u[NJ];
+  for (int i = 0; i < NJ; ++i) {
+    q[i] = xn[i];
+    v[i] = xn[NJ + i];
+    u[i] = un[i];
+  }
+  M3<float> R[NJ];
+  V3<float> P[NJ];
+  dynamics_node<NJ, false>(C, q, v, u, h, R, P, xo, nullptr, nullptr);
+}
+
+template <int NJ>
+AG_FN float k2_costs(const float* C, int n_items, const float* row,
+                     const float* xn, const float* un, float h) {
+  float q[NJ], v[NJ], u[NJ];
+  for (int i = 0; i < NJ; ++i) {
+    q[i] = xn[i];
+    v[i] = xn[NJ + i];
+    u[i] = un[i];
+  }
+  M3<float> R[NJ];
+  V3<float> P[NJ];
+  joint_transforms<NJ, float>(C, q, R, P);
   float lv = 0.f;
-  node_costs<NJ, DERIVS>(C, n_items, row, q, v, un, R, P, &lv, lxn, lun, lxxn,
-                         lxun, luun);
-  // running cost is dt-scaled (terminal has dt = 0 semantics,
-  // `ocp_croco_generic.py:808-812`)
-  l[n] = lv * h;
-  if (DERIVS) {
-    for (int i = 0; i < NX; ++i) lxn[i] *= h;
-    for (int i = 0; i < NJ; ++i) lun[i] *= h;
-    for (int i = 0; i < NX * NX; ++i) lxxn[i] *= h;
-    for (int i = 0; i < NX * NJ; ++i) lxun[i] *= h;
-    for (int i = 0; i < NJ * NJ; ++i) luun[i] *= h;
-  }
+  node_costs<NJ, false>(C, n_items, row, q, v, u, R, P, &lv, nullptr, nullptr,
+                        nullptr, nullptr, nullptr);
+  return lv * h;
 }
 
 // ---- one node of K3 (DERIVS) / K4 ------------------------------------------

@@ -1,7 +1,11 @@
 // Terminal-cost kernels K3/K4 for Hopper (sm_90a), with a plain C interface:
-// the terminal half of the fused stage kernels (see stage_kernels.cu for the
-// design, what bounds them and the launch discipline), in a source of its
-// own so that it compiles in parallel with K1/K2.
+// the terminal half of the fused stage kernels, in a source of its own so
+// that it compiles in parallel with K1/K2. One thread per node over a 1-D
+// grid, the ragged edge masked, the packed constants in shared memory and
+// the ref rows gathered by the wrapper on the torch side (K1/K2 gather
+// them in the kernel); latency-bound, at one node per call in the tick.
+// Launch discipline as stage_kernels.cu: the caller's stream, no
+// synchronisation, no allocation, cudaGetLastError() returned.
 //   ag_terminal(derivs=1) K3  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_terminal(derivs=True)
 //   ag_terminal(derivs=0) K4  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_terminal(derivs=False)
 

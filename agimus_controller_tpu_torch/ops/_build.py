@@ -94,7 +94,9 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ag_stage.argtypes = [i, i, i, p, p, p, p, i, p, i, i,
+    # nj, derivs, N, x, u, dt, t_idx, &RefTable, W, consts, consts_len,
+    # n_items, 9 outputs, stream
+    lib.ag_stage.argtypes = [i, i, i, p, p, p, p, p, i, p, i, i,
                              p, p, p, p, p, p, p, p, p, p]
     lib.ag_stage.restype = i
     lib.ag_terminal.argtypes = [i, i, i, p, p, i, p, i, i, p, p, p, p]

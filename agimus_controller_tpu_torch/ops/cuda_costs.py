@@ -16,11 +16,16 @@ on CUDA tensors, and runs its plain-PyTorch version (`plain`, the same math
 in component form) on CPU tensors. There is no fallback from one to the
 other: a CUDA tensor reaches the kernel or the wrapper raises.
 
-Per-node references are gathered on the torch side (`gather_node_refs`) into
-one node-major `[N, total_comp]` tensor; the kernel reads the model
-constants and a cost-descriptor table from one packed float buffer
-(`_pack_constants`), so one build serves every model with the same number of
-joints.
+K1/K2 gather each node's references in the kernel: the wrapper passes one
+small source table by value (`ref_table`: per layout key of `_ref_layout`,
+the tensor's pointer, row stride and component count) and the node times,
+so a call runs no torch op on refs that are float32 on the device with
+contiguous components, such as the tick's ring-row views. K3/K4 and the
+plain versions gather on the torch side (`gather_node_refs`) into one
+node-major `[N, total_comp]` tensor. Every kernel reads the model constants
+and a cost-descriptor table from one packed float buffer
+(`_pack_constants`), so one build serves every model with the same number
+of joints.
 
 Covered: every spec the Pallas kernels take (`pallas_costs._supported`).
 The kinds state, control, control_grav, frame_placement, frame_translation,
@@ -40,6 +45,7 @@ items (`ocp_croco_generic.py:560-592`), fused with the DAM step.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -195,6 +201,87 @@ def gather_node_refs(layout, refs: Dict, t_idx: torch.Tensor,
     if not cols:
         return torch.zeros((N, 1), dtype=dtype, device=t_idx.device)
     return torch.cat(cols, 1).contiguous()
+
+
+# the kernels' source table (`ag::RefSrc`, `ag::RefTable`,
+# `csrc/stage_kernels.cuh`): the layout keys one call may have
+MAX_REFS = 24
+
+
+class RefSrc(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p), ("stride", ctypes.c_longlong),
+                ("ncomp", ctypes.c_int), ("per_node", ctypes.c_int),
+                ("row", ctypes.c_int), ("off", ctypes.c_int)]
+
+
+class RefTable(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("e", RefSrc * MAX_REFS)]
+
+
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """Whether each t[i] (t itself when 0-d) lies contiguously in memory."""
+    expect = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def ref_table(layout, refs: Dict, device: torch.device):
+    """The kernel's source table for the refs `gather_node_refs` reads.
+
+    Returns (RefTable, the tensors it points into). Node time t's columns
+    [off, off + ncomp) of a key are src[(per_node ? t : row) * stride + i]:
+    a per-node key (`val.ndim >= 1`) reads val[t], a `__geom_rot:{g}` /
+    `__geom_trans:{g}` key row g of the global `geom_rot` / `geom_trans`,
+    another global key its flat values, an absent key zeros. A tensor is
+    read in place when it is float32 on `device` with each row contiguous;
+    otherwise it costs one conversion (a dtype or device move, a copy for
+    strided components). The port's own
+    callers (the tick's ring views, `default_references`, chip_smoke's
+    inputs) pay none. The returned tensors must live until the launch is
+    enqueued; after that, freeing a converted temporary is safe on the one
+    stream the port uses, as the caching allocator reuses its memory only
+    for work queued after the kernel."""
+    if len(layout) > MAX_REFS:
+        raise NotImplementedError(
+            f"the stage kernels take at most {MAX_REFS} ref keys (MAX_REFS), "
+            f"this cost model needs {len(layout)}")
+    tab = RefTable()
+    tab.n = len(layout)
+    keep = []
+    off = 0
+    for e, (key, ncomp, per_node) in zip(tab.e, layout):
+        geom = key.startswith("__geom_")
+        if geom:  # row g of the global geom_rot / geom_trans
+            val = refs.get(key[2:].split(":")[0])
+            e.row = int(key.split(":")[1])
+        else:
+            val = refs.get(key)
+        e.ncomp, e.off = ncomp, off
+        off += ncomp
+        if val is None:  # zeros, as the gather
+            continue
+        if val.dtype != torch.float32 or val.device != device:
+            val = val.to(device=device, dtype=torch.float32)
+        e.per_node = int(per_node and not geom and val.ndim >= 1)
+        if e.per_node or geom:
+            if not _rows_contiguous(val):
+                val = val.contiguous()
+            if val.ndim == 0 or math.prod(val.shape[1:]) != ncomp:
+                raise ValueError(f"ref {key!r} of shape {tuple(val.shape)} "
+                                 f"does not hold {ncomp} values per row")
+            e.stride = val.stride(0)
+        else:
+            if val.numel() != ncomp:
+                raise ValueError(f"ref {key!r} of shape {tuple(val.shape)} "
+                                 f"does not hold {ncomp} values")
+            if not val.is_contiguous():
+                val = val.contiguous()
+        e.src = val.data_ptr()
+        keep.append(val)
+    return tab, keep
 
 
 def _slice_layout(layout):
@@ -615,14 +702,30 @@ class StageKernel(_StageBase):
     def __call__(self, x, u, dt, t_idx, refs):
         if x.device.type == "cpu":
             return self.plain(x, u, dt, t_idx, refs)
+        args, outs = self.prepare(x, u, dt, t_idx, refs)
+        self.launch(args)
+        return outs
+
+    def prepare(self, x, u, dt, t_idx, refs):
+        """Checks the inputs, builds the source table and allocates the
+        outputs: returns (the launch's arguments, the outputs). The refs
+        are read in place (see `ref_table`)."""
         lib = self._lib(x)
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
-        rows = self._rows(refs, t_idx, x.dtype)
         for name, t, shape in (("x", x, (N, nx)), ("u", u, (N, nj)),
-                               ("dt", dt, (N,)), ("refs rows", rows,
-                                                  (N, self.width))):
+                               ("dt", dt, (N,))):
             _check_input(name, t, self.device, shape)
+        if t_idx.shape != (N,):
+            raise ValueError(f"t_idx has shape {tuple(t_idx.shape)}, "
+                             f"expected {(N,)}")
+        if t_idx.dtype != torch.long or t_idx.device != self.device:
+            t_idx = t_idx.to(device=self.device, dtype=torch.long)
+        if not t_idx.is_contiguous():
+            t_idx = t_idx.contiguous()
+        tab, keep = ref_table(
+            self.layout, with_geom_defaults(self.layout, refs, self.params),
+            self.device)
         new = lambda *s: torch.empty((N,) + s, dtype=x.dtype, device=x.device)
         if self.derivs:
             outs = (new(nx), new(nx, nx), new(nx, nj), new(), new(nx),
@@ -631,15 +734,22 @@ class StageKernel(_StageBase):
         else:
             outs = (new(nx), new())
             ptrs = [_ptr(outs[0]), None, None, _ptr(outs[1])] + [None] * 5
-        err = lib.ag_stage(
-            nj, int(self.derivs), N, _ptr(x), _ptr(u), _ptr(dt), _ptr(rows),
-            self.width, _ptr(self._consts), self._consts.numel(),
-            len(self.items), *ptrs,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        args = (lib, (nj, int(self.derivs), N, _ptr(x), _ptr(u), _ptr(dt),
+                      _ptr(t_idx), ctypes.c_void_p(ctypes.addressof(tab)),
+                      self.width, _ptr(self._consts), self._consts.numel(),
+                      len(self.items), *ptrs,
+                      ctypes.c_void_p(
+                          torch.cuda.current_stream(x.device).cuda_stream)),
+                (tab, keep, t_idx, x, u, dt, outs))
+        return args, outs
+
+    def launch(self, args):
+        """One launch of the kernel on prepared arguments (`prepare`)."""
+        lib, cargs, _ = args
+        err = lib.ag_stage(*cargs)
         if err != 0:
             raise RuntimeError(f"stage kernel launch failed: {_build.error_string(err)}")
         self.launches += 1
-        return outs
 
     def plain(self, x, u, dt, t_idx, refs):
         """The plain-PyTorch version, on the inputs' own device."""

@@ -8,9 +8,11 @@ against their plain-PyTorch versions on the card on five specs (the
 flagship goal tracking, the Pallas kernels' test spec with its collision
 item, the shipped collision-avoidance YAML, the visual-servoing OCP
 `VS_OCP` and a visual-servoing + frame-velocity spec) with every term live,
-and K5a/K5b at the batch path's shapes with per-node and scalar dt; times
-each call and computes its bound. Then drives the port's four main paths,
-every entry point on the card, the first three through `FusedTickRunner`:
+K1/K2 at N = 19, 100 and 102 400 and also on the tick's ring-row views of
+the refs, and K5a/K5b at the batch path's shapes with per-node and scalar
+dt; times each call (K1/K2 also their bare launch) and computes its
+bound. Then drives the port's four main paths, every entry point on the
+card, the first three through `FusedTickRunner`:
 
 - the flagship chain: Panda, T=100, f32, unconstrained, checked to converge
   onto the streamed goal;
@@ -373,6 +375,22 @@ def randomized_inputs(spec, model, N, seed, device):
     return refs, x, u, dt, t_idx
 
 
+def tick_views(spec, model, refs):
+    """`refs` as the tick hands them to the kernels: views into one packed
+    [T+1, width] ring-rows tensor (`RowLayout.unpack_refs`, row stride = the
+    width) holding the same values; the global keys pass through."""
+    from agimus_controller_tpu_torch.mpc.ring import RowLayout
+
+    layout = RowLayout(spec, model)
+    Tn = spec.horizon + 1
+    rows = torch.zeros((Tn, layout.width), dtype=torch.float32,
+                       device=next(iter(refs.values())).device)
+    for f in layout.fields:
+        if f.key in refs:
+            rows[:, f.offset:f.offset + f.size] = refs[f.key].reshape(Tn, f.size)
+    return layout.unpack_refs(rows, refs)
+
+
 def live_share(spec, model, refs, x):
     """Share of the nodes where some collision item's activation exceeds
     1e-3 (f64, CPU): a comparison where it underflows proves nothing."""
@@ -497,10 +515,14 @@ def bound_ms(k, kind, n_nodes, ops_node):
                                        else "operations")
 
 
-def check_kernels(model, params, device, sizes=(100, 102_400)):
+def check_kernels(model, params, device, sizes=(19, 100, 102_400)):
     """K1-K4 vs their plain versions on the same CUDA inputs, f32, on the
-    checked specs, with each call's time and bound. Returns {kernel: {spec:
-    {N: numbers}}}."""
+    checked specs, with each call's time and bound; K1/K2 also with the
+    kernel-only time (CUDA events around the bare launch, inputs, source
+    table and outputs prepared) and, at the first size, on the tick's
+    ring-row views of the same refs. The terminal kernels take N // 100
+    nodes (at least 1) and skip N < 100. Returns {kernel: {spec: {N:
+    numbers}}}."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
@@ -519,7 +541,10 @@ def check_kernels(model, params, device, sizes=(100, 102_400)):
             else:
                 k = make_cuda_terminal(model, params, spec, derivs, device)
                 labels = ("l", "lx", "lxx") if derivs else ("l",)
+            ops_node = None
             for N in sizes:
+                if kind != "stage" and N < 100:
+                    continue
                 # the tick gives the terminal kernels one node per scenario
                 n_nodes = N if kind == "stage" else max(1, N // 100)
                 refs, x, u, dt, t_idx = randomized_inputs(
@@ -532,26 +557,45 @@ def check_kernels(model, params, device, sizes=(100, 102_400)):
                     plain = lambda: k.plain(x, refs)
                 got = run()
                 torch.cuda.synchronize()
+                want = plain()
                 errs = check_outputs(f"{name} {spec_name} N={n_nodes}", got,
-                                     plain(), labels)
+                                     want, labels)
+                views = ""
+                if kind == "stage" and N == sizes[0]:
+                    got_v = k(x, u, dt, t_idx, tick_views(spec, model, refs))
+                    torch.cuda.synchronize()
+                    for lab, e in check_outputs(
+                            f"{name} {spec_name} N={n_nodes} tick views",
+                            got_v, want, labels).items():
+                        errs[lab] = max(errs[lab], e)
+                    same = all(torch.equal(a, b) for a, b in zip(got, got_v))
+                    views = f"  tick views {'equal' if same else 'differ'}"
                 ms = cuda_time_ms(run, reps=50)
+                kernel_ms = None
+                if kind == "stage":
+                    args, _ = k.prepare(x, u, dt, t_idx, refs)
+                    kernel_ms = cuda_time_ms(lambda: k.launch(args), reps=50)
                 # the plain versions take up to seconds a call; the check
                 # above was their warm-up
                 plain_ms = cuda_time_ms(plain, reps=1, warmup=0)
-                if N == sizes[0]:
+                if ops_node is None:
                     ops_node = ops_per_node(model_cpu, params_cpu, spec, kind,
                                             derivs, refs, x, u, dt, t_idx)
                 b_ms, b_by = bound_ms(k, kind, n_nodes, ops_node)
                 live = (f"  collision term live on "
                         f"{live_share(spec, model, refs, x):.0%} of nodes"
                         if "geom_trans" in refs else "")
-                print(f"{name:20s} {spec_name:8s} N={n_nodes:6d}  kernel "
-                      f"{ms:9.4f} ms  plain {plain_ms:9.3f} ms  bound "
+                only = ("" if kernel_ms is None
+                        else f" (kernel only {kernel_ms:9.4f} ms)")
+                print(f"{name:20s} {spec_name:8s} N={n_nodes:6d}  wrapper "
+                      f"{ms:9.4f} ms{only}  plain {plain_ms:9.3f} ms  bound "
                       f"{b_ms:.6f} ms ({b_by}, {ops_node} ops/node)  max abs "
                       "err " + " ".join(f"{lab}={e:.2e}"
-                                        for lab, e in errs.items()) + live)
+                                        for lab, e in errs.items())
+                      + views + live)
                 report.setdefault(name, {}).setdefault(spec_name, {})[
-                    n_nodes] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    n_nodes] = dict(ms=ms, kernel_only_ms=kernel_ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by=b_by,
                                     max_abs_err=max(errs.values()))
     return report
@@ -1276,8 +1320,9 @@ def main():
 
     # -- 5. result: launches over the four paths, the max error over every
     # checked spec and size; times and bounds at the flagship tick shape for
-    # K1-K4 and at the batch path's shapes for K5a/K5b (no single PyTorch
-    # call computes a fused stage or a dynamics step: no library time)
+    # K1-K4 and at the batch path's shapes for K5a/K5b, the kernel-only time
+    # for K1/K2 (null where not measured; no single PyTorch call computes a
+    # fused stage or a dynamics step: no library time)
     kernels = []
     for name, kind, derivs, replaces in KERNELS:
         if kind == "step":
@@ -1291,6 +1336,7 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=SOURCES[kind],
                             replaces=replaces, launches=launches[name],
                             max_abs_err=err, ms=r["ms"],
+                            kernel_only_ms=r.get("kernel_only_ms"),
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -1,0 +1,148 @@
+"""Time the stage kernels K1/K2 of one checkout of the port on the GPU.
+
+    python3 examples/stage_kernels_ab.py --root DIR [--out FILE.json]
+
+Imports `agimus_controller_tpu_torch` from DIR (this checkout or an
+unpacked older one, e.g. `git archive <commit> | tar -x -C build/parent`),
+builds its kernels there and times, with CUDA events (median over 50
+calls), for K1 (`make_cuda_stage(derivs=True)`) and K2 (`derivs=False`) on
+`chip_smoke.py`'s checked specs at N = 19, 100 and 102 400:
+
+- `wrapper_ms`: one wrapper call, as `chip_smoke.py` times it;
+- `kernel_ms`: the bare `ag_stage` launch with the inputs, the refs and the
+  outputs prepared (for a checkout whose wrapper gathers the refs on the
+  torch side, the gathered rows are prepared too);
+- `host_ms`: the host-clock time of one wrapper call without a
+  synchronize (mean over 50 calls): the host's part of the call.
+
+The inputs are `chip_smoke.randomized_inputs` of the checkout that holds
+this script, whatever DIR is. Prints one
+line per case and the card's name and power limit; with --out, writes the
+numbers as JSON. Run two checkouts in turns in one call to compare them
+(parent, change, change, parent).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parent.parent
+SIZES = (19, 100, 102_400)
+
+
+def kernel_launch(k, x, u, dt, t_idx, refs):
+    """A callable that runs the bare launch of wrapper k's kernel."""
+    if hasattr(k, "prepare"):  # the kernel gathers the refs itself
+        args, _ = k.prepare(x, u, dt, t_idx, refs)
+        return lambda: k.launch(args)
+    # a wrapper that gathers the rows on the torch side: the same launch
+    # as its __call__, with the rows and outputs made once
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import _ptr
+
+    lib = k._lib(x)
+    N, nj = x.shape[0], k.nj
+    nx = 2 * nj
+    rows = k._rows(refs, t_idx, x.dtype)
+    new = lambda *s: torch.empty((N,) + s, dtype=x.dtype, device=x.device)
+    if k.derivs:
+        outs = (new(nx), new(nx, nx), new(nx, nj), new(), new(nx), new(nj),
+                new(nx, nx), new(nx, nj), new(nj, nj))
+        ptrs = [_ptr(o) for o in outs]
+    else:
+        outs = (new(nx), new())
+        ptrs = [_ptr(outs[0]), None, None, _ptr(outs[1])] + [None] * 5
+    cargs = (nj, int(k.derivs), N, _ptr(x), _ptr(u), _ptr(dt), _ptr(rows),
+             k.width, _ptr(k._consts), k._consts.numel(), len(k.items), *ptrs,
+             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    keep = (rows, outs)
+
+    def run():
+        err = lib.ag_stage(*cargs)
+        if err != 0:
+            raise RuntimeError(f"stage kernel launch failed: {err}")
+        return keep
+
+    return run
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, required=True)
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--specs", default="flagship,full,yaml,vs,fv")
+    ap.add_argument("--tag", default="")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("stage_kernels_ab: no CUDA device")
+    root = a.root.resolve()
+    sys.path.insert(0, str(root))
+    import agimus_controller_tpu_torch as pkg
+
+    if Path(pkg.__file__).resolve().parent.parent != root:
+        raise RuntimeError(f"port imported from {pkg.__file__}, not {root}")
+    # this checkout's chip_smoke (inputs, specs, timing), whatever --root is
+    spec_ = importlib.util.spec_from_file_location("chip_smoke",
+                                                   HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(smoke)
+    from agimus_controller_tpu_torch.models.panda import load_panda
+    from agimus_controller_tpu_torch.ops import _build
+    from agimus_controller_tpu_torch.ops.cuda_costs import make_cuda_stage
+
+    device = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    t0 = time.perf_counter()
+    _, log = _build.build()
+    _build.load_library()
+    print(f"[{a.tag}] {root}: built in {time.perf_counter() - t0:.1f} s; {card}")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"[{a.tag}]   ptxas:", line.strip())
+    model, params = load_panda(env_urdf=smoke.ENV_URDF,
+                               collision_pairs=smoke.PAIR,
+                               dtype=torch.float32, device=device)
+    out = []
+    for spec_name in a.specs.split(","):
+        spec = smoke.SPECS[spec_name](100, model)
+        for derivs in (True, False):
+            name = "K1" if derivs else "K2"
+            k = make_cuda_stage(model, params, spec, derivs, device)
+            for N in SIZES:
+                refs, x, u, dt, t_idx = smoke.randomized_inputs(
+                    spec, model, N, seed=N + derivs, device=device)
+                call = lambda: k(x, u, dt, t_idx, refs)
+                wrapper_ms = smoke.cuda_time_ms(call, reps=50)
+                kernel_ms = smoke.cuda_time_ms(
+                    kernel_launch(k, x, u, dt, t_idx, refs), reps=50)
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                for _ in range(50):
+                    call()
+                host_ms = (time.perf_counter() - h0) / 50 * 1e3
+                torch.cuda.synchronize()
+                print(f"[{a.tag}] {name} {spec_name:8s} N={N:6d}  wrapper "
+                      f"{wrapper_ms:9.4f} ms  kernel {kernel_ms:9.4f} ms  "
+                      f"host {host_ms:8.4f} ms")
+                out.append(dict(kernel=name, spec=spec_name, N=N,
+                                wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
+                                host_ms=host_ms))
+    if a.out:
+        a.out.parent.mkdir(parents=True, exist_ok=True)
+        a.out.write_text(json.dumps(dict(root=str(root), tag=a.tag,
+                                         card=card, rows=out), indent=1))
+
+
+if __name__ == "__main__":
+    main()

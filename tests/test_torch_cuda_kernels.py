@@ -24,7 +24,7 @@ import chip_smoke as smoke
 
 pytestmark = pytest.mark.cuda
 
-SIZES = (100, 4096)
+SIZES = (19, 100, 4096)
 
 
 @pytest.fixture(scope="module")
@@ -68,6 +68,29 @@ def test_kernel_matches_plain(device, panda, spec_name, kernel, N):
     torch.cuda.synchronize()
     assert k.launches == 1
     smoke.check_outputs(f"{kernel} {spec_name} N={N}", got, want, labels)
+
+
+@pytest.mark.parametrize("kernel", ["K1_stage_derivs", "K2_stage_value"])
+@pytest.mark.parametrize("spec_name", ["flagship", "full", "yaml", "vs", "fv"])
+def test_stage_kernel_reads_tick_views(device, panda, spec_name, kernel):
+    """K1/K2 on the tick's ring-row views of the refs (row stride = the ring
+    width) give the outputs of the same refs held separately."""
+    from agimus_controller_tpu_torch.ops.cuda_costs import make_cuda_stage
+
+    model, params = panda
+    spec = smoke.SPECS[spec_name](100, model)
+    derivs = kernel == "K1_stage_derivs"
+    refs, x, u, dt, t_idx = smoke.randomized_inputs(spec, model, 19, seed=3,
+                                                    device=device)
+    views = smoke.tick_views(spec, model, refs)
+    k = make_cuda_stage(model, params, spec, derivs, device)
+    got, sep = k(x, u, dt, t_idx, views), k(x, u, dt, t_idx, refs)
+    torch.cuda.synchronize()
+    assert k.launches == 2
+    smoke.check_outputs(f"{kernel} {spec_name} tick views", got,
+                        k.plain(x, u, dt, t_idx, refs),
+                        smoke.STAGE_OUT if derivs else ("xnext", "l"))
+    assert all(torch.equal(a, b) for a, b in zip(got, sep))
 
 
 def test_wrapper_rejects_bad_inputs(device, panda):

@@ -1,0 +1,145 @@
+"""The stage kernels' per-lane programs on the CPU, against the plain
+versions, f32.
+
+K1 splits a node across LANES lanes (phases separated by warp barriers) and
+K2 splits it across two warps (`csrc/stage_kernels.cu`); their per-lane
+steps are host/device functions of `csrc/stage_kernels.cuh`. This test
+builds them with g++ into a host library (`tests/stage_lanes_harness.cpp`,
+which runs each phase lane by lane and K2's two warps one after the other),
+feeds it the wrapper's own source table (`cuda_costs.ref_table`) and packed
+constants, and holds every output against `StageKernel.plain` at
+`chip_smoke.TOL`, on chip_smoke's flagship, `full`, `yaml`, `vs` and `fv`
+specs at N = 19 (ragged against the kernels' 8 and 32 nodes per block),
+with the refs as `default_references` holds them and as the tick's ring-row
+views; and on the 2-DoF arm (4 lanes per node). Skips only without g++.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as smoke
+from agimus_controller_tpu_torch.models.panda import load_panda
+from agimus_controller_tpu_torch.models.urdf import build_model_from_urdf
+from agimus_controller_tpu_torch.ocp.spec import (
+    CostItem,
+    ProblemSpec,
+    default_references,
+)
+from agimus_controller_tpu_torch.ops import cuda_costs
+from tests.test_ring_control_loop import URDF_2DOF
+
+ROOT = Path(__file__).resolve().parent.parent
+CPU = torch.device("cpu")
+N = 19
+SPECS = ("flagship", "full", "yaml", "vs", "fv")
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernels' per-lane functions")
+    out = tmp_path_factory.mktemp("stage_lanes") / "libstage_lanes.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I",
+         str(ROOT / "agimus_controller_tpu_torch" / "csrc"), "-o", str(out),
+         str(ROOT / "tests" / "stage_lanes_harness.cpp")],
+        check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ag_stage_host.argtypes = [i, i, i, p, p, p, p, p, i, p, i, i] + [p] * 9
+    lib.ag_stage_host.restype = i
+    return lib
+
+
+@pytest.fixture(scope="module")
+def panda():
+    return load_panda(env_urdf=smoke.ENV_URDF, collision_pairs=smoke.PAIR,
+                      dtype=torch.float32, device=CPU)
+
+
+def run_host(lib, k, x, u, dt, t_idx, refs):
+    """The wrapper's launch, through the host harness."""
+    nj, n = k.nj, x.shape[0]
+    nx = 2 * nj
+    tab, keep = cuda_costs.ref_table(
+        k.layout, cuda_costs.with_geom_defaults(k.layout, refs, k.params), CPU)
+    consts = torch.as_tensor(cuda_costs._pack_constants(
+        k.model, k.params, k.items, k.offsets))
+    new = lambda *s: torch.full((n,) + s, float("nan"))
+    if k.derivs:
+        outs = (new(nx), new(nx, nx), new(nx, nj), new(), new(nx), new(nj),
+                new(nx, nx), new(nx, nj), new(nj, nj))
+        ptrs = [o.data_ptr() for o in outs]
+    else:
+        outs = (new(nx), new())
+        ptrs = [outs[0].data_ptr(), None, None, outs[1].data_ptr()] + [None] * 5
+    t_idx = t_idx.to(torch.long).contiguous()
+    err = lib.ag_stage_host(
+        nj, int(k.derivs), n, x.data_ptr(), u.data_ptr(), dt.data_ptr(),
+        t_idx.data_ptr(), ctypes.addressof(tab), k.width, consts.data_ptr(),
+        consts.numel(), len(k.items), *ptrs)
+    assert err == 0
+    del keep
+    return outs
+
+
+def check(name, got, want, derivs):
+    labels = smoke.STAGE_OUT if derivs else ("xnext", "l")
+    smoke.check_outputs(name, got, want, labels)
+
+
+@pytest.mark.parametrize("view", ["refs", "tick"])
+@pytest.mark.parametrize("derivs", [True, False], ids=["K1", "K2"])
+@pytest.mark.parametrize("spec_name", SPECS)
+def test_lanes_match_plain(host_lib, panda, spec_name, derivs, view):
+    model, params = panda
+    spec = smoke.SPECS[spec_name](100, model)
+    refs, x, u, dt, t_idx = smoke.randomized_inputs(spec, model, N, seed=N,
+                                                    device=CPU)
+    if view == "tick":
+        refs = smoke.tick_views(spec, model, refs)
+    k = cuda_costs.make_cuda_stage(model, params, spec, derivs, CPU)
+    got = run_host(host_lib, k, x, u, dt, t_idx, refs)
+    check(f"{'K1' if derivs else 'K2'} {spec_name} {view}", got,
+          k.plain(x, u, dt, t_idx, refs), derivs)
+
+
+@pytest.mark.parametrize("derivs", [True, False], ids=["K1", "K2"])
+def test_lanes_match_plain_2dof(host_lib, derivs):
+    """The 2-DoF arm: 4 lanes per node."""
+    model, params = build_model_from_urdf(
+        URDF_2DOF, armature=np.array([0.1, 0.1]), dtype=torch.float32,
+        device=CPU)
+    T = 8
+    spec = ProblemSpec(
+        running_costs=(
+            CostItem(name="state_reg", kind="state", weight=0.1, update=True),
+            CostItem(name="ctrl", kind="control", weight=1e-2, update=True),
+            CostItem(name="grav", kind="control_grav", weight=1e-3),
+            CostItem(name="goal", kind="frame_placement", weight=10.0,
+                     update=True, frame="tip"),
+            CostItem(name="vel", kind="frame_velocity", weight=0.5,
+                     update=True, frame="tip", reference_frame="local")),
+        terminal_costs=(), horizon=T, dt=0.01)
+    rng = np.random.default_rng(2)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
+    refs = default_references(spec, model, device=CPU)
+    for key, val in refs.items():
+        if key != "ee_rot:tip":
+            refs[key] = f(rng.uniform(0.1, 1.0, tuple(val.shape)))
+    x = f(rng.normal(size=(N, 4)) * 0.5)
+    u = f(rng.normal(size=(N, 2)))
+    t_idx = torch.as_tensor(rng.integers(0, T, size=N))
+    dt = f(rng.uniform(0.005, 0.03, N))
+    k = cuda_costs.make_cuda_stage(model, params, spec, derivs, CPU)
+    assert cuda_costs.ref_table(k.layout, refs, CPU)[0].n == len(k.layout)
+    got = run_host(host_lib, k, x, u, dt, t_idx, refs)
+    check(f"{'K1' if derivs else 'K2'} 2-DoF", got,
+          k.plain(x, u, dt, t_idx, refs), derivs)
