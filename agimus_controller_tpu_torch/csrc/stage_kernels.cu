@@ -53,35 +53,10 @@
 
 namespace {
 
+using ag::copy_in;
 using ag::kBlock;
 
 constexpr int kK2Nodes = 32;  // K2 nodes per block; two warps
-
-// Floats of shared memory before the node scratch: the packed constants,
-// rounded up to 16 bytes.
-inline __host__ __device__ int consts_span(int consts_len) {
-  return (consts_len + 3) & ~3;
-}
-
-// dst[i] = src[i], i < n, by threads tid of nt: each thread issues G loads
-// before their stores, so a few threads do not wait on memory once per value.
-template <int G>
-__device__ __forceinline__ void copy_in(float* dst, const float* __restrict__ src,
-                                        int n, int tid, int nt) {
-  for (int base = 0; base < n; base += G * nt) {
-    float buf[G];
-#pragma unroll
-    for (int c = 0; c < G; ++c) {
-      const int i = base + c * nt + tid;
-      buf[c] = i < n ? src[i] : 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < G; ++c) {
-      const int i = base + c * nt + tid;
-      if (i < n) dst[i] = buf[c];
-    }
-  }
-}
 
 template <int NJ>
 __global__ void __launch_bounds__(kBlock)
@@ -104,7 +79,7 @@ stage_k1_kernel(int N, const float* __restrict__ x, const float* __restrict__ u,
   const unsigned mask =
       (LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1u))
       << ((threadIdx.x % 32) / LANES * LANES);
-  float* S = sm + consts_span(consts_len) + node * K::scratch(W);
+  float* S = sm + ag::round4(consts_len) + node * K::scratch(W);
   const float* C = sm;
   ag::k1_load<NJ>(lane, LANES, stab, t_idx[n], x + n * K::NX, u + n * NJ,
                   dt[n], S);
@@ -130,7 +105,7 @@ stage_k2_kernel(int N, const float* __restrict__ x, const float* __restrict__ u,
   extern __shared__ float sm[];
   __shared__ ag::RefTable stab;
   if (threadIdx.x == 0) stab = tab;
-  float* X = sm + consts_span(consts_len);  // [B, NX]
+  float* X = sm + ag::round4(consts_len);  // [B, NX]
   float* U = X + B * NX;                     // [B, NJ]
   float* H = U + B * NJ;                     // [B]
   float* XO = H + B;                         // [B, NX] x+
@@ -168,7 +143,7 @@ cudaError_t launch(bool derivs, int N, const float* x, const float* u,
     typedef ag::K1Shape<NJ> K;
     constexpr int NPB = kBlock / K::LANES;
     size_t smem = sizeof(float) *
-                  ((size_t)consts_span(consts_len) + (size_t)NPB * K::scratch(W));
+                  ((size_t)ag::round4(consts_len) + (size_t)NPB * K::scratch(W));
     if (smem + sizeof(ag::RefTable) > 48 * 1024) {  // with the static table
       cudaError_t e = cudaFuncSetAttribute(
           stage_k1_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -180,7 +155,7 @@ cudaError_t launch(bool derivs, int N, const float* x, const float* u,
         Fu, l, lx, lu, lxx, lxu, luu);
   } else {
     constexpr int B = kK2Nodes;
-    size_t smem = sizeof(float) * ((size_t)consts_span(consts_len) +
+    size_t smem = sizeof(float) * ((size_t)ag::round4(consts_len) +
                                    (size_t)B * (2 * NX + NJ + 1 + W));
     if (smem + sizeof(ag::RefTable) > 48 * 1024) {  // with the static table
       cudaError_t e = cudaFuncSetAttribute(

@@ -2,10 +2,12 @@
 // and of the dynamics-step kernels K5a/K5b (step_kernels.cu).
 //
 // The semi-implicit Euler step with Fx/Fu of one node (`dynamics_node`,
-// all of K5a/K5b), the Gauss-Newton pack of every cost item of the
-// descriptor table (`node_costs`, K2-K4), and K1's per-lane phases of the
-// same (`k1_*`: a node's tangent passes split over the lanes of a warp
-// slice). The same math, in plain PyTorch component form, is
+// K5a and K2), the Gauss-Newton pack of every cost item of the descriptor
+// table (`node_costs`, K2-K4), K1's per-lane phases of the same (`k1_*`: a
+// node's tangent passes split over the lanes of a warp slice), K5b's
+// (`k5_*`: the step's primal shared by the lanes, its tangents one a lane)
+// and K4's (one cost item a lane). The same math, in plain PyTorch
+// component form, is
 // `ops/cuda_dynamics.py::dynamics_terms` and
 // `ops/cuda_costs.py::_item_terms_c`.
 //
@@ -16,8 +18,10 @@
 //
 // Derivative routes (CUDA has no autodiff; the Pallas bodies use JAX's):
 //   - d rnea(q, v, a) / d(q, v) for Fx (Pallas: `jax.vjp`,
-//     pallas_dynamics.py:107-121): forward dual numbers, one pass per
-//     tangent of (q, v), through the templated `rnea`.
+//     pallas_dynamics.py:107-121): forward mode, one pass per tangent of
+//     (q, v): dual numbers through the templated `rnea` (K1), or the
+//     derivative parts alone around shared primal values
+//     (`k5_tangent_rnea`, K5b).
 //   - gravity-torque Jacobian of control_grav (Pallas: `jax.linearize`,
 //     pallas_costs.py:333): forward dual numbers, one pass per joint.
 //   - frame, visual-servoing and collision residual Jacobians, log6/log3
@@ -26,7 +30,7 @@
 //   - frame-velocity residual Jacobians, a function of q and v (Pallas:
 //     `jax.linearize` over q and v, pallas_costs.py:384-390): one pass per
 //     entry of (q, v), 2 NJ passes.
-// A dual pass computes exactly what one `jax.linearize` tangent computes.
+// A forward pass computes exactly what one `jax.linearize` tangent computes.
 //
 // Activations (pallas_costs.py:188-208): weighted_quad on every kind; exp
 // and quad_exp with the Pallas formulas, `sqrt(rr + 1e-12)` for exp and the
@@ -79,6 +83,11 @@ constexpr int K_STATE = 0, K_CONTROL = 1, K_CONTROL_GRAV = 2,
               K_FRAME_VELOCITY = 8;
 constexpr int V_WORLD = 0, V_LOCAL = 1, V_LOCAL_WORLD_ALIGNED = 2;
 constexpr int A_WEIGHTED_QUAD = 0, A_EXP = 1, A_QUAD_EXP = 2;
+
+// Lanes that run one node of K1 / K5b: the power of two >= 2 NJ = nx.
+constexpr int node_lanes(int nx) {
+  return nx <= 2 ? 2 : nx <= 4 ? 4 : nx <= 8 ? 8 : nx <= 16 ? 16 : 32;
+}
 
 // ---- forward-mode dual number ---------------------------------------------
 struct Dual {
@@ -218,22 +227,35 @@ template <class S> AG_HD M3<S> axis_rotation(const V3<S>& ax, S q) {
 AG_HD int parent_of(const float* C, int i) { return (int)C[i * JSTRIDE + J_PARENT]; }
 AG_HD bool revolute(const float* C, int i) { return C[i * JSTRIDE + J_TYPE] == 0.f; }
 
+// Placement of joint i in its parent joint frame at q_i.
+template <class S>
+AG_FN void joint_transform(const float* C, int i, S qi, M3<S>& R, V3<S>& P) {
+  const float* J = C + i * JSTRIDE;
+  M3<S> Rj = load9<S>(J + J_ROT);
+  V3<S> pj = load3<S>(J + J_TRANS);
+  V3<S> ax = load3<S>(J + J_AXIS);
+  if (revolute(C, i)) {
+    R = matmul(Rj, axis_rotation(ax, qi));
+    P = pj;
+  } else {
+    R = Rj;
+    P = pj + matvec(Rj, scale<S>(qi, ax));
+  }
+}
+
 // Joint placements in the parent joint frame at q.
 template <int NJ, class S>
 AG_FN void joint_transforms(const float* C, const S* q, M3<S>* R, V3<S>* P) {
-  for (int i = 0; i < NJ; ++i) {
-    const float* J = C + i * JSTRIDE;
-    M3<S> Rj = load9<S>(J + J_ROT);
-    V3<S> pj = load3<S>(J + J_TRANS);
-    V3<S> ax = load3<S>(J + J_AXIS);
-    if (revolute(C, i)) {
-      R[i] = matmul(Rj, axis_rotation(ax, q[i]));
-      P[i] = pj;
-    } else {
-      R[i] = Rj;
-      P[i] = pj + matvec(Rj, scale<S>(q[i], ax));
-    }
-  }
+  for (int i = 0; i < NJ; ++i) joint_transform<S>(C, i, q[i], R[i], P[i]);
+}
+
+// Whether the joints form one serial chain (the parent of joint i is
+// i - 1), as the Panda and the 2-DoF arm do.
+template <int NJ>
+AG_FN bool is_chain(const float* C) {
+  bool chain = true;
+  for (int i = 0; i < NJ; ++i) chain = chain && parent_of(C, i) == i - 1;
+  return chain;
 }
 
 // Recursive Newton-Euler: tau = rnea(q, v, a), with the placements of q.
@@ -293,65 +315,140 @@ AG_FN void rnea(const float* C, const M3<S>* R, const V3<S>* P, const S* v,
   }
 }
 
-// M + diag(armature) by zero-velocity unit-acceleration columns: only the
-// subtree of j carries accelerations, only ancestors of j receive forces.
+// Column j of M + diag(armature) by the zero-velocity unit-acceleration
+// pass of joint j: only the subtree of j carries accelerations, only
+// ancestors of j receive forces. Writes the entries (i, j) and (j, i) for
+// i <= j, each the value of the pass of the larger index (0 for a pair
+// that does not interact), which is the pass whose write the one-pass-
+// after-another order keeps: pass j's entries (i, j) for i > j are
+// overwritten by pass i. So columns computed on different lanes give the
+// same matrix as `mass_matrix`.
 template <int NJ>
-AG_FN void mass_matrix(const float* C, const M3<float>* R, const V3<float>* P,
-                       float* M) {
-  for (int k = 0; k < NJ * NJ; ++k) M[k] = 0.f;  // non-interacting pairs
-  for (int j = 0; j < NJ; ++j) {
-    V3<float> aw[NJ], al[NJ], fn[NJ], ff[NJ];
-    bool has_a[NJ], has_f[NJ];
-    for (int i = 0; i < NJ; ++i) has_a[i] = has_f[i] = false;
-    V3<float> axj = load3<float>(C + j * JSTRIDE + J_AXIS);
-    aw[j] = revolute(C, j) ? axj : zero3<float>();
-    al[j] = revolute(C, j) ? zero3<float>() : axj;
-    has_a[j] = true;
-    for (int i = j; i < NJ; ++i) {
-      const float* J = C + i * JSTRIDE;
-      if (i > j) {
-        int par = parent_of(C, i);
-        if (par < 0 || !has_a[par]) continue;
-        aw[i] = mattvec(R[i], aw[par]);
-        al[i] = mattvec(R[i], al[par] - cross(P[i], aw[par]));
-        has_a[i] = true;
-      }
-      V3<float> c = load3<float>(J + J_COM);
-      M3<float> I = load9<float>(J + J_INER);
-      V3<float> plin = scale<float>(J[J_MASS], al[i] + cross(aw[i], c));
-      fn[i] = matvec(I, aw[i]) + cross(c, plin);
-      ff[i] = plin;
-      has_f[i] = true;
-    }
-    for (int i = NJ - 1; i >= 0; --i) {
-      if (!has_f[i]) continue;
-      V3<float> ax = load3<float>(C + i * JSTRIDE + J_AXIS);
-      float tau = revolute(C, i) ? dot(ax, fn[i]) : dot(ax, ff[i]);
-      M[i * NJ + j] = tau;
-      if (i < j) M[j * NJ + i] = tau;  // symmetry
+AG_FN void mass_matrix_column(const float* C, const M3<float>* R,
+                              const V3<float>* P, int j, float* M) {
+  V3<float> aw[NJ], al[NJ], fn[NJ], ff[NJ];
+  bool has_a[NJ], has_f[NJ];
+  for (int i = 0; i < NJ; ++i) has_a[i] = has_f[i] = false;
+  V3<float> axj = load3<float>(C + j * JSTRIDE + J_AXIS);
+  aw[j] = revolute(C, j) ? axj : zero3<float>();
+  al[j] = revolute(C, j) ? zero3<float>() : axj;
+  has_a[j] = true;
+  for (int i = j; i < NJ; ++i) {
+    const float* J = C + i * JSTRIDE;
+    if (i > j) {
       int par = parent_of(C, i);
-      if (par >= 0) {
-        V3<float> flp = matvec(R[i], ff[i]);
-        V3<float> fnp = matvec(R[i], fn[i]) + cross(P[i], flp);
-        if (has_f[par]) {
-          fn[par] = fn[par] + fnp;
-          ff[par] = ff[par] + flp;
-        } else {
-          fn[par] = fnp;
-          ff[par] = flp;
-          has_f[par] = true;
-        }
+      if (par < 0 || !has_a[par]) continue;
+      aw[i] = mattvec(R[i], aw[par]);
+      al[i] = mattvec(R[i], al[par] - cross(P[i], aw[par]));
+      has_a[i] = true;
+    }
+    V3<float> c = load3<float>(J + J_COM);
+    M3<float> I = load9<float>(J + J_INER);
+    V3<float> plin = scale<float>(J[J_MASS], al[i] + cross(aw[i], c));
+    fn[i] = matvec(I, aw[i]) + cross(c, plin);
+    ff[i] = plin;
+    has_f[i] = true;
+  }
+  for (int i = 0; i <= j; ++i) M[i * NJ + j] = M[j * NJ + i] = 0.f;
+  for (int i = NJ - 1; i >= 0; --i) {
+    if (!has_f[i]) continue;
+    V3<float> ax = load3<float>(C + i * JSTRIDE + J_AXIS);
+    float tau = revolute(C, i) ? dot(ax, fn[i]) : dot(ax, ff[i]);
+    if (i <= j) M[i * NJ + j] = M[j * NJ + i] = tau;
+    int par = parent_of(C, i);
+    if (par >= 0) {
+      V3<float> flp = matvec(R[i], ff[i]);
+      V3<float> fnp = matvec(R[i], fn[i]) + cross(P[i], flp);
+      if (has_f[par]) {
+        fn[par] = fn[par] + fnp;
+        ff[par] = ff[par] + flp;
+      } else {
+        fn[par] = fnp;
+        ff[par] = flp;
+        has_f[par] = true;
       }
     }
   }
-  for (int i = 0; i < NJ; ++i) M[i * NJ + i] += C[i * JSTRIDE + J_ARM];
+  M[j * NJ + j] += C[j * JSTRIDE + J_ARM];
+}
+
+// M + diag(armature), column after column.
+template <int NJ>
+AG_FN void mass_matrix(const float* C, const M3<float>* R, const V3<float>* P,
+                       float* M) {
+  for (int j = 0; j < NJ; ++j) mass_matrix_column<NJ>(C, R, P, j, M);
+}
+
+// One thread's per-joint forces, kept out of its registers while a tree
+// recursion runs (K5b's phases): joint i's torque part (f = 0) and linear
+// part (f = 1) at df[((2 i + f) 3 + c) ds], c < 3 (the kernel interleaves
+// the threads' slots, ds = threads per block).
+struct ForceSlots {
+  float* df;
+  int ds;
+  AG_HD V3<float> get(int i, int f) const {
+    V3<float> r;
+    for (int c = 0; c < 3; ++c) r[c] = df[((2 * i + f) * 3 + c) * ds];
+    return r;
+  }
+  AG_HD void set(int i, int f, const V3<float>& r) const {
+    for (int c = 0; c < 3; ++c) df[((2 * i + f) * 3 + c) * ds] = r[c];
+  }
+};
+
+// `mass_matrix_column` over a serial chain (`is_chain`): the joint loops
+// unroll, the per-joint accelerations in registers, the forces in fs.
+// Every joint up to j is an ancestor of j and receives forces (its first
+// from its child).
+template <int NJ>
+AG_FN void mass_matrix_column_chain(const float* C, const M3<float>* R,
+                                    const V3<float>* P, int j,
+                                    const ForceSlots& fs, float* M) {
+  V3<float> aw = zero3<float>(), al = zero3<float>();
+  AG_UNROLL
+  for (int i = 0; i < NJ; ++i) {
+    const float* J = C + i * JSTRIDE;
+    if (i < j) continue;
+    if (i == j) {
+      V3<float> axj = load3<float>(J + J_AXIS);
+      aw = revolute(C, j) ? axj : zero3<float>();
+      al = revolute(C, j) ? zero3<float>() : axj;
+    } else {
+      V3<float> awi = mattvec(R[i], aw);
+      al = mattvec(R[i], al - cross(P[i], aw));
+      aw = awi;
+    }
+    V3<float> c = load3<float>(J + J_COM);
+    M3<float> I = load9<float>(J + J_INER);
+    V3<float> plin = scale<float>(J[J_MASS], al + cross(aw, c));
+    fs.set(i, 0, matvec(I, aw) + cross(c, plin));
+    fs.set(i, 1, plin);
+  }
+  AG_UNROLL
+  for (int i = NJ - 1; i >= 0; --i) {
+    V3<float> ax = load3<float>(C + i * JSTRIDE + J_AXIS);
+    const V3<float> fn = fs.get(i, 0), ff = fs.get(i, 1);
+    float tau = revolute(C, i) ? dot(ax, fn) : dot(ax, ff);
+    if (i <= j) M[i * NJ + j] = M[j * NJ + i] = tau;
+    if (i > 0) {
+      V3<float> flp = matvec(R[i], ff);
+      V3<float> fnp = matvec(R[i], fn) + cross(P[i], flp);
+      const bool first = i - 1 < j;  // the parent's first force
+      fs.set(i - 1, 0, first ? fnp : fs.get(i - 1, 0) + fnp);
+      fs.set(i - 1, 1, first ? flp : fs.get(i - 1, 1) + flp);
+    }
+  }
+  M[j * NJ + j] += C[j * JSTRIDE + J_ARM];
 }
 
 template <int N>
 AG_FN void chol_factor(const float* M, float* L) {
+  AG_UNROLL
   for (int i = 0; i < N; ++i)
+    AG_UNROLL
     for (int j = 0; j <= i; ++j) {
       float s = M[i * N + j];
+      AG_UNROLL
       for (int k = 0; k < j; ++k) s -= L[i * N + k] * L[j * N + k];
       L[i * N + j] = (i == j) ? sqrtf(s) : s / L[j * N + j];
     }
@@ -361,13 +458,17 @@ AG_FN void chol_factor(const float* M, float* L) {
 template <int N>
 AG_FN void chol_solve(const float* L, const float* b, float* x) {
   float y[N];
+  AG_UNROLL
   for (int i = 0; i < N; ++i) {
     float s = b[i];
+    AG_UNROLL
     for (int k = 0; k < i; ++k) s -= L[i * N + k] * y[k];
     y[i] = s / L[i * N + i];
   }
+  AG_UNROLL
   for (int i = N - 1; i >= 0; --i) {
     float s = y[i];
+    AG_UNROLL
     for (int k = i + 1; k < N; ++k) s -= L[k * N + i] * x[k];
     x[i] = s / L[i * N + i];
   }
@@ -647,136 +748,149 @@ AG_FN float activation(const float* D, const float* row, int nr,
   return a;
 }
 
-// Adds every cost item of the table (Gauss-Newton when DERIVS) into
-// l, lx [NX], lu [NJ], lxx [NX*NX], lxu [NX*NJ], luu [NJ*NJ] (row-major).
+// Cost item `it` of the table: returns its weighted value and, when
+// DERIVS, adds its Gauss-Newton terms into lx [NX], lu [NJ], lxx [NX*NX],
+// lxu [NX*NJ], luu [NJ*NJ] (row-major).
+template <int NJ, bool DERIVS>
+AG_FN float item_costs(const float* C, int it, const float* row,
+                       const float* q, const float* v, const float* u,
+                       const M3<float>* R, const V3<float>* P, float* lx,
+                       float* lu, float* lxx, float* lxu, float* luu) {
+  constexpr int NX = 2 * NJ;
+  const float* D = C + NJ * JSTRIDE + 3 + it * ISTRIDE;
+  int kind = (int)D[I_KIND];
+  float wgt = D[I_WEIGHT];
+  // streamed w_collision_avoidance scale of an update=True collision item
+  // (Pallas :482-483, :631-632)
+  if ((int)D[I_WCOLL] >= 0) wgt *= row[(int)D[I_WCOLL]];
+  float li = 0.f;
+  if (kind == K_STATE || kind == K_CONTROL) {
+    int n = kind == K_STATE ? NX : NJ;
+    for (int i = 0; i < n; ++i) {
+      float xi = kind == K_CONTROL ? u[i] : (i < NJ ? q[i] : v[i - NJ]);
+      float r = xi - item_ref(D, row, i);
+      float w = item_weight(D, row, i);
+      li += 0.5f * w * r * r;
+      if (DERIVS) {
+        if (kind == K_STATE) {
+          lx[i] += wgt * w * r;
+          lxx[i * NX + i] += wgt * w;
+        } else {
+          lu[i] += wgt * w * r;
+          luu[i * NJ + i] += wgt * w;
+        }
+      }
+    }
+  } else if (kind == K_CONTROL_GRAV) {
+    float g[NJ], Jg[NJ][NJ];  // Jg[k][i] = d g_i / d q_k
+    if (DERIVS) {
+      for (int k = 0; k < NJ; ++k) {
+        Dual qd[NJ], zd[NJ], td[NJ];
+        for (int i = 0; i < NJ; ++i) qd[i] = Dual(q[i], i == k ? 1.f : 0.f);
+        M3<Dual> Rd[NJ];
+        V3<Dual> Pd[NJ];
+        joint_transforms<NJ, Dual>(C, qd, Rd, Pd);
+        rnea<NJ, Dual>(C, Rd, Pd, zd, zd, td);
+        for (int i = 0; i < NJ; ++i) {
+          g[i] = td[i].v;
+          Jg[k][i] = td[i].d;
+        }
+      }
+    } else {
+      float z[NJ];
+      for (int i = 0; i < NJ; ++i) z[i] = 0.f;
+      rnea<NJ, float>(C, R, P, z, z, g);
+    }
+    float wr[NJ];
+    for (int i = 0; i < NJ; ++i) {
+      float w = item_weight(D, row, i);
+      float r = u[i] - g[i];
+      wr[i] = w * r;
+      li += 0.5f * w * r * r;
+    }
+    if (DERIVS) {
+      // J_u = I, J_x = [-Jg, 0]
+      for (int i = 0; i < NJ; ++i) {
+        lu[i] += wgt * wr[i];
+        luu[i * NJ + i] += wgt * item_weight(D, row, i);
+      }
+      for (int k = 0; k < NJ; ++k) {
+        float s = 0.f;
+        for (int i = 0; i < NJ; ++i) s += Jg[k][i] * wr[i];
+        lx[k] += -wgt * s;
+        for (int i = 0; i < NJ; ++i)
+          lxu[k * NJ + i] += -wgt * Jg[k][i] * item_weight(D, row, i);
+        for (int k2 = 0; k2 <= k; ++k2) {
+          float h = 0.f;
+          for (int i = 0; i < NJ; ++i)
+            h += Jg[k][i] * item_weight(D, row, i) * Jg[k2][i];
+          lxx[k * NX + k2] += wgt * h;
+          if (k2 != k) lxx[k2 * NX + k] += wgt * h;
+        }
+      }
+    }
+  } else {  // frame, visual-servoing and collision kinds: residual of q;
+            // frame_velocity: of q and v
+    // Jc[k][i] = d r_i / d x_k over the nd tangents (x = (q, v))
+    const int nd = kind == K_FRAME_VELOCITY ? NX : NJ;
+    float r[6], Jc[NX][6];
+    int nr = 0;
+    if (DERIVS) {
+      for (int k = 0; k < nd; ++k) {
+        Dual qd[NJ], vd[NJ], rd[6];
+        for (int i = 0; i < NJ; ++i) {
+          qd[i] = Dual(q[i], i == k ? 1.f : 0.f);
+          vd[i] = Dual(v[i], NJ + i == k ? 1.f : 0.f);
+        }
+        nr = frame_residual<NJ, Dual>(C, D, row, kind, qd, vd, rd);
+        for (int i = 0; i < nr; ++i) {
+          r[i] = rd[i].v;
+          Jc[k][i] = rd[i].d;
+        }
+      }
+    } else {
+      nr = frame_residual<NJ, float>(C, D, row, kind, q, v, r);
+    }
+    float a_dr[6], a_drr[6];
+    li = activation(D, row, nr, r, a_dr, a_drr);
+    if (DERIVS) {
+      for (int k = 0; k < nd; ++k) {
+        float s = 0.f;
+        for (int i = 0; i < nr; ++i) s += Jc[k][i] * a_dr[i];
+        lx[k] += wgt * s;
+        for (int k2 = 0; k2 <= k; ++k2) {
+          float h = 0.f;
+          for (int i = 0; i < nr; ++i) h += Jc[k][i] * a_drr[i] * Jc[k2][i];
+          lxx[k * NX + k2] += wgt * h;
+          if (k2 != k) lxx[k2 * NX + k] += wgt * h;
+        }
+      }
+    }
+  }
+  return wgt * li;
+}
+
+// Adds every cost item of the table (Gauss-Newton when DERIVS) into l and
+// lx, lu, lxx, lxu, luu (`item_costs`), in the table's order.
 template <int NJ, bool DERIVS>
 AG_FN void node_costs(const float* C, int n_items, const float* row,
                       const float* q, const float* v, const float* u,
                       const M3<float>* R, const V3<float>* P, float* l,
                       float* lx, float* lu, float* lxx, float* lxu,
                       float* luu) {
-  constexpr int NX = 2 * NJ;
-  for (int it = 0; it < n_items; ++it) {
-    const float* D = C + NJ * JSTRIDE + 3 + it * ISTRIDE;
-    int kind = (int)D[I_KIND];
-    float wgt = D[I_WEIGHT];
-    // streamed w_collision_avoidance scale of an update=True collision item
-    // (Pallas :482-483, :631-632)
-    if ((int)D[I_WCOLL] >= 0) wgt *= row[(int)D[I_WCOLL]];
-    float li = 0.f;
-    if (kind == K_STATE || kind == K_CONTROL) {
-      int n = kind == K_STATE ? NX : NJ;
-      for (int i = 0; i < n; ++i) {
-        float xi = kind == K_CONTROL ? u[i] : (i < NJ ? q[i] : v[i - NJ]);
-        float r = xi - item_ref(D, row, i);
-        float w = item_weight(D, row, i);
-        li += 0.5f * w * r * r;
-        if (DERIVS) {
-          if (kind == K_STATE) {
-            lx[i] += wgt * w * r;
-            lxx[i * NX + i] += wgt * w;
-          } else {
-            lu[i] += wgt * w * r;
-            luu[i * NJ + i] += wgt * w;
-          }
-        }
-      }
-    } else if (kind == K_CONTROL_GRAV) {
-      float g[NJ], Jg[NJ][NJ];  // Jg[k][i] = d g_i / d q_k
-      if (DERIVS) {
-        for (int k = 0; k < NJ; ++k) {
-          Dual qd[NJ], zd[NJ], td[NJ];
-          for (int i = 0; i < NJ; ++i) qd[i] = Dual(q[i], i == k ? 1.f : 0.f);
-          M3<Dual> Rd[NJ];
-          V3<Dual> Pd[NJ];
-          joint_transforms<NJ, Dual>(C, qd, Rd, Pd);
-          rnea<NJ, Dual>(C, Rd, Pd, zd, zd, td);
-          for (int i = 0; i < NJ; ++i) {
-            g[i] = td[i].v;
-            Jg[k][i] = td[i].d;
-          }
-        }
-      } else {
-        float z[NJ];
-        for (int i = 0; i < NJ; ++i) z[i] = 0.f;
-        rnea<NJ, float>(C, R, P, z, z, g);
-      }
-      float wr[NJ];
-      for (int i = 0; i < NJ; ++i) {
-        float w = item_weight(D, row, i);
-        float r = u[i] - g[i];
-        wr[i] = w * r;
-        li += 0.5f * w * r * r;
-      }
-      if (DERIVS) {
-        // J_u = I, J_x = [-Jg, 0]
-        for (int i = 0; i < NJ; ++i) {
-          lu[i] += wgt * wr[i];
-          luu[i * NJ + i] += wgt * item_weight(D, row, i);
-        }
-        for (int k = 0; k < NJ; ++k) {
-          float s = 0.f;
-          for (int i = 0; i < NJ; ++i) s += Jg[k][i] * wr[i];
-          lx[k] += -wgt * s;
-          for (int i = 0; i < NJ; ++i)
-            lxu[k * NJ + i] += -wgt * Jg[k][i] * item_weight(D, row, i);
-          for (int k2 = 0; k2 <= k; ++k2) {
-            float h = 0.f;
-            for (int i = 0; i < NJ; ++i)
-              h += Jg[k][i] * item_weight(D, row, i) * Jg[k2][i];
-            lxx[k * NX + k2] += wgt * h;
-            if (k2 != k) lxx[k2 * NX + k] += wgt * h;
-          }
-        }
-      }
-    } else {  // frame, visual-servoing and collision kinds: residual of q;
-              // frame_velocity: of q and v
-      // Jc[k][i] = d r_i / d x_k over the nd tangents (x = (q, v))
-      const int nd = kind == K_FRAME_VELOCITY ? NX : NJ;
-      float r[6], Jc[NX][6];
-      int nr = 0;
-      if (DERIVS) {
-        for (int k = 0; k < nd; ++k) {
-          Dual qd[NJ], vd[NJ], rd[6];
-          for (int i = 0; i < NJ; ++i) {
-            qd[i] = Dual(q[i], i == k ? 1.f : 0.f);
-            vd[i] = Dual(v[i], NJ + i == k ? 1.f : 0.f);
-          }
-          nr = frame_residual<NJ, Dual>(C, D, row, kind, qd, vd, rd);
-          for (int i = 0; i < nr; ++i) {
-            r[i] = rd[i].v;
-            Jc[k][i] = rd[i].d;
-          }
-        }
-      } else {
-        nr = frame_residual<NJ, float>(C, D, row, kind, q, v, r);
-      }
-      float a_dr[6], a_drr[6];
-      li = activation(D, row, nr, r, a_dr, a_drr);
-      if (DERIVS) {
-        for (int k = 0; k < nd; ++k) {
-          float s = 0.f;
-          for (int i = 0; i < nr; ++i) s += Jc[k][i] * a_dr[i];
-          lx[k] += wgt * s;
-          for (int k2 = 0; k2 <= k; ++k2) {
-            float h = 0.f;
-            for (int i = 0; i < nr; ++i) h += Jc[k][i] * a_drr[i] * Jc[k2][i];
-            lxx[k * NX + k2] += wgt * h;
-            if (k2 != k) lxx[k2 * NX + k] += wgt * h;
-          }
-        }
-      }
-    }
-    *l += wgt * li;
-  }
+  for (int it = 0; it < n_items; ++it)
+    *l += item_costs<NJ, DERIVS>(C, it, row, q, v, u, R, P, lx, lu, lxx,
+                                 lxu, luu);
 }
 
-// ---- the dynamics of one node (K5a; K5b when DERIVS) -----------------------
+// ---- the dynamics of one node on one thread (K5a, K2) -----------------------
 // Semi-implicit Euler step at (q, v, u, dt = h): joint transforms, RNEA bias,
 // mass matrix, Cholesky, x+ into xo [NX]; when DERIVS also Fx into fx
 // [NX*NX] and Fu into fu [NX*NJ] (row-major): 2 NJ dual-number RNEA passes
-// and the M^-1 columns. The joint transforms at q are left in R, P for the
-// caller's cost items. The Pallas body is `pallas_dynamics.py::dynamics_terms`.
+// and the M^-1 columns (K5b's one-thread body before the `k5_*` phases;
+// the host harness holds those against it). The joint transforms at q are
+// left in R, P for the caller's cost items. The Pallas body is
+// `pallas_dynamics.py::dynamics_terms`.
 template <int NJ, bool DERIVS>
 AG_FN void dynamics_node(const float* C, const float* q, const float* v,
                          const float* un, float h, M3<float>* R, V3<float>* P,
@@ -832,6 +946,381 @@ AG_FN void dynamics_node(const float* C, const float* q, const float* v,
         fu[i * NJ + j] = h2 * col[i];
         fu[(NJ + i) * NJ + j] = h * col[i];
       }
+    }
+  }
+}
+
+// ---- K5b: one node across the lanes of a warp slice -----------------------
+// LANES = the power of two >= 2 NJ lanes run one node (16 for the Panda).
+// The primal step is computed once per node and shared through the node's
+// scratch; the phases, with a warp barrier between them (the .cu kernel
+// places them):
+//   k5_place      lane i < NJ joint i's placement at q_i;
+//   k5_mass_bias  lane j < NJ column j of the mass matrix, lane NJ the
+//                 bias rnea(q, v, 0) and the joints' velocity values;
+//   k5_solve      lane 0 the Cholesky factor L, a = M^-1 (u - b) and the
+//                 joints' acceleration values and forces of rnea(q, v, a)
+//                 (one serial chain; no lane waits on it less by repeating
+//                 it);
+//   k5_tangent    lane i < NX x+ component i; lane k < NX tangent k of
+//                 (q, v) of rnea(q, v, a): its derivative parts only,
+//                 forward mode around the shared primal values -> Fx
+//                 column k; lane j < NJ the M^-1 column j -> Fu column j.
+// x+, Fx and Fu go to the node's output scratch; the kernel stores a
+// block's outputs together, at consecutive addresses.
+template <int NJ> struct K5Shape {
+  static constexpr int NX = 2 * NJ;
+  static constexpr int LANES = node_lanes(NX);
+  // node scratch (floats): placements R [NJ][9] and P [NJ][3], M, the
+  // bias b, a, the Cholesky factor L, then per joint the primal values of
+  // rnea(q, v, a), JV 3-vectors each (`JointValue`)
+  static constexpr int S_R = 0, S_P = 9 * NJ, S_M = 12 * NJ,
+                       S_B = S_M + NJ * NJ, S_A = S_B + NJ, S_L = S_A + NJ,
+                       S_J = S_L + NJ * NJ;
+  static constexpr int JV = 8;
+  static constexpr int SIZE = S_J + 3 * JV * NJ;
+};
+// a joint's primal values: velocity w, v and acceleration aw, al (angular,
+// linear, in the joint frame), the momenta hf, hn, the force fn, ff (the
+// joint's own, then with its subtree's after the backward pass)
+enum JointValue { JW, JVL, JAW, JAL, JHF, JHN, JFN, JFF };
+
+template <int NJ>
+AG_HD M3<float>* k5_R(float* S) {
+  return reinterpret_cast<M3<float>*>(S + K5Shape<NJ>::S_R);
+}
+template <int NJ>
+AG_HD V3<float>* k5_P(float* S) {
+  return reinterpret_cast<V3<float>*>(S + K5Shape<NJ>::S_P);
+}
+template <int NJ>
+AG_HD V3<float>* k5_J(float* S) {  // [NJ][JV]
+  return reinterpret_cast<V3<float>*>(S + K5Shape<NJ>::S_J);
+}
+
+template <int NJ>
+AG_FN void k5_place(int lane, const float* C, const float* xn, float* S) {
+  if (lane < NJ)
+    joint_transform<float>(C, lane, xn[lane], k5_R<NJ>(S)[lane],
+                           k5_P<NJ>(S)[lane]);
+}
+
+// The parent of joint i: i - 1 over a serial chain (CHAIN), where the
+// joint loops unroll and per-joint arrays indexed so stay in registers.
+template <int NJ, bool CHAIN>
+AG_HD int k5_parent(const float* C, int i) {
+  return CHAIN ? i - 1 : parent_of(C, i);
+}
+
+// The bias b = rnea(q, v, 0) (the operations of `rnea`) into the scratch,
+// with each joint's velocity values w, v, hf, hn, which do not depend on
+// the acceleration, into the joint table.
+template <int NJ, bool CHAIN>
+AG_FN void k5_bias(const float* C, const float* xn, const ForceSlots& fs,
+                   float* S) {
+  typedef K5Shape<NJ> K;
+  const M3<float>* R = k5_R<NJ>(S);
+  const V3<float>* P = k5_P<NJ>(S);
+  V3<float>* Jv = k5_J<NJ>(S);
+  const float* g = C + NJ * JSTRIDE;
+  V3<float> w[NJ], lv[NJ], aw[NJ], al[NJ];
+  AG_UNROLL
+  for (int i = 0; i < NJ; ++i) {
+    const float* J = C + i * JSTRIDE;
+    const int par = k5_parent<NJ, CHAIN>(C, i);
+    V3<float> vpw = zero3<float>(), vpl = zero3<float>(),
+              apw = zero3<float>(), apl;
+    if (par >= 0) {
+      vpw = w[par]; vpl = lv[par]; apw = aw[par]; apl = al[par];
+    } else {
+      apl[0] = -g[0]; apl[1] = -g[1]; apl[2] = -g[2];
+    }
+    V3<float> wi = mattvec(R[i], vpw);
+    V3<float> vi = mattvec(R[i], vpl - cross(P[i], vpw));
+    V3<float> wai = mattvec(R[i], apw);
+    V3<float> vai = mattvec(R[i], apl - cross(P[i], apw));
+    V3<float> ax = load3<float>(J + J_AXIS);
+    V3<float> sdot = scale<float>(xn[NJ + i], ax);
+    if (revolute(C, i)) {
+      wi = wi + sdot;
+      wai = wai + cross(wi, sdot);
+      vai = vai + cross(vi, sdot);
+    } else {
+      vi = vi + sdot;
+      vai = vai + cross(wi, sdot);
+    }
+    w[i] = wi; lv[i] = vi; aw[i] = wai; al[i] = vai;
+    const float m = J[J_MASS];
+    V3<float> c = load3<float>(J + J_COM);
+    M3<float> I = load9<float>(J + J_INER);
+    V3<float> hf = scale<float>(m, vi + cross(wi, c));
+    V3<float> hn = matvec(I, wi) + cross(c, hf);
+    V3<float> f_l = scale<float>(m, vai + cross(wai, c));
+    V3<float> f_n = matvec(I, wai) + cross(c, f_l);
+    fs.set(i, 0, f_n + (cross(wi, hn) + cross(vi, hf)));
+    fs.set(i, 1, f_l + cross(wi, hf));
+    V3<float>* jv = Jv + i * K::JV;
+    jv[JW] = wi; jv[JVL] = vi; jv[JHF] = hf; jv[JHN] = hn;
+  }
+  AG_UNROLL
+  for (int i = NJ - 1; i >= 0; --i) {
+    V3<float> ax = load3<float>(C + i * JSTRIDE + J_AXIS);
+    const V3<float> fn = fs.get(i, 0), ff = fs.get(i, 1);
+    S[K::S_B + i] = revolute(C, i) ? dot(ax, fn) : dot(ax, ff);
+    const int par = k5_parent<NJ, CHAIN>(C, i);
+    if (par >= 0) {
+      V3<float> flp = matvec(R[i], ff);
+      V3<float> fnp = matvec(R[i], fn) + cross(P[i], flp);
+      fs.set(par, 0, fs.get(par, 0) + fnp);
+      fs.set(par, 1, fs.get(par, 1) + flp);
+    }
+  }
+}
+
+// rnea(q, v, a)'s acceleration values aw, al and forces fn, ff (with the
+// subtree's) per joint into the joint table, around its velocity values
+// (`k5_bias`): the operations of `rnea`.
+template <int NJ, bool CHAIN>
+AG_FN void k5_primal(const float* C, const float* xn, const float* a,
+                     const ForceSlots& fs, float* S) {
+  typedef K5Shape<NJ> K;
+  const M3<float>* R = k5_R<NJ>(S);
+  const V3<float>* P = k5_P<NJ>(S);
+  V3<float>* Jv = k5_J<NJ>(S);
+  const float* g = C + NJ * JSTRIDE;
+  V3<float> aw[NJ], al[NJ];
+  AG_UNROLL
+  for (int i = 0; i < NJ; ++i) {
+    const float* J = C + i * JSTRIDE;
+    const int par = k5_parent<NJ, CHAIN>(C, i);
+    V3<float> apw = zero3<float>(), apl;
+    if (par >= 0) {
+      apw = aw[par]; apl = al[par];
+    } else {
+      apl[0] = -g[0]; apl[1] = -g[1]; apl[2] = -g[2];
+    }
+    V3<float>* jv = Jv + i * K::JV;
+    const V3<float> wi = jv[JW], vi = jv[JVL];
+    V3<float> wai = mattvec(R[i], apw);
+    V3<float> vai = mattvec(R[i], apl - cross(P[i], apw));
+    V3<float> ax = load3<float>(J + J_AXIS);
+    V3<float> sdot = scale<float>(xn[NJ + i], ax);
+    if (revolute(C, i)) {
+      wai = wai + scale<float>(a[i], ax);
+      wai = wai + cross(wi, sdot);
+      vai = vai + cross(vi, sdot);
+    } else {
+      vai = vai + scale<float>(a[i], ax);
+      vai = vai + cross(wi, sdot);
+    }
+    aw[i] = wai; al[i] = vai;
+    jv[JAW] = wai; jv[JAL] = vai;
+    const float m = J[J_MASS];
+    V3<float> c = load3<float>(J + J_COM);
+    M3<float> I = load9<float>(J + J_INER);
+    const V3<float> hf = jv[JHF], hn = jv[JHN];
+    V3<float> f_l = scale<float>(m, vai + cross(wai, c));
+    V3<float> f_n = matvec(I, wai) + cross(c, f_l);
+    fs.set(i, 0, f_n + (cross(wi, hn) + cross(vi, hf)));
+    fs.set(i, 1, f_l + cross(wi, hf));
+  }
+  AG_UNROLL
+  for (int i = NJ - 1; i >= 0; --i) {
+    V3<float>* jv = Jv + i * K::JV;
+    const V3<float> fn = fs.get(i, 0), ff = fs.get(i, 1);
+    jv[JFN] = fn;
+    jv[JFF] = ff;
+    const int par = k5_parent<NJ, CHAIN>(C, i);
+    if (par >= 0) {
+      V3<float> flp = matvec(R[i], ff);
+      V3<float> fnp = matvec(R[i], fn) + cross(P[i], flp);
+      fs.set(par, 0, fs.get(par, 0) + fnp);
+      fs.set(par, 1, fs.get(par, 1) + flp);
+    }
+  }
+}
+
+template <int NJ>
+AG_FN void k5_mass_bias(int lane, const float* C, const float* xn,
+                        const ForceSlots& fs, float* S) {
+  typedef K5Shape<NJ> K;
+  const M3<float>* R = k5_R<NJ>(S);
+  const V3<float>* P = k5_P<NJ>(S);
+  if (lane < NJ) {
+    if (is_chain<NJ>(C))
+      mass_matrix_column_chain<NJ>(C, R, P, lane, fs, S + K::S_M);
+    else
+      mass_matrix_column<NJ>(C, R, P, lane, S + K::S_M);
+  } else if (lane == NJ) {
+    if (is_chain<NJ>(C))
+      k5_bias<NJ, true>(C, xn, fs, S);
+    else
+      k5_bias<NJ, false>(C, xn, fs, S);
+  }
+}
+
+template <int NJ>
+AG_FN void k5_solve(int lane, const float* C, const float* xn,
+                    const float* un, const ForceSlots& fs, float* S) {
+  typedef K5Shape<NJ> K;
+  if (lane != 0) return;
+  float L[NJ * NJ], rhs[NJ], a[NJ];
+  chol_factor<NJ>(S + K::S_M, L);
+  for (int i = 0; i < NJ; ++i) rhs[i] = un[i] - S[K::S_B + i];
+  chol_solve<NJ>(L, rhs, a);
+  for (int i = 0; i < NJ * NJ; ++i) S[K::S_L + i] = L[i];
+  for (int i = 0; i < NJ; ++i) S[K::S_A + i] = a[i];
+  if (is_chain<NJ>(C))
+    k5_primal<NJ, true>(C, xn, a, fs, S);
+  else
+    k5_primal<NJ, false>(C, xn, a, fs, S);
+}
+
+// d rnea(q, v, a) / d(q, v) along tangent (kq: q_kq, or kv: v_kv; the
+// other -1) into dtau, a held fixed: the forward-mode derivative parts of
+// `rnea` around the primal values of `k5_primal`. q enters only through
+// the placements, so the q-tangent differentiates joint kq's alone (dR,
+// dP). CHAIN as `k5_parent`. The joints' force derivatives wait for the
+// backward pass in fs.
+template <int NJ, bool CHAIN>
+AG_FN void k5_tangent_rnea(const float* C, const float* xn, const float* S,
+                           int kq, int kv, const ForceSlots& fs,
+                           float* dtau) {
+  typedef K5Shape<NJ> K;
+  const M3<float>* R = reinterpret_cast<const M3<float>*>(S + K::S_R);
+  const V3<float>* P = reinterpret_cast<const V3<float>*>(S + K::S_P);
+  const V3<float>* Jv = reinterpret_cast<const V3<float>*>(S + K::S_J);
+  const float* g = C + NJ * JSTRIDE;
+  M3<float> dR;
+  V3<float> dP;
+  for (int c = 0; c < 9; ++c) dR[c] = 0.f;
+  dP = zero3<float>();
+  if (kq >= 0) {
+    M3<Dual> Rk;
+    V3<Dual> Pk;
+    joint_transform<Dual>(C, kq, Dual(xn[kq], 1.f), Rk, Pk);
+    for (int c = 0; c < 9; ++c) dR[c] = Rk[c].d;
+    for (int c = 0; c < 3; ++c) dP[c] = Pk[c].d;
+  }
+  V3<float> dw[NJ], dv[NJ], daw[NJ], dal[NJ];
+  AG_UNROLL
+  for (int i = 0; i < NJ; ++i) {
+    const float* J = C + i * JSTRIDE;
+    const int par = k5_parent<NJ, CHAIN>(C, i);
+    const V3<float>* jv = Jv + i * K::JV;
+    V3<float> dpw = zero3<float>(), dpl = zero3<float>(),
+              dapw = zero3<float>(), dapl = zero3<float>();
+    if (par >= 0) {
+      dpw = dw[par]; dpl = dv[par]; dapw = daw[par]; dapl = dal[par];
+    }
+    V3<float> dwi = mattvec(R[i], dpw);
+    V3<float> dvi = mattvec(R[i], dpl - cross(P[i], dpw));
+    V3<float> dwai = mattvec(R[i], dapw);
+    V3<float> dvai = mattvec(R[i], dapl - cross(P[i], dapw));
+    if (i == kq) {  // the placement's own derivative, at the parent's values
+      V3<float> pw = zero3<float>(), pl = zero3<float>(),
+                paw = zero3<float>(), pal;
+      if (par >= 0) {
+        const V3<float>* pv = Jv + par * K::JV;
+        pw = pv[JW]; pl = pv[JVL]; paw = pv[JAW]; pal = pv[JAL];
+      } else {
+        pal[0] = -g[0]; pal[1] = -g[1]; pal[2] = -g[2];
+      }
+      dwi = dwi + mattvec(dR, pw);
+      dvi = dvi + mattvec(dR, pl - cross(P[i], pw)) -
+            mattvec(R[i], cross(dP, pw));
+      dwai = dwai + mattvec(dR, paw);
+      dvai = dvai + mattvec(dR, pal - cross(P[i], paw)) -
+             mattvec(R[i], cross(dP, paw));
+    }
+    const V3<float> ax = load3<float>(J + J_AXIS);
+    const V3<float> sdot = scale<float>(xn[NJ + i], ax);
+    const V3<float> dsdot = i == kv ? ax : zero3<float>();
+    const V3<float> wi = jv[JW], vi = jv[JVL];
+    if (revolute(C, i)) {
+      dwi = dwi + dsdot;
+      dwai = dwai + (cross(dwi, sdot) + cross(wi, dsdot));
+      dvai = dvai + (cross(dvi, sdot) + cross(vi, dsdot));
+    } else {
+      dvi = dvi + dsdot;
+      dvai = dvai + (cross(dwi, sdot) + cross(wi, dsdot));
+    }
+    const float m = J[J_MASS];
+    const V3<float> c = load3<float>(J + J_COM);
+    const M3<float> I = load9<float>(J + J_INER);
+    const V3<float> hf = jv[JHF], hn = jv[JHN];
+    V3<float> dhf = scale<float>(m, dvi + cross(dwi, c));
+    V3<float> dhn = matvec(I, dwi) + cross(c, dhf);
+    V3<float> dfl = scale<float>(m, dvai + cross(dwai, c));
+    V3<float> dfnl = matvec(I, dwai) + cross(c, dfl);
+    fs.set(i, 0, dfnl + ((cross(dwi, hn) + cross(wi, dhn)) +
+                          (cross(dvi, hf) + cross(vi, dhf))));
+    fs.set(i, 1, dfl + (cross(dwi, hf) + cross(wi, dhf)));
+    dw[i] = dwi; dv[i] = dvi; daw[i] = dwai; dal[i] = dvai;
+  }
+  AG_UNROLL
+  for (int i = NJ - 1; i >= 0; --i) {
+    const V3<float> ax = load3<float>(C + i * JSTRIDE + J_AXIS);
+    const V3<float> dfn = fs.get(i, 0), dff = fs.get(i, 1);
+    dtau[i] = revolute(C, i) ? dot(ax, dfn) : dot(ax, dff);
+    const int par = k5_parent<NJ, CHAIN>(C, i);
+    if (par < 0) continue;
+    V3<float> dflp = matvec(R[i], dff);
+    V3<float> dfnp = matvec(R[i], dfn);
+    if (i == kq) {  // the placement's own derivative, at the subtree's force
+      const V3<float>* jv = Jv + i * K::JV;
+      dflp = dflp + matvec(dR, jv[JFF]);
+      dfnp = dfnp + matvec(dR, jv[JFN]) +
+             cross(dP, matvec(R[i], jv[JFF]));
+    }
+    dfnp = dfnp + cross(P[i], dflp);
+    fs.set(par, 0, fs.get(par, 0) + dfnp);
+    fs.set(par, 1, fs.get(par, 1) + dflp);
+  }
+}
+
+template <int NJ>
+AG_FN void k5_tangent(int lane, const float* C, const float* xn, float h,
+                      const float* S, const ForceSlots& fs, float* xo,
+                      float* fx, float* fu) {
+  typedef K5Shape<NJ> K;
+  constexpr int NX = K::NX;
+  if (lane >= NX) return;
+  const int k = lane;
+  const float* L = S + K::S_L;
+  const float* a = S + K::S_A;
+  const float h2 = h * h;
+  // x+: semi-implicit Euler, lane i component i
+  const int c = k % NJ;
+  const float vn = xn[NJ + c] + h * a[c];
+  xo[k] = k < NJ ? xn[c] + h * vn : vn;
+  float dtau[NJ];
+  if (is_chain<NJ>(C))
+    k5_tangent_rnea<NJ, true>(C, xn, S, k < NJ ? k : -1,
+                              k < NJ ? -1 : k - NJ, fs, dtau);
+  else
+    k5_tangent_rnea<NJ, false>(C, xn, S, k < NJ ? k : -1,
+                               k < NJ ? -1 : k - NJ, fs, dtau);
+  float col[NJ], da[NJ];
+  for (int i = 0; i < NJ; ++i) col[i] = -dtau[i];
+  chol_solve<NJ>(L, col, da);
+  // semi-implicit Euler chain rule: v+ = v + dt a ; q+ = q + dt v+
+  for (int i = 0; i < NJ; ++i) {
+    if (k < NJ) {
+      fx[i * NX + k] = (k == i ? 1.f : 0.f) + h2 * da[i];
+      fx[(NJ + i) * NX + k] = h * da[i];
+    } else {
+      fx[i * NX + k] = (k - NJ == i ? h : 0.f) + h2 * da[i];
+      fx[(NJ + i) * NX + k] = (k - NJ == i ? 1.f : 0.f) + h * da[i];
+    }
+  }
+  if (k < NJ) {  // Fu: the M^-1 column k
+    float e[NJ], mcol[NJ];
+    for (int i = 0; i < NJ; ++i) e[i] = i == k ? 1.f : 0.f;
+    chol_solve<NJ>(L, e, mcol);
+    for (int i = 0; i < NJ; ++i) {
+      fu[i * NJ + k] = h2 * mcol[i];
+      fu[(NJ + i) * NJ + k] = h * mcol[i];
     }
   }
 }
@@ -899,8 +1388,7 @@ AG_FN void gather_row(const RefTable& tab, long long t, int lane, int lanes,
 // the same numbers up to the order of the tangent evaluations.
 template <int NJ> struct K1Shape {
   static constexpr int NX = 2 * NJ;
-  static constexpr int LANES =
-      NX <= 2 ? 2 : NX <= 4 ? 4 : NX <= 8 ? 8 : NX <= 16 ? 16 : 32;
+  static constexpr int LANES = node_lanes(NX);
   // owned output entries: lx, lu, lxx, lxu, luu of one node
   static constexpr int NE = NX + NJ + NX * NX + NX * NJ + NJ * NJ;
   // loads per lane and ref key in the gather: the widest key is xref / w_x
@@ -1244,19 +1732,17 @@ AG_FN float k2_costs(const float* C, int n_items, const float* row,
   return lv * h;
 }
 
-// ---- one node of K3 (DERIVS) / K4 ------------------------------------------
-// Terminal cost items at u = 0, no dt scale. Outputs l [N], lx [N, NX],
-// lxx [N, NX, NX] (the last two only when DERIVS).
-template <int NJ, bool DERIVS>
-AG_FN void terminal_node(int n, const float* x, const float* rows, int W,
-                         const float* C, int n_items, float* l, float* lx,
-                         float* lxx) {
+// ---- one node of K3 / K4 ---------------------------------------------------
+// K3: the terminal cost items at u = 0, no dt scale, of the node's state xn
+// [NX] and ref row: its l, lx [NX] and lxx [NX*NX].
+template <int NJ>
+AG_FN void terminal_node(const float* xn, const float* row, const float* C,
+                         int n_items, float* l, float* lx, float* lxx) {
   constexpr int NX = 2 * NJ;
-  const float* row = rows + (long)n * W;
   float q[NJ], v[NJ], un[NJ];
   for (int i = 0; i < NJ; ++i) {
-    q[i] = x[(long)n * NX + i];
-    v[i] = x[(long)n * NX + NJ + i];
+    q[i] = xn[i];
+    v[i] = xn[NJ + i];
     un[i] = 0.f;
   }
   M3<float> R[NJ];
@@ -1264,21 +1750,35 @@ AG_FN void terminal_node(int n, const float* x, const float* rows, int W,
   joint_transforms<NJ, float>(C, q, R, P);
   // the terminal model has no control: its lu/lxu/luu are dropped
   float lu[NJ], lxu[NX * NJ], luu[NJ * NJ];
-  float* lxn = nullptr;
-  float* lxxn = nullptr;
-  if (DERIVS) {
-    lxn = lx + (long)n * NX;
-    lxxn = lxx + (long)n * NX * NX;
-    for (int i = 0; i < NX; ++i) lxn[i] = 0.f;
-    for (int i = 0; i < NX * NX; ++i) lxxn[i] = 0.f;
-    for (int i = 0; i < NJ; ++i) lu[i] = 0.f;
-    for (int i = 0; i < NX * NJ; ++i) lxu[i] = 0.f;
-    for (int i = 0; i < NJ * NJ; ++i) luu[i] = 0.f;
-  }
+  for (int i = 0; i < NX; ++i) lx[i] = 0.f;
+  for (int i = 0; i < NX * NX; ++i) lxx[i] = 0.f;
+  for (int i = 0; i < NJ; ++i) lu[i] = 0.f;
+  for (int i = 0; i < NX * NJ; ++i) lxu[i] = 0.f;
+  for (int i = 0; i < NJ * NJ; ++i) luu[i] = 0.f;
   float lv = 0.f;
-  node_costs<NJ, DERIVS>(C, n_items, row, q, v, un, R, P, &lv, lxn, lu, lxxn,
-                         lxu, luu);
-  l[n] = lv;
+  node_costs<NJ, true>(C, n_items, row, q, v, un, R, P, &lv, lx, lu, lxx,
+                       lxu, luu);
+  *l = lv;
+}
+
+// K4, split over the lanes: lane `lane` of 32 the weighted value of the items
+// lane, lane + 32, ... of the node (u = 0) into vals [n_items]; the sum in
+// the table's order is the caller's (one lane, after a warp barrier).
+template <int NJ>
+AG_FN void terminal_item_values(int lane, const float* xn, const float* row,
+                                const float* C, int n_items, float* vals) {
+  float q[NJ], v[NJ], un[NJ];
+  for (int i = 0; i < NJ; ++i) {
+    q[i] = xn[i];
+    v[i] = xn[NJ + i];
+    un[i] = 0.f;
+  }
+  M3<float> R[NJ];
+  V3<float> P[NJ];
+  joint_transforms<NJ, float>(C, q, R, P);
+  for (int it = lane; it < n_items; it += 32)
+    vals[it] = item_costs<NJ, false>(C, it, row, q, v, un, R, P, nullptr,
+                                     nullptr, nullptr, nullptr, nullptr);
 }
 
 }  // namespace ag

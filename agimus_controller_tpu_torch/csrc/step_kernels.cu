@@ -4,23 +4,33 @@
 //   ag_step(derivs=0)  K5a  agimus_controller_tpu/ops/pallas_dynamics.py::make_pallas_step
 //   ag_step(derivs=1)  K5b  agimus_controller_tpu/ops/pallas_dynamics.py::make_pallas_step_derivs
 // Semi-implicit Euler step x+ = (q + dt v+, v+), v+ = v + dt M(q)^-1 (u - b(q, v)),
-// and with derivs its Jacobians Fx [N, 2NJ, 2NJ], Fu [N, 2NJ, NJ]: the
-// device function `ag::dynamics_node` that the stage kernels K1/K2 also run.
+// and with derivs its Jacobians Fx [N, 2NJ, 2NJ], Fu [N, 2NJ, NJ]. Inputs
+// and outputs stay node-major, as the callers hold them (the Pallas kernel
+// pads to 1024-node blocks in a component-major [c, R, 128] layout).
 //
-// Design: one thread per node over a 1-D grid, the ragged edge masked, no
-// padding (the Pallas kernel pads to 1024-node blocks in a component-major
-// [c, R, 128] layout; here the inputs and outputs stay node-major, as the
-// callers hold them). Only the packed model constants (joints and gravity,
-// `ops/cuda_dynamics.py::_pack_model`, ~230 floats) go to shared memory.
+// K5a: one thread per node over a 1-D grid (`ag::dynamics_node`, which the
+// stage kernel K2 also runs), the ragged edge masked, the packed model
+// constants (`ops/cuda_dynamics.py::_pack_model`, ~230 floats) in shared
+// memory. Latency-bound at the batch FDDP's rollout shape (N = B = 4096
+// nodes, one launch per time step).
 //
-// What bounds it on this card: K5a is latency-bound at the batch FDDP's
-// rollout shape (N = B = 4096 nodes, 32 blocks on 132 SMs, one launch per
-// time step). K5b writes 308 floats per node against 22 read, so its byte
-// bound is small next to its arithmetic: 2 NJ dual-number RNEA passes per
-// node, a long scalar program in registers and local memory. This simple
-// design does nothing about that yet; the fast design splits a node's
-// tangent passes across the lanes of a warp and coalesces the node-major
-// Jacobian stores through shared memory.
+// K5b: one node on LANES = 16 lanes (the power of two >= 2 NJ; 8 Panda
+// nodes per 128-thread block), in the phases `ag::k5_*` of
+// stage_kernels.cuh with a warp barrier between them: the joint
+// placements one per lane; the mass-matrix columns one per lane beside
+// the bias rnea(q, v, 0); on lane 0 the Cholesky factor, the joint
+// accelerations and the per-joint values of rnea(q, v, a); then lane k
+// the forward-mode derivative of rnea along tangent k of (q, v) around
+// those shared values (only joint k's placement carries a q-derivative)
+// and the M^-1 column k. The primal step is computed once per node, in
+// shared memory; over a serial chain the joint loops unroll, and each
+// thread's per-joint forces wait in a shared-memory slot
+// (`ag::ForceSlots`), so a thread needs 128 registers and four blocks
+// stay resident per SM. x+, Fx and Fu go to shared memory, and the
+// block's 128 threads store them at consecutive addresses, 16 bytes a
+// thread. What bounds it: latency; the arithmetic (2 NJ tangent passes
+// per node) and the bytes (308 floats written per node) would allow
+// several times less (PERF.md has the numbers and the variants measured).
 //
 // Launch discipline: on the caller's stream, no synchronisation, no
 // allocation; `ag_step` returns cudaGetLastError() of its launch.
@@ -32,13 +42,15 @@
 
 namespace {
 
+using ag::copy_in;
+using ag::copy_out;
 using ag::kBlock;
+using ag::round4;
 
-template <int NJ, bool DERIVS>
+template <int NJ>
 __global__ void step_kernel(int N, const float* x, const float* u,
                             const float* dt, const float* consts,
-                            int consts_len, float* xnext, float* Fx,
-                            float* Fu) {
+                            int consts_len, float* xnext) {
   extern __shared__ float C[];
   ag::load_constants(C, consts, consts_len);
   int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -52,10 +64,99 @@ __global__ void step_kernel(int N, const float* x, const float* u,
   }
   ag::M3<float> R[NJ];
   ag::V3<float> P[NJ];
-  ag::dynamics_node<NJ, DERIVS>(C, q, v, un, dt[n], R, P,
-                                xnext + (long)n * NX,
-                                DERIVS ? Fx + (long)n * NX * NX : nullptr,
-                                DERIVS ? Fu + (long)n * NX * NJ : nullptr);
+  ag::dynamics_node<NJ, false>(C, q, v, un, dt[n], R, P, xnext + (long)n * NX,
+                               nullptr, nullptr);
+}
+
+// K5b's blocks per SM: the register cap (128) that lets four stay resident
+// measured faster than the compiler's own choice (96 registers, 12 bytes
+// spilled) and than 2-3 blocks with more registers (PERF.md).
+constexpr int kStepDerivsBlocksPerSM = 4;
+
+// K5b's shared memory (floats): the constants, then per block the inputs
+// X [NPB, NX], U [NPB, NJ], H [NPB], the outputs XO [NPB, NX],
+// FX [NPB, NX*NX], FU [NPB, NX*NJ] (a block's nodes are contiguous, as in
+// the outputs), the node scratch W [NPB, SIZE] and the threads' force
+// slots DF [6 NJ, kBlock] (`ag::ForceSlots`, thread-minor); each region
+// starts 16-byte aligned.
+template <int NJ> struct K5Block {
+  typedef ag::K5Shape<NJ> K;
+  static constexpr int NX = K::NX, NPB = kBlock / K::LANES;
+  static constexpr int X = 0, U = X + round4(NPB * NX),
+                       H = U + round4(NPB * NJ), XO = H + round4(NPB),
+                       FX = XO + round4(NPB * NX),
+                       FU = FX + round4(NPB * NX * NX),
+                       W = FU + round4(NPB * NX * NJ),
+                       DF = W + round4(NPB * K::SIZE),
+                       SIZE = DF + 6 * NJ * kBlock;
+};
+
+template <int NJ>
+__global__ void __launch_bounds__(kBlock, kStepDerivsBlocksPerSM)
+step_derivs_kernel(int N, const float* __restrict__ x,
+                   const float* __restrict__ u, const float* __restrict__ dt,
+                   const float* consts, int consts_len, float* xnext,
+                   float* Fx, float* Fu) {
+  typedef ag::K5Shape<NJ> K;
+  typedef K5Block<NJ> B;
+  constexpr int NX = K::NX, LANES = K::LANES, NPB = B::NPB;
+  extern __shared__ float4 sm4[];
+  float* C = reinterpret_cast<float*>(sm4);
+  float* sb = C + round4(consts_len);
+  const long long n0 = (long long)blockIdx.x * NPB;
+  const int nb = N - n0 < NPB ? (int)(N - n0) : NPB;
+  const int tid = threadIdx.x;
+  copy_in<8>(C, consts, consts_len, tid, kBlock);
+  copy_in<1>(sb + B::X, x + n0 * NX, nb * NX, tid, kBlock);
+  copy_in<1>(sb + B::U, u + n0 * NJ, nb * NJ, tid, kBlock);
+  copy_in<1>(sb + B::H, dt + n0, nb, tid, kBlock);
+  __syncthreads();
+  const int node = tid / LANES, lane = tid % LANES;
+  if (node < nb) {  // whole nodes only: a node's lanes run together
+    const unsigned mask =
+        (LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1u))
+        << ((tid % 32) / LANES * LANES);
+    const float* xn = sb + B::X + node * NX;
+    const float h = sb[B::H + node];
+    float* S = sb + B::W + node * K::SIZE;
+    const ag::ForceSlots fs{sb + B::DF + tid, kBlock};
+    ag::k5_place<NJ>(lane, C, xn, S);
+    __syncwarp(mask);
+    ag::k5_mass_bias<NJ>(lane, C, xn, fs, S);
+    __syncwarp(mask);
+    ag::k5_solve<NJ>(lane, C, xn, sb + B::U + node * NJ, fs, S);
+    __syncwarp(mask);
+    ag::k5_tangent<NJ>(lane, C, xn, h, S, fs, sb + B::XO + node * NX,
+                       sb + B::FX + node * NX * NX,
+                       sb + B::FU + node * NX * NJ);
+  }
+  __syncthreads();
+  copy_out(Fx + n0 * NX * NX, sb + B::FX, nb * NX * NX, tid, kBlock);
+  copy_out(Fu + n0 * NX * NJ, sb + B::FU, nb * NX * NJ, tid, kBlock);
+  copy_out(xnext + n0 * NX, sb + B::XO, nb * NX, tid, kBlock);
+}
+
+template <int NJ>
+cudaError_t launch(bool derivs, int N, const float* x, const float* u,
+                   const float* dt, const float* consts, int consts_len,
+                   float* xnext, float* Fx, float* Fu, cudaStream_t s) {
+  if (!derivs) {
+    step_kernel<NJ><<<(N + kBlock - 1) / kBlock, kBlock,
+                      (size_t)consts_len * sizeof(float), s>>>(
+        N, x, u, dt, consts, consts_len, xnext);
+    return cudaGetLastError();
+  }
+  typedef K5Block<NJ> B;
+  const size_t smem = sizeof(float) * ((size_t)round4(consts_len) + B::SIZE);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        step_derivs_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  step_derivs_kernel<NJ><<<(N + B::NPB - 1) / B::NPB, kBlock, smem, s>>>(
+      N, x, u, dt, consts, consts_len, xnext, Fx, Fu);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -66,19 +167,14 @@ int ag_step(int nj, int derivs, int N, const float* x, const float* u,
             const float* dt, const float* consts, int consts_len,
             float* xnext, float* Fx, float* Fu, void* stream) {
   if (N <= 0) return 0;
-  dim3 grid((N + kBlock - 1) / kBlock), block(kBlock);
-  size_t smem = (size_t)consts_len * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-#define AG_STEP(NJ, D)                                                    \
-  step_kernel<NJ, D><<<grid, block, smem, s>>>(N, x, u, dt, consts,       \
-                                                consts_len, xnext, Fx, Fu)
-  if (nj == 7 && derivs) AG_STEP(7, true);
-  else if (nj == 7) AG_STEP(7, false);
-  else if (nj == 2 && derivs) AG_STEP(2, true);
-  else if (nj == 2) AG_STEP(2, false);
-  else return (int)cudaErrorInvalidValue;
-#undef AG_STEP
-  return (int)cudaGetLastError();
+  if (nj == 7)
+    return (int)launch<7>(derivs != 0, N, x, u, dt, consts, consts_len, xnext,
+                          Fx, Fu, s);
+  if (nj == 2)
+    return (int)launch<2>(derivs != 0, N, x, u, dt, consts, consts_len, xnext,
+                          Fx, Fu, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

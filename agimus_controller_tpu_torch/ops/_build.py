@@ -99,7 +99,9 @@ def load_library() -> ctypes.CDLL:
     lib.ag_stage.argtypes = [i, i, i, p, p, p, p, p, i, p, i, i,
                              p, p, p, p, p, p, p, p, p, p]
     lib.ag_stage.restype = i
-    lib.ag_terminal.argtypes = [i, i, i, p, p, i, p, i, i, p, p, p, p]
+    # nj, derivs, N, x, &RefTable, t, W, consts, consts_len, n_items,
+    # l, lx, lxx, stream
+    lib.ag_terminal.argtypes = [i, i, i, p, p, i, i, p, i, i, p, p, p, p]
     lib.ag_terminal.restype = i
     lib.ag_step.argtypes = [i, i, i, p, p, p, p, i, p, p, p, p]
     lib.ag_step.restype = i

@@ -16,13 +16,15 @@ on CUDA tensors, and runs its plain-PyTorch version (`plain`, the same math
 in component form) on CPU tensors. There is no fallback from one to the
 other: a CUDA tensor reaches the kernel or the wrapper raises.
 
-K1/K2 gather each node's references in the kernel: the wrapper passes one
-small source table by value (`ref_table`: per layout key of `_ref_layout`,
-the tensor's pointer, row stride and component count) and the node times,
-so a call runs no torch op on refs that are float32 on the device with
-contiguous components, such as the tick's ring-row views. K3/K4 and the
-plain versions gather on the torch side (`gather_node_refs`) into one
-node-major `[N, total_comp]` tensor. Every kernel reads the model constants
+The kernels gather each node's references themselves: the wrapper passes
+one small source table by value (`RefPlan.table`: per layout key of
+`_ref_layout`, the tensor's pointer, row stride and component count) and
+the node times (K1/K2) or the horizon (K3/K4), so a call runs no torch op
+on refs that are float32 on the device with contiguous components, such as
+the tick's ring-row views; a layout of more than `MAX_REFS` keys costs one
+torch-side gather per call. The plain versions gather on the torch side
+(`gather_node_refs`) into one node-major `[N, total_comp]` tensor. Every
+kernel reads the model constants
 and a cost-descriptor table from one packed float buffer
 (`_pack_constants`), so one build serves every model with the same number
 of joints.
@@ -71,6 +73,7 @@ from .cuda_dynamics import (
     _check_input,
     _pack_model,
     _ptr,
+    dt_per_node,
     dynamics_terms,
 )
 
@@ -204,7 +207,8 @@ def gather_node_refs(layout, refs: Dict, t_idx: torch.Tensor,
 
 
 # the kernels' source table (`ag::RefSrc`, `ag::RefTable`,
-# `csrc/stage_kernels.cuh`): the layout keys one call may have
+# `csrc/stage_kernels.cuh`): the layout keys it holds by value; a longer
+# layout is gathered into one key (`RefPlan.table`)
 MAX_REFS = 24
 
 
@@ -228,60 +232,98 @@ def _rows_contiguous(t: torch.Tensor) -> bool:
     return True
 
 
-def ref_table(layout, refs: Dict, device: torch.device):
-    """The kernel's source table for the refs `gather_node_refs` reads.
+class RefPlan:
+    """The kernels' source table for one ref layout, its keys parsed once.
 
-    Returns (RefTable, the tensors it points into). Node time t's columns
-    [off, off + ncomp) of a key are src[(per_node ? t : row) * stride + i]:
-    a per-node key (`val.ndim >= 1`) reads val[t], a `__geom_rot:{g}` /
-    `__geom_trans:{g}` key row g of the global `geom_rot` / `geom_trans`,
-    another global key its flat values, an absent key zeros. A tensor is
-    read in place when it is float32 on `device` with each row contiguous;
-    otherwise it costs one conversion (a dtype or device move, a copy for
-    strided components). The port's own
-    callers (the tick's ring views, `default_references`, chip_smoke's
-    inputs) pay none. The returned tensors must live until the launch is
-    enqueued; after that, freeing a converted temporary is safe on the one
-    stream the port uses, as the caching allocator reuses its memory only
-    for work queued after the kernel."""
-    if len(layout) > MAX_REFS:
-        raise NotImplementedError(
-            f"the stage kernels take at most {MAX_REFS} ref keys (MAX_REFS), "
-            f"this cost model needs {len(layout)}")
-    tab = RefTable()
-    tab.n = len(layout)
-    keep = []
-    off = 0
-    for e, (key, ncomp, per_node) in zip(tab.e, layout):
-        geom = key.startswith("__geom_")
-        if geom:  # row g of the global geom_rot / geom_trans
-            val = refs.get(key[2:].split(":")[0])
-            e.row = int(key.split(":")[1])
-        else:
-            val = refs.get(key)
-        e.ncomp, e.off = ncomp, off
-        off += ncomp
-        if val is None:  # zeros, as the gather
-            continue
-        if val.dtype != torch.float32 or val.device != device:
-            val = val.to(device=device, dtype=torch.float32)
-        e.per_node = int(per_node and not geom and val.ndim >= 1)
-        if e.per_node or geom:
-            if not _rows_contiguous(val):
-                val = val.contiguous()
-            if val.ndim == 0 or math.prod(val.shape[1:]) != ncomp:
-                raise ValueError(f"ref {key!r} of shape {tuple(val.shape)} "
-                                 f"does not hold {ncomp} values per row")
-            e.stride = val.stride(0)
-        else:
-            if val.numel() != ncomp:
-                raise ValueError(f"ref {key!r} of shape {tuple(val.shape)} "
-                                 f"does not hold {ncomp} values")
-            if not val.is_contiguous():
-                val = val.contiguous()
-        e.src = val.data_ptr()
-        keep.append(val)
-    return tab, keep
+    `table(refs, device)` returns (RefTable, the tensors it points into).
+    Node time t's columns [off, off + ncomp) of a key are
+    src[(per_node ? t : row) * stride + i]: a per-node key (`val.ndim >= 1`)
+    reads val[t], a `__geom_rot:{g}` / `__geom_trans:{g}` key row g of the
+    global `geom_rot` / `geom_trans` (the model's placements from `params`
+    when refs has none, as `with_geom_defaults`), another global key its
+    flat values, an absent key zeros: the rows `gather_node_refs` gives. A
+    tensor is read in place when it is float32 on `device` with each row
+    contiguous; otherwise it costs one conversion (a dtype or device move,
+    a copy for strided components). The port's own callers (the tick's
+    ring views, `default_references`, chip_smoke's inputs) pay none. A
+    layout of more than MAX_REFS keys is gathered on the torch side, once
+    per call, into the rows of every node time (`gather_node_refs` over
+    the leading size of the per-node refs, a shape: no device read) and
+    handed over as one per-node key of the layout's width. The returned
+    tensors must live until the launch is enqueued; after that, freeing a
+    converted temporary is safe on the one stream the port uses, as the
+    caching allocator reuses its memory only for work queued after the
+    kernel."""
+
+    def __init__(self, layout, params: ModelParams):
+        self.layout = list(layout)
+        offsets, self.width = _slice_layout(self.layout)
+        self.defaults = {}  # the geometry placements refs may leave out
+        # (refs key, geometry row, ncomp, row offset, per-node key, geometry)
+        self.keys = []
+        for key, ncomp, per_node in self.layout:
+            geom = key.startswith("__geom_")
+            name = key[2:].split(":")[0] if geom else key
+            if geom:
+                self.defaults[name] = getattr(params, name)
+            self.keys.append((name, int(key.split(":")[1]) if geom else 0,
+                              ncomp, offsets[key][0], per_node and not geom,
+                              geom))
+
+    def _get(self, refs, name):
+        return refs[name] if name in refs else self.defaults.get(name)
+
+    def table(self, refs: Dict, device: torch.device):
+        tab = RefTable()
+        if len(self.keys) > MAX_REFS:
+            return self._gathered(refs, device, tab)
+        tab.n = len(self.keys)
+        keep = []
+        for e, (name, row, ncomp, off, per_node, geom) in zip(tab.e,
+                                                               self.keys):
+            val = self._get(refs, name)
+            e.ncomp, e.off, e.row = ncomp, off, row
+            if val is None:  # zeros, as the gather
+                continue
+            if val.dtype != torch.float32 or val.device != device:
+                val = val.to(device=device, dtype=torch.float32)
+            e.per_node = int(per_node and val.ndim >= 1)
+            if e.per_node or geom:
+                if not _rows_contiguous(val):
+                    val = val.contiguous()
+                if val.ndim == 0 or math.prod(val.shape[1:]) != ncomp:
+                    raise ValueError(f"ref {name!r} of shape "
+                                     f"{tuple(val.shape)} does not hold "
+                                     f"{ncomp} values per row")
+                e.stride = val.stride(0)
+            else:
+                if val.numel() != ncomp:
+                    raise ValueError(f"ref {name!r} of shape "
+                                     f"{tuple(val.shape)} does not hold "
+                                     f"{ncomp} values")
+                if not val.is_contiguous():
+                    val = val.contiguous()
+            e.src = val.data_ptr()
+            keep.append(val)
+        return tab, keep
+
+    def _gathered(self, refs, device, tab):
+        """The over-cap table: one key, the rows of node times
+        0 .. n_t - 1 (or one row when no ref varies per node)."""
+        refs = dict(refs)
+        for name, default in self.defaults.items():
+            refs.setdefault(name, default)
+        n_t = max((refs[name].shape[0] for name, _, _, _, per_node, _ in
+                   self.keys if per_node and refs.get(name) is not None
+                   and refs[name].ndim >= 1), default=0)
+        rows = gather_node_refs(self.layout, refs,
+                                torch.arange(max(n_t, 1), device=device),
+                                torch.float32)
+        tab.n = 1
+        e = tab.e[0]
+        e.src, e.stride, e.ncomp = rows.data_ptr(), rows.stride(0), self.width
+        e.per_node, e.row, e.off = int(n_t > 0), 0, 0
+        return tab, [rows]
 
 
 def _slice_layout(layout):
@@ -660,6 +702,7 @@ class _StageBase:
         self.items = tuple(i for i in items if i.active)
         self.layout = _ref_layout(model, self.items)
         self.offsets, self.width = _slice_layout(self.layout)
+        self.plan = RefPlan(self.layout, params)
         self.launches = 0  # kernel launches (CUDA path only)
         self._consts = None
         if self.device.type == "cuda":
@@ -691,9 +734,11 @@ class _StageBase:
 class StageKernel(_StageBase):
     """K1 (derivs=True) / K2 (derivs=False) over the RUNNING cost model.
 
-    `__call__(x [N,nx], u [N,nj], dt [N], t_idx [N], refs)` returns
-    (xnext, Fx, Fu, l, lx, lu, lxx, lxu, luu) or (xnext, l), all dt-scaled
-    cost terms, node-major: the JAX `make_pallas_stage` run's shapes."""
+    `__call__(x [N,nx], u [N,nj], dt, t_idx [N], refs)`, with dt a Python
+    float, a 0-d tensor or an [N] tensor (broadcast, as the Pallas kernel
+    does), returns (xnext, Fx, Fu, l, lx, lu, lxx, lxu, luu) or (xnext, l),
+    all dt-scaled cost terms, node-major: the JAX `make_pallas_stage` run's
+    shapes."""
 
     def __init__(self, model, params, spec, derivs, device=DEFAULT_DEVICE):
         super().__init__(model, params, spec, spec.running_costs, derivs,
@@ -709,10 +754,11 @@ class StageKernel(_StageBase):
     def prepare(self, x, u, dt, t_idx, refs):
         """Checks the inputs, builds the source table and allocates the
         outputs: returns (the launch's arguments, the outputs). The refs
-        are read in place (see `ref_table`)."""
+        are read in place (see `RefPlan.table`)."""
         lib = self._lib(x)
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
+        dt = dt_per_node(dt, x)
         for name, t, shape in (("x", x, (N, nx)), ("u", u, (N, nj)),
                                ("dt", dt, (N,))):
             _check_input(name, t, self.device, shape)
@@ -723,9 +769,7 @@ class StageKernel(_StageBase):
             t_idx = t_idx.to(device=self.device, dtype=torch.long)
         if not t_idx.is_contiguous():
             t_idx = t_idx.contiguous()
-        tab, keep = ref_table(
-            self.layout, with_geom_defaults(self.layout, refs, self.params),
-            self.device)
+        tab, keep = self.plan.table(refs, self.device)
         new = lambda *s: torch.empty((N,) + s, dtype=x.dtype, device=x.device)
         if self.derivs:
             outs = (new(nx), new(nx, nx), new(nx, nj), new(), new(nx),
@@ -759,7 +803,7 @@ class StageKernel(_StageBase):
         q = list(x[:, :nj].unbind(1))
         v = list(x[:, nj:].unbind(1))
         uc = list(u.unbind(1))
-        dtt = dt.to(x.dtype)
+        dtt = (x.new_zeros(N) + dt).to(x.dtype)
         xnext, fx, fu = dynamics_terms(self.sm, q, v, uc, dtt, self.derivs)
         acc = _node_costs(self.items, self.model, self.params, self.sm, q, v,
                           uc, self._rget(rows), self.derivs)
@@ -779,42 +823,58 @@ class TerminalKernel(_StageBase):
     """K3 (derivs=True) / K4 (derivs=False) over the TERMINAL cost model.
 
     `__call__(x [N,nx], refs)` returns (l, lx, lxx) or (l,): cost items at
-    t = horizon with u = 0 and no dt scale."""
+    t = horizon with u = 0 and no dt scale, views into one allocation."""
 
     def __init__(self, model, params, spec, derivs, device=DEFAULT_DEVICE):
         super().__init__(model, params, spec, spec.terminal_costs, derivs,
                          device)
         self.horizon = spec.horizon
 
-    def _t_idx(self, x):
-        return torch.full((x.shape[0],), self.horizon, dtype=torch.long,
-                          device=x.device)
-
     def __call__(self, x, refs):
         if x.device.type == "cpu":
             return self.plain(x, refs)
+        args, outs = self.prepare(x, refs)
+        self.launch(args)
+        return outs
+
+    def prepare(self, x, refs):
+        """Checks x, builds the source table and allocates the outputs:
+        returns (the launch's arguments, the outputs). The refs are read in
+        place (see `RefPlan.table`)."""
         lib = self._lib(x)
         N, nx = x.shape[0], 2 * self.nj
-        rows = self._rows(refs, self._t_idx(x), x.dtype)
         _check_input("x", x, self.device, (N, nx))
-        _check_input("refs rows", rows, self.device, (N, self.width))
-        new = lambda *s: torch.empty((N,) + s, dtype=x.dtype, device=x.device)
-        outs = (new(), new(nx), new(nx, nx)) if self.derivs else (new(),)
+        tab, keep = self.plan.table(refs, self.device)
+        sizes = (1, nx, nx * nx) if self.derivs else (1,)
+        out = torch.empty(N * sum(sizes), dtype=x.dtype, device=x.device)
+        outs = tuple(o.view((N,) + shape) for o, shape in zip(
+            out.split([N * s for s in sizes]), ((), (nx,), (nx, nx))))
         ptrs = [_ptr(o) for o in outs] + [None] * (3 - len(outs))
-        err = lib.ag_terminal(
-            self.nj, int(self.derivs), N, _ptr(x), _ptr(rows), self.width,
-            _ptr(self._consts), self._consts.numel(), len(self.items), *ptrs,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        args = (lib, (self.nj, int(self.derivs), N, _ptr(x),
+                      ctypes.c_void_p(ctypes.addressof(tab)), self.horizon,
+                      self.width, _ptr(self._consts), self._consts.numel(),
+                      len(self.items), *ptrs,
+                      ctypes.c_void_p(
+                          torch.cuda.current_stream(x.device).cuda_stream)),
+                (tab, keep, x, out))
+        return args, outs
+
+    def launch(self, args):
+        """One launch of the kernel on prepared arguments (`prepare`)."""
+        lib, cargs, _ = args
+        err = lib.ag_terminal(*cargs)
         if err != 0:
-            raise RuntimeError(f"terminal kernel launch failed: {_build.error_string(err)}")
+            raise RuntimeError(
+                f"terminal kernel launch failed: {_build.error_string(err)}")
         self.launches += 1
-        return outs
 
     def plain(self, x, refs):
         """The plain-PyTorch version, on the inputs' own device."""
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
-        rows = self._rows(refs, self._t_idx(x), x.dtype)
+        t_idx = torch.full((N,), self.horizon, dtype=torch.long,
+                           device=x.device)
+        rows = self._rows(refs, t_idx, x.dtype)
         q = list(x[:, :nj].unbind(1))
         v = list(x[:, nj:].unbind(1))
         zero = torch.zeros_like(q[0])

@@ -22,14 +22,16 @@ mass matrix, unrolled Cholesky, and Fx/Fu through the RNEA identity
 
 It ports the JAX package's `ops/pallas_dynamics.py::dynamics_terms`. Where
 that function pulls d rnea / d(q, v) back with `jax.vjp`, this one takes the
-closed form (`analytic_derivs.rnea_qv_derivatives`); the kernel takes forward
-dual numbers, so the plain version and the kernel reach the Jacobian by two
-independent routes.
+closed form (`analytic_derivs.rnea_qv_derivatives`); the kernels take
+forward-mode tangents (dual numbers, or K5b's derivative passes around the
+shared primal values), so the plain version and the kernels reach the
+Jacobian by two independent routes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -47,14 +49,19 @@ from .batched_dynamics import (
 
 
 def _chol_factor_c(M, n):
-    """Unrolled scalar Cholesky of an SPD component matrix (list-of-lists)."""
+    """Unrolled scalar Cholesky of an SPD component matrix (list-of-lists;
+    an entry that does not depend on q, such as the diagonal of a joint
+    whose subtree is one body, may be a Python float)."""
     L = [[None] * n for _ in range(n)]
     for i in range(n):
         for j in range(i + 1):
             s = M[i][j]
             for k in range(j):
                 s = s - L[i][k] * L[j][k]
-            L[i][j] = s.sqrt() if i == j else s / L[j][j]
+            if i != j:
+                L[i][j] = s / L[j][j]
+            else:
+                L[i][j] = s.sqrt() if torch.is_tensor(s) else math.sqrt(s)
     return L
 
 
@@ -192,6 +199,18 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def dt_per_node(dt, x):
+    """dt as the kernels take it, one value per node of x: a Python float
+    or a 0-d tensor is broadcast to [N] in x's dtype on x's device (as the
+    Pallas kernels broadcast it); an [N] tensor passes as it is."""
+    if not isinstance(dt, torch.Tensor):
+        return torch.full((x.shape[0],), dt, dtype=x.dtype, device=x.device)
+    if dt.ndim == 0:
+        return dt.to(device=x.device, dtype=x.dtype).expand(
+            x.shape[0]).contiguous()
+    return dt
+
+
 class StepKernel:
     """K5a (derivs=False) / K5b (derivs=True): the semi-implicit Euler step.
 
@@ -219,30 +238,40 @@ class StepKernel:
     def __call__(self, x, u, dt):
         if x.device.type == "cpu":
             return self.plain(x, u, dt)
+        args, outs = self.prepare(x, u, dt)
+        self.launch(args)
+        return outs if self.derivs else outs[0]
+
+    def prepare(self, x, u, dt):
+        """Checks the inputs and allocates the outputs: returns (the
+        launch's arguments, the outputs)."""
         if self._consts is None or x.device != self.device:
             raise ValueError(
                 f"wrapper built for {self.device}, called with {x.device}")
         lib = _build.load_library()
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
-        if not isinstance(dt, torch.Tensor):
-            dt = torch.full((N,), dt, dtype=x.dtype, device=x.device)
-        elif dt.ndim == 0:
-            dt = dt.expand(N).contiguous()
+        dt = dt_per_node(dt, x)
         for name, t, shape in (("x", x, (N, nx)), ("u", u, (N, nj)),
                                ("dt", dt, (N,))):
             _check_input(name, t, self.device, shape)
         new = lambda *s: torch.empty((N,) + s, dtype=x.dtype, device=x.device)
         outs = (new(nx), new(nx, nx), new(nx, nj)) if self.derivs else (new(nx),)
         ptrs = [_ptr(o) for o in outs] + [None] * (3 - len(outs))
-        err = lib.ag_step(
-            nj, int(self.derivs), N, _ptr(x), _ptr(u), _ptr(dt),
-            _ptr(self._consts), self._consts.numel(), *ptrs,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        args = (lib, (nj, int(self.derivs), N, _ptr(x), _ptr(u), _ptr(dt),
+                      _ptr(self._consts), self._consts.numel(), *ptrs,
+                      ctypes.c_void_p(
+                          torch.cuda.current_stream(x.device).cuda_stream)),
+                (x, u, dt, outs))
+        return args, outs
+
+    def launch(self, args):
+        """One launch of the kernel on prepared arguments (`prepare`)."""
+        lib, cargs, _ = args
+        err = lib.ag_step(*cargs)
         if err != 0:
             raise RuntimeError(f"step kernel launch failed: {_build.error_string(err)}")
         self.launches += 1
-        return outs if self.derivs else outs[0]
 
     def plain(self, x, u, dt):
         """The plain-PyTorch version (`dynamics_terms`), on the inputs' own

@@ -4,15 +4,17 @@
 
 Builds the hand-written kernels from `agimus_controller_tpu_torch/csrc/`:
 the stage kernels K1-K4 and the dynamics-step kernels K5a/K5b. Holds K1-K4
-against their plain-PyTorch versions on the card on five specs (the
+against their plain-PyTorch versions on the card on six specs (the
 flagship goal tracking, the Pallas kernels' test spec with its collision
 item, the shipped collision-avoidance YAML, the visual-servoing OCP
-`VS_OCP` and a visual-servoing + frame-velocity spec) with every term live,
-K1/K2 at N = 19, 100 and 102 400 and also on the tick's ring-row views of
-the refs, and K5a/K5b at the batch path's shapes with per-node and scalar
-dt; times each call (K1/K2 also their bare launch) and computes its
-bound. Then drives the port's four main paths, every entry point on the
-card, the first three through `FusedTickRunner`:
+`VS_OCP`, a visual-servoing + frame-velocity spec, and `cap_spec`, with
+more ref keys than the kernels' by-value table holds) with every term live,
+K1/K2 at N = 19, 100 and 102 400 (`cap_spec` up to 100), also with one dt
+for every node (a float, a 0-d tensor), K1-K4 also on the tick's ring-row
+views of the refs, and K5a/K5b at the batch path's shapes with per-node and
+scalar dt; times each call and its bare launch and computes its bound.
+Then drives the port's four main paths, every entry point on the card, the
+first three through `FusedTickRunner`:
 
 - the flagship chain: Panda, T=100, f32, unconstrained, checked to converge
   onto the streamed goal;
@@ -284,11 +286,36 @@ def fv_spec(T: int):
                        terminal_costs=items(9.0, 4.0), horizon=T, dt=0.01)
 
 
+# the Panda links a pose item can track (each with a parent joint)
+LINK_FRAMES = tuple(f"panda_link{i}" for i in range(2, 9))
+
+
+def cap_spec(T: int):
+    """More ref keys than the kernels' by-value table holds (`MAX_REFS` =
+    24): streamed state and control items and an updated frame_placement
+    on each of `LINK_FRAMES`, 25 running keys; the terminal model tracks
+    the hand too, 26 keys."""
+    from agimus_controller_tpu_torch.ocp.spec import CostItem, ProblemSpec
+
+    poses = lambda frames, w: tuple(
+        CostItem(name=f"pose_{f}", kind="frame_placement", weight=w,
+                 update=True, frame=f) for f in frames)
+    state = CostItem(name="state_reg", kind="state", weight=0.1, update=True)
+    return ProblemSpec(
+        running_costs=(state, CostItem(name="ctrl", kind="control",
+                                       weight=1e-2, update=True))
+        + poses(LINK_FRAMES, 1.0),
+        terminal_costs=(state,) + poses(LINK_FRAMES + ("panda_hand_tcp",),
+                                        10.0),
+        horizon=T, dt=0.01)
+
+
 SPECS = {"flagship": lambda T, model: flagship_spec(T),
          "mixed": lambda T, model: mixed_spec(T),
          "full": lambda T, model: full_spec(T), "yaml": yaml_spec,
-         "vs": vs_spec, "fv": lambda T, model: fv_spec(T)}
-CHECKED_SPECS = ("flagship", "full", "yaml", "vs", "fv")  # phase 3
+         "vs": vs_spec, "fv": lambda T, model: fv_spec(T),
+         "cap25": lambda T, model: cap_spec(T)}
+CHECKED_SPECS = ("flagship", "full", "yaml", "vs", "fv", "cap25")  # phase 3
 
 
 def moving_refs(spec, rng, Tn):
@@ -340,7 +367,8 @@ def randomized_inputs(spec, model, N, seed, device):
     the link-7 capsule at the ready pose, `w_coll` is randomized and x stays
     within ~0.02 rad of the ready pose, so the collision term is live. With
     visual-servoing or frame-velocity items, `moving_refs` and v ~ 0.5
-    N(0, 1) make those terms live."""
+    N(0, 1) make those terms live; `cap_spec`'s link poses get random
+    targets and weights."""
     from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
     from agimus_controller_tpu_torch.ocp.spec import default_references
 
@@ -372,6 +400,10 @@ def randomized_inputs(spec, model, N, seed, device):
     if moving:
         refs.update({k: f(v) for k, v in moving.items()})
         x[:, 7:] = f(rng.normal(size=(N, 7)) * 0.5)
+    for frame in LINK_FRAMES:  # `cap_spec`'s pose items
+        if f"w_ee:{frame}" in refs:
+            refs[f"ee_trans:{frame}"] = f(rng.normal(size=(Tn, 3)) * 0.3)
+            refs[f"w_ee:{frame}"] = f(rng.uniform(0.1, 2.0, (Tn, 6)))
     return refs, x, u, dt, t_idx
 
 
@@ -410,20 +442,22 @@ def live_share(spec, model, refs, x):
     return float(live.double().mean())
 
 
+def cuda_timed_call(fn):
+    """(fn()'s result, its time in ms), one call timed by CUDA events."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median time of one call over `reps` calls, CUDA events."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return float(np.median([cuda_timed_call(fn)[1] for _ in range(reps)]))
 
 
 def check_outputs(name, got, want, labels):
@@ -517,12 +551,13 @@ def bound_ms(k, kind, n_nodes, ops_node):
 
 def check_kernels(model, params, device, sizes=(19, 100, 102_400)):
     """K1-K4 vs their plain versions on the same CUDA inputs, f32, on the
-    checked specs, with each call's time and bound; K1/K2 also with the
+    checked specs (`cap25` at N = 100 only), with each call's time,
     kernel-only time (CUDA events around the bare launch, inputs, source
-    table and outputs prepared) and, at the first size, on the tick's
-    ring-row views of the same refs. The terminal kernels take N // 100
-    nodes (at least 1) and skip N < 100. Returns {kernel: {spec: {N:
-    numbers}}}."""
+    table and outputs prepared) and bound; at a spec's first size also on
+    the tick's ring-row views of the same refs and, for K1/K2, with one dt
+    for every node (a float and a 0-d tensor). The terminal kernels take
+    N // 100 nodes (at least 1) and skip N < 100. Returns {kernel: {spec:
+    {N: numbers}}}."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
@@ -542,27 +577,28 @@ def check_kernels(model, params, device, sizes=(19, 100, 102_400)):
                 k = make_cuda_terminal(model, params, spec, derivs, device)
                 labels = ("l", "lx", "lxx") if derivs else ("l",)
             ops_node = None
-            for N in sizes:
-                if kind != "stage" and N < 100:
-                    continue
+            # cap25's plain version is the slowest: its K1/K2 run at the
+            # flagship tick's N = 100 alone
+            spec_sizes = [N for N in sizes if (N >= 100 or kind == "stage")
+                          and (N == 100 or spec_name != "cap25")]
+            for N in spec_sizes:
                 # the tick gives the terminal kernels one node per scenario
                 n_nodes = N if kind == "stage" else max(1, N // 100)
                 refs, x, u, dt, t_idx = randomized_inputs(
                     spec, model, n_nodes, seed=N + derivs, device=device)
-                if kind == "stage":
-                    run = lambda: k(x, u, dt, t_idx, refs)
-                    plain = lambda: k.plain(x, u, dt, t_idx, refs)
-                else:
-                    run = lambda: k(x, refs)
-                    plain = lambda: k.plain(x, refs)
+                args = (x, u, dt, t_idx, refs) if kind == "stage" else (x, refs)
+                run = lambda: k(*args)
+                plain = lambda: k.plain(*args)
                 got = run()
                 torch.cuda.synchronize()
-                want = plain()
+                # the plain versions take up to seconds a call: the check's
+                # call is the one timed
+                want, plain_ms = cuda_timed_call(plain)
                 errs = check_outputs(f"{name} {spec_name} N={n_nodes}", got,
                                      want, labels)
                 views = ""
-                if kind == "stage" and N == sizes[0]:
-                    got_v = k(x, u, dt, t_idx, tick_views(spec, model, refs))
+                if N == spec_sizes[0]:
+                    got_v = k(*args[:-1], tick_views(spec, model, refs))
                     torch.cuda.synchronize()
                     for lab, e in check_outputs(
                             f"{name} {spec_name} N={n_nodes} tick views",
@@ -570,14 +606,12 @@ def check_kernels(model, params, device, sizes=(19, 100, 102_400)):
                         errs[lab] = max(errs[lab], e)
                     same = all(torch.equal(a, b) for a, b in zip(got, got_v))
                     views = f"  tick views {'equal' if same else 'differ'}"
+                if kind == "stage" and N == spec_sizes[0]:
+                    views += check_scalar_dt(k, name, spec_name, args, labels,
+                                             errs)
                 ms = cuda_time_ms(run, reps=50)
-                kernel_ms = None
-                if kind == "stage":
-                    args, _ = k.prepare(x, u, dt, t_idx, refs)
-                    kernel_ms = cuda_time_ms(lambda: k.launch(args), reps=50)
-                # the plain versions take up to seconds a call; the check
-                # above was their warm-up
-                plain_ms = cuda_time_ms(plain, reps=1, warmup=0)
+                prepared, _ = k.prepare(*args)
+                kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=50)
                 if ops_node is None:
                     ops_node = ops_per_node(model_cpu, params_cpu, spec, kind,
                                             derivs, refs, x, u, dt, t_idx)
@@ -585,10 +619,9 @@ def check_kernels(model, params, device, sizes=(19, 100, 102_400)):
                 live = (f"  collision term live on "
                         f"{live_share(spec, model, refs, x):.0%} of nodes"
                         if "geom_trans" in refs else "")
-                only = ("" if kernel_ms is None
-                        else f" (kernel only {kernel_ms:9.4f} ms)")
                 print(f"{name:20s} {spec_name:8s} N={n_nodes:6d}  wrapper "
-                      f"{ms:9.4f} ms{only}  plain {plain_ms:9.3f} ms  bound "
+                      f"{ms:9.4f} ms (kernel only {kernel_ms:9.4f} ms)  plain "
+                      f"{plain_ms:9.3f} ms  bound "
                       f"{b_ms:.6f} ms ({b_by}, {ops_node} ops/node)  max abs "
                       "err " + " ".join(f"{lab}={e:.2e}"
                                         for lab, e in errs.items())
@@ -599,6 +632,30 @@ def check_kernels(model, params, device, sizes=(19, 100, 102_400)):
                                     bound_by=b_by,
                                     max_abs_err=max(errs.values()))
     return report
+
+
+def check_scalar_dt(k, name, spec_name, args, labels, errs):
+    """K1/K2 with the first node's dt for every node, as a Python float and
+    as a 0-d tensor: each equal bit for bit to the [N] form, which is held
+    against the plain version (one plain call; a form that differs is held
+    against the plain version itself). The errors go into errs; returns the
+    line's note."""
+    x, u, dt, t_idx, refs = args
+    h = float(dt[0])
+    per_node = torch.full_like(dt, h)
+    got_n = k(x, u, per_node, t_idx, refs)
+    checks = [("[N]", got_n, h)]
+    for form, d in (("float", h), ("0-d", dt[0].clone())):
+        got = k(x, u, d, t_idx, refs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, got_n)):
+            checks.append((form, got, d))
+    for form, got, d in checks:
+        for lab, e in check_outputs(f"{name} {spec_name} {form} dt", got,
+                                    k.plain(x, u, d, t_idx, refs),
+                                    labels).items():
+            errs[lab] = max(errs[lab], e)
+    return f"  scalar dt {'equal' if len(checks) == 1 else 'differs'} to [N]"
 
 
 def step_inputs(N, seed, device, dt_kind):
@@ -620,7 +677,8 @@ def step_inputs(N, seed, device, dt_kind):
 def check_step_kernels(model, params, device):
     """K5a and K5b vs their plain versions on the same CUDA inputs, f32, at
     the batch path's two sizes, with per-node and scalar dt; each call's
-    time (per-node dt) and bound. Returns {kernel: {N: numbers}}."""
+    time and kernel-only time (per-node dt) and bound. Returns {kernel:
+    {N: numbers}}."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
 
@@ -642,18 +700,22 @@ def check_step_kernels(model, params, device):
                         f"{name} N={N} {dt_kind} dt", got, as_tuple(plain()),
                         labels).items():
                     errs[lab] = max(errs.get(lab, 0.0), e)
-            ms = cuda_time_ms(run, reps=50 if N <= 4096 else 20)
+            reps = 50 if N <= 4096 else 20
+            ms = cuda_time_ms(run, reps=reps)
+            prepared, _ = k.prepare(x, u, dt)
+            kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=reps)
             plain_ms = cuda_time_ms(plain, reps=1, warmup=0)
             ops_node = ops_per_node(model_cpu, params_cpu, None, kind, derivs,
                                     None, x, u, dt, None)
             b_ms, b_by = bound_ms(k, kind, N, ops_node)
-            print(f"{name:20s} {'':8s} N={N:6d}  kernel {ms:9.4f} ms  plain "
-                  f"{plain_ms:9.3f} ms  bound {b_ms:.6f} ms ({b_by}, "
+            print(f"{name:20s} {'':8s} N={N:6d}  wrapper {ms:9.4f} ms (kernel "
+                  f"only {kernel_ms:9.4f} ms)  plain {plain_ms:9.3f} ms  bound "
+                  f"{b_ms:.6f} ms ({b_by}, "
                   f"{ops_node} ops/node)  max abs err "
                   + " ".join(f"{lab}={e:.2e}" for lab, e in errs.items()))
             report.setdefault(name, {})[N] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=max(errs.values()))
+                ms=ms, kernel_only_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs.values()))
     return report
 
 
@@ -1319,10 +1381,10 @@ def main():
             launches[name] += n
 
     # -- 5. result: launches over the four paths, the max error over every
-    # checked spec and size; times and bounds at the flagship tick shape for
-    # K1-K4 and at the batch path's shapes for K5a/K5b, the kernel-only time
-    # for K1/K2 (null where not measured; no single PyTorch call computes a
-    # fused stage or a dynamics step: no library time)
+    # checked spec and size; times (wrapper and bare launch) and bounds at
+    # the flagship tick shape for K1-K4 and at the batch path's shapes for
+    # K5a/K5b (no single PyTorch call computes a fused stage or a dynamics
+    # step: no library time)
     kernels = []
     for name, kind, derivs, replaces in KERNELS:
         if kind == "step":
@@ -1336,7 +1398,7 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=SOURCES[kind],
                             replaces=replaces, launches=launches[name],
                             max_abs_err=err, ms=r["ms"],
-                            kernel_only_ms=r.get("kernel_only_ms"),
+                            kernel_only_ms=r["kernel_only_ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

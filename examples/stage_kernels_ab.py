@@ -1,22 +1,27 @@
-"""Time the stage kernels K1/K2 of one checkout of the port on the GPU.
+"""Time the hand-written kernels K1-K5b of one checkout of the port on the GPU.
 
     python3 examples/stage_kernels_ab.py --root DIR [--out FILE.json]
+        [--specs flagship,...] [--kernels stage,terminal,step]
 
 Imports `agimus_controller_tpu_torch` from DIR (this checkout or an
 unpacked older one, e.g. `git archive <commit> | tar -x -C build/parent`),
 builds its kernels there and times, with CUDA events (median over 50
-calls), for K1 (`make_cuda_stage(derivs=True)`) and K2 (`derivs=False`) on
-`chip_smoke.py`'s checked specs at N = 19, 100 and 102 400:
+calls, 20 at N = 409 600): K1 (`make_cuda_stage(derivs=True)`) and K2
+(`derivs=False`) on `chip_smoke.py`'s checked specs at N = 19, 100 and
+102 400; K3/K4 (`make_cuda_terminal`) on the same specs at N = 1, the
+tick's terminal node; K5a/K5b (`make_cuda_step(_derivs)`) at the batch
+path's N = 4 096 and 409 600 with per-node dt:
 
 - `wrapper_ms`: one wrapper call, as `chip_smoke.py` times it;
-- `kernel_ms`: the bare `ag_stage` launch with the inputs, the refs and the
-  outputs prepared (for a checkout whose wrapper gathers the refs on the
-  torch side, the gathered rows are prepared too);
+- `kernel_ms`: the bare launch with the inputs, the refs and the outputs
+  prepared (for a checkout whose wrapper has no `prepare`, the same
+  launch as its `__call__`, with whatever it gathers on the torch side
+  prepared too);
 - `host_ms`: the host-clock time of one wrapper call without a
   synchronize (mean over 50 calls): the host's part of the call.
 
-The inputs are `chip_smoke.randomized_inputs` of the checkout that holds
-this script, whatever DIR is. Prints one
+The inputs are `chip_smoke.randomized_inputs` / `step_inputs` of the
+checkout that holds this script, whatever DIR is. Prints one
 line per case and the card's name and power limit; with --out, writes the
 numbers as JSON. Run two checkouts in turns in one call to compare them
 (parent, change, change, parent).
@@ -37,10 +42,20 @@ import torch
 
 HERE = Path(__file__).resolve().parent.parent
 SIZES = (19, 100, 102_400)
+STEP_SIZES = (4096, 409_600)
 
 
-def kernel_launch(k, x, u, dt, t_idx, refs):
-    """A callable that runs the bare launch of wrapper k's kernel."""
+def _stream(x):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _checked(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {err}")
+
+
+def stage_launch(k, x, u, dt, t_idx, refs):
+    """A callable that runs the bare launch of stage wrapper k's kernel."""
     if hasattr(k, "prepare"):  # the kernel gathers the refs itself
         args, _ = k.prepare(x, u, dt, t_idx, refs)
         return lambda: k.launch(args)
@@ -62,16 +77,77 @@ def kernel_launch(k, x, u, dt, t_idx, refs):
         ptrs = [_ptr(outs[0]), None, None, _ptr(outs[1])] + [None] * 5
     cargs = (nj, int(k.derivs), N, _ptr(x), _ptr(u), _ptr(dt), _ptr(rows),
              k.width, _ptr(k._consts), k._consts.numel(), len(k.items), *ptrs,
-             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+             _stream(x))
     keep = (rows, outs)
 
     def run():
-        err = lib.ag_stage(*cargs)
-        if err != 0:
-            raise RuntimeError(f"stage kernel launch failed: {err}")
+        _checked(lib.ag_stage(*cargs), "stage kernel")
         return keep
 
     return run
+
+
+def terminal_launch(k, x, refs):
+    """A callable that runs the bare launch of terminal wrapper k's kernel."""
+    if hasattr(k, "prepare"):
+        args, _ = k.prepare(x, refs)
+        return lambda: k.launch(args)
+    # the wrapper gathers the rows of t = horizon on the torch side
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import _ptr
+
+    lib = k._lib(x)
+    N, nx = x.shape[0], 2 * k.nj
+    rows = k._rows(refs, k._t_idx(x), x.dtype)
+    new = lambda *s: torch.empty((N,) + s, dtype=x.dtype, device=x.device)
+    outs = (new(), new(nx), new(nx, nx)) if k.derivs else (new(),)
+    ptrs = [_ptr(o) for o in outs] + [None] * (3 - len(outs))
+    cargs = (k.nj, int(k.derivs), N, _ptr(x), _ptr(rows), k.width,
+             _ptr(k._consts), k._consts.numel(), len(k.items), *ptrs,
+             _stream(x))
+    keep = (rows, outs)
+
+    def run():
+        _checked(lib.ag_terminal(*cargs), "terminal kernel")
+        return keep
+
+    return run
+
+
+def step_launch(k, x, u, dt):
+    """A callable that runs the bare launch of step wrapper k's kernel."""
+    if hasattr(k, "prepare"):
+        args, _ = k.prepare(x, u, dt)
+        return lambda: k.launch(args)
+    from agimus_controller_tpu_torch.ops import _build
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import _ptr
+
+    lib = _build.load_library()
+    N, nj = x.shape[0], k.nj
+    nx = 2 * nj
+    new = lambda *s: torch.empty((N,) + s, dtype=x.dtype, device=x.device)
+    outs = (new(nx), new(nx, nx), new(nx, nj)) if k.derivs else (new(nx),)
+    ptrs = [_ptr(o) for o in outs] + [None] * (3 - len(outs))
+    cargs = (nj, int(k.derivs), N, _ptr(x), _ptr(u), _ptr(dt),
+             _ptr(k._consts), k._consts.numel(), *ptrs, _stream(x))
+
+    def run():
+        _checked(lib.ag_step(*cargs), "step kernel")
+        return outs
+
+    return run
+
+
+def time_case(smoke, call, bare, reps):
+    """(wrapper ms, bare launch ms, host ms) of one case."""
+    wrapper_ms = smoke.cuda_time_ms(call, reps=reps)
+    kernel_ms = smoke.cuda_time_ms(bare, reps=reps)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    host_ms = (time.perf_counter() - h0) / reps * 1e3
+    torch.cuda.synchronize()
+    return wrapper_ms, kernel_ms, host_ms
 
 
 def main():
@@ -79,6 +155,7 @@ def main():
     ap.add_argument("--root", type=Path, required=True)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--specs", default="flagship,full,yaml,vs,fv")
+    ap.add_argument("--kernels", default="stage,terminal,step")
     ap.add_argument("--tag", default="")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -96,7 +173,11 @@ def main():
     spec_.loader.exec_module(smoke)
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops import _build
-    from agimus_controller_tpu_torch.ops.cuda_costs import make_cuda_stage
+    from agimus_controller_tpu_torch.ops.cuda_costs import (
+        make_cuda_stage,
+        make_cuda_terminal,
+    )
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
 
     device = torch.device("cuda", 0)
     card = subprocess.run(
@@ -114,30 +195,44 @@ def main():
                                collision_pairs=smoke.PAIR,
                                dtype=torch.float32, device=device)
     out = []
+
+    def record(name, spec_name, N, times):
+        wrapper_ms, kernel_ms, host_ms = times
+        print(f"[{a.tag}] {name} {spec_name:8s} N={N:6d}  wrapper "
+              f"{wrapper_ms:9.4f} ms  kernel {kernel_ms:9.4f} ms  "
+              f"host {host_ms:8.4f} ms")
+        out.append(dict(kernel=name, spec=spec_name, N=N,
+                        wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
+                        host_ms=host_ms))
+
+    groups = a.kernels.split(",")
     for spec_name in a.specs.split(","):
         spec = smoke.SPECS[spec_name](100, model)
         for derivs in (True, False):
-            name = "K1" if derivs else "K2"
-            k = make_cuda_stage(model, params, spec, derivs, device)
-            for N in SIZES:
-                refs, x, u, dt, t_idx = smoke.randomized_inputs(
-                    spec, model, N, seed=N + derivs, device=device)
-                call = lambda: k(x, u, dt, t_idx, refs)
-                wrapper_ms = smoke.cuda_time_ms(call, reps=50)
-                kernel_ms = smoke.cuda_time_ms(
-                    kernel_launch(k, x, u, dt, t_idx, refs), reps=50)
-                torch.cuda.synchronize()
-                h0 = time.perf_counter()
-                for _ in range(50):
-                    call()
-                host_ms = (time.perf_counter() - h0) / 50 * 1e3
-                torch.cuda.synchronize()
-                print(f"[{a.tag}] {name} {spec_name:8s} N={N:6d}  wrapper "
-                      f"{wrapper_ms:9.4f} ms  kernel {kernel_ms:9.4f} ms  "
-                      f"host {host_ms:8.4f} ms")
-                out.append(dict(kernel=name, spec=spec_name, N=N,
-                                wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
-                                host_ms=host_ms))
+            if "stage" in groups:
+                k = make_cuda_stage(model, params, spec, derivs, device)
+                for N in SIZES:
+                    refs, x, u, dt, t_idx = smoke.randomized_inputs(
+                        spec, model, N, seed=N + derivs, device=device)
+                    record("K1" if derivs else "K2", spec_name, N, time_case(
+                        smoke, lambda: k(x, u, dt, t_idx, refs),
+                        stage_launch(k, x, u, dt, t_idx, refs), 50))
+            if "terminal" in groups:
+                k = make_cuda_terminal(model, params, spec, derivs, device)
+                refs, x, _, _, _ = smoke.randomized_inputs(
+                    spec, model, 1, seed=1 + derivs, device=device)
+                record("K3" if derivs else "K4", spec_name, 1, time_case(
+                    smoke, lambda: k(x, refs), terminal_launch(k, x, refs),
+                    50))
+    if "step" in groups:
+        for derivs in (False, True):
+            k = StepKernel(model, params, derivs, device)
+            for N in STEP_SIZES:
+                x, u, dt = smoke.step_inputs(N, N + derivs, device,
+                                             "per_node")
+                record("K5b" if derivs else "K5a", "", N, time_case(
+                    smoke, lambda: k(x, u, dt), step_launch(k, x, u, dt),
+                    50 if N <= 4096 else 20))
     if a.out:
         a.out.parent.mkdir(parents=True, exist_ok=True)
         a.out.write_text(json.dumps(dict(root=str(root), tag=a.tag,

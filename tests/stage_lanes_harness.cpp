@@ -1,13 +1,19 @@
-// Host harness of the stage kernels K1/K2 (csrc/stage_kernels.cu): runs the
-// per-lane functions of csrc/stage_kernels.cuh as the kernels place them,
-// one node after another. K1: each phase lane by lane, which is what the
-// warp barriers between the phases guarantee on the card; the node scratch
-// starts as NaN, so a read of an entry no lane wrote shows in the outputs.
-// K2: warp 0's step, then warp 1's cost items. Built with
+// Host harness of the stage kernels K1/K2 (csrc/stage_kernels.cu), the
+// terminal kernels K3/K4 (csrc/terminal_kernels.cu) and the dynamics-step
+// kernel K5b (csrc/step_kernels.cu): runs the per-lane functions of
+// csrc/stage_kernels.cuh as the kernels place them, one node after
+// another. K1 and K5b: each phase lane by lane, which is what the warp
+// barriers between the phases guarantee on the card; the node scratch (and
+// K5b's output scratch) starts as NaN, so a read of an entry no lane wrote
+// shows in the outputs. K2: warp 0's step, then warp 1's cost items. K3/K4:
+// the warp's gather of the ref row, then K3's lane 0, or K4's item values
+// lane by lane and their sum. Built with
 //   g++ -std=c++17 -O2 -shared -fPIC -I agimus_controller_tpu_torch/csrc
-// by tests/test_torch_stage_lanes.py and called through ctypes with the
-// arguments of `ag_stage` (no stream).
+// by tests/test_torch_stage_lanes.py and test_torch_step_lanes.py and
+// called through ctypes with the arguments of `ag_stage`, `ag_terminal` and
+// `ag_step` (no stream).
 
+#include <algorithm>
 #include <cmath>
 #include <vector>
 
@@ -60,7 +66,101 @@ void k2(int N, const float* x, const float* u, const float* dt,
   }
 }
 
+template <int NJ, bool DERIVS>
+void terminal(int N, const float* x, const ag::RefTable& tab, int t, int W,
+              const float* C, int n_items, float* l, float* lx, float* lxx) {
+  constexpr int NX = 2 * NJ;
+  std::vector<float> row(W > 0 ? W : 1, NAN);
+  std::vector<float> vals(n_items > 0 ? n_items : 1, NAN);
+  for (long long n = 0; n < N; ++n) {
+    for (int lane = 0; lane < 32; ++lane)
+      ag::gather_row<1>(tab, t, lane, 32, row.data());
+    if (DERIVS) {
+      ag::terminal_node<NJ>(x + n * NX, row.data(), C, n_items, l + n,
+                            lx + n * NX, lxx + n * NX * NX);
+      continue;
+    }
+    for (int lane = 0; lane < 32; ++lane)
+      ag::terminal_item_values<NJ>(lane, x + n * NX, row.data(), C, n_items,
+                                   vals.data());
+    float lv = 0.f;
+    for (int it = 0; it < n_items; ++it) lv += vals[it];
+    l[n] = lv;
+  }
+}
+
+// K5b's phases lane by lane (lanes = 1: the one-thread body
+// `ag::dynamics_node` that K5b ran before them).
+template <int NJ>
+void step_derivs(int lanes, int N, const float* x, const float* u,
+                 const float* dt, const float* C, float* xnext, float* Fx,
+                 float* Fu) {
+  typedef ag::K5Shape<NJ> K;
+  constexpr int NX = K::NX;
+  for (long long n = 0; n < N; ++n) {
+    const float* xn = x + n * NX;
+    const float* un = u + n * NJ;
+    std::vector<float> S(K::SIZE, NAN), xo(NX, NAN), fx(NX * NX, NAN),
+        fu(NX * NJ, NAN);
+    if (lanes == 1) {
+      ag::M3<float> R[NJ];
+      ag::V3<float> P[NJ];
+      ag::dynamics_node<NJ, true>(C, xn, xn + NJ, un, dt[n], R, P, xo.data(),
+                                  fx.data(), fu.data());
+    } else {
+      for (int lane = 0; lane < K::LANES; ++lane)
+        ag::k5_place<NJ>(lane, C, xn, S.data());
+      // each lane's force slots, thread-minor as in the kernel
+      std::vector<float> df(6 * NJ * K::LANES, NAN);
+      auto fs = [&](int lane) { return ag::ForceSlots{&df[lane], K::LANES}; };
+      for (int lane = 0; lane < K::LANES; ++lane)
+        ag::k5_mass_bias<NJ>(lane, C, xn, fs(lane), S.data());
+      for (int lane = 0; lane < K::LANES; ++lane)
+        ag::k5_solve<NJ>(lane, C, xn, un, fs(lane), S.data());
+      for (int lane = 0; lane < K::LANES; ++lane)
+        ag::k5_tangent<NJ>(lane, C, xn, dt[n], S.data(), fs(lane), xo.data(),
+                           fx.data(), fu.data());
+    }
+    std::copy(xo.begin(), xo.end(), xnext + n * NX);
+    std::copy(fx.begin(), fx.end(), Fx + n * NX * NX);
+    std::copy(fu.begin(), fu.end(), Fu + n * NX * NJ);
+  }
+}
+
 }  // namespace
+
+extern "C" int ag_terminal_host(int nj, int derivs, int N, const float* x,
+                                const ag::RefTable* tab, int t, int W,
+                                const float* C, int consts_len, int n_items,
+                                float* l, float* lx, float* lxx) {
+  (void)consts_len;
+  if (tab->n < 0 || tab->n > ag::kMaxRefs) return 1;
+#define AG_HOST(NJ)                                                        \
+  if (derivs)                                                              \
+    terminal<NJ, true>(N, x, *tab, t, W, C, n_items, l, lx, lxx);          \
+  else                                                                     \
+    terminal<NJ, false>(N, x, *tab, t, W, C, n_items, l, lx, lxx);         \
+  return 0
+  if (nj == 7) { AG_HOST(7); }
+  if (nj == 2) { AG_HOST(2); }
+#undef AG_HOST
+  return 1;
+}
+
+extern "C" int ag_step_derivs_host(int nj, int lanes, int N, const float* x,
+                                   const float* u, const float* dt,
+                                   const float* C, float* xnext, float* Fx,
+                                   float* Fu) {
+  if (nj == 7) {
+    step_derivs<7>(lanes, N, x, u, dt, C, xnext, Fx, Fu);
+    return 0;
+  }
+  if (nj == 2) {
+    step_derivs<2>(lanes, N, x, u, dt, C, xnext, Fx, Fu);
+    return 0;
+  }
+  return 1;
+}
 
 extern "C" int ag_stage_host(int nj, int derivs, int N, const float* x,
                              const float* u, const float* dt,

@@ -5,11 +5,13 @@ mode; its math is held against the JAX package on the CPU by
 `test_torch_stage.py` through the plain versions). The specs are
 `chip_smoke.py`'s: the flagship goal tracking, the Pallas test spec without
 ("mixed") and with ("full") its collision item, the shipped
-collision-avoidance YAML, the visual-servoing OCP ("vs") and the
-visual-servoing + frame-velocity spec ("fv"); the inputs keep the
-collision, visual-servoing and frame-velocity terms live. The step kernels
-K5a/K5b take random Panda nodes with v and u live, with per-node and
-scalar dt. On a GPU machine:
+collision-avoidance YAML, the visual-servoing OCP ("vs"), the
+visual-servoing + frame-velocity spec ("fv") and a spec with more ref
+keys than the kernels' by-value table holds ("cap25"); the inputs keep the
+collision, visual-servoing and frame-velocity terms live. K1/K2 also take
+one dt for every node (a float, a 0-d tensor), K1-K4 the tick's ring-row
+views of the refs. The step kernels K5a/K5b take random Panda nodes with v
+and u live, with per-node and scalar dt. On a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
@@ -45,7 +47,7 @@ def panda(device):
 @pytest.mark.parametrize("N", SIZES)
 @pytest.mark.parametrize("kernel", [k[0] for k in smoke.STAGE_KERNELS])
 @pytest.mark.parametrize("spec_name", ["flagship", "mixed", "full", "yaml",
-                                       "vs", "fv"])
+                                       "vs", "fv", "cap25"])
 def test_kernel_matches_plain(device, panda, spec_name, kernel, N):
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
@@ -90,6 +92,53 @@ def test_stage_kernel_reads_tick_views(device, panda, spec_name, kernel):
     smoke.check_outputs(f"{kernel} {spec_name} tick views", got,
                         k.plain(x, u, dt, t_idx, refs),
                         smoke.STAGE_OUT if derivs else ("xnext", "l"))
+    assert all(torch.equal(a, b) for a, b in zip(got, sep))
+
+
+@pytest.mark.parametrize("dt_form", ["float", "0-d"])
+@pytest.mark.parametrize("kernel", ["K1_stage_derivs", "K2_stage_value"])
+def test_stage_kernel_scalar_dt(device, panda, kernel, dt_form):
+    """K1/K2 with one dt for every node, as a Python float or a 0-d tensor,
+    agree with the plain version and give the outputs of the [N] dt."""
+    from agimus_controller_tpu_torch.ops.cuda_costs import make_cuda_stage
+
+    model, params = panda
+    spec = smoke.SPECS["full"](100, model)
+    derivs = kernel == "K1_stage_derivs"
+    refs, x, u, _, t_idx = smoke.randomized_inputs(spec, model, 19, seed=6,
+                                                   device=device)
+    dt = 0.0125 if dt_form == "float" else torch.tensor(0.0125)
+    k = make_cuda_stage(model, params, spec, derivs, device)
+    got = k(x, u, dt, t_idx, refs)
+    per_node = k(x, u, torch.full((19,), 0.0125, device=device), t_idx, refs)
+    torch.cuda.synchronize()
+    assert k.launches == 2
+    smoke.check_outputs(f"{kernel} {dt_form} dt", got,
+                        k.plain(x, u, dt, t_idx, refs),
+                        smoke.STAGE_OUT if derivs else ("xnext", "l"))
+    assert all(torch.equal(a, b) for a, b in zip(got, per_node))
+
+
+@pytest.mark.parametrize("kernel", ["K3_terminal_derivs", "K4_terminal_value"])
+@pytest.mark.parametrize("spec_name", ["flagship", "full", "yaml", "vs", "fv",
+                                       "cap25"])
+def test_terminal_kernel_reads_tick_views(device, panda, spec_name, kernel):
+    """K3/K4 on the tick's ring-row views of the refs give the outputs of
+    the same refs held separately, and agree with the plain version."""
+    from agimus_controller_tpu_torch.ops.cuda_costs import make_cuda_terminal
+
+    model, params = panda
+    spec = smoke.SPECS[spec_name](100, model)
+    derivs = kernel == "K3_terminal_derivs"
+    refs, x, _, _, _ = smoke.randomized_inputs(spec, model, 3, seed=8,
+                                               device=device)
+    views = smoke.tick_views(spec, model, refs)
+    k = make_cuda_terminal(model, params, spec, derivs, device)
+    got, sep = k(x, views), k(x, refs)
+    torch.cuda.synchronize()
+    assert k.launches == 2
+    smoke.check_outputs(f"{kernel} {spec_name} tick views", got,
+                        k.plain(x, refs), ("l", "lx", "lxx"))
     assert all(torch.equal(a, b) for a, b in zip(got, sep))
 
 

@@ -229,7 +229,8 @@ def case(request, panda):
         assert np.mean((d > -0.01) & (d < 0.03)) > 0.5, d
     return dict(stage_ref=stage_ref, term_ref=term_ref, stage=stage,
                 stage_v=stage_v, term=term, term_v=term_v, rows=rows.numpy(),
-                jrows=jrows)
+                jrows=jrows, args=args, kernels=lambda derivs: (
+                    cuda_costs.make_cuda_stage(jm, p, ps, derivs, **cpu)))
 
 
 def _tol(name):
@@ -259,6 +260,22 @@ def test_terminal_derivs_k3(case, out):
 def test_terminal_value_k4(case):
     np.testing.assert_allclose(case["term_v"].numpy(), case["term_ref"]["l"],
                                atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("dt_form", ["float", "0-d"])
+def test_stage_scalar_dt(case, dt_form):
+    """One dt for every node (each spec's steps are uniform), as a Python
+    float or a 0-d tensor, broadcast as the Pallas kernels broadcast it:
+    K1/K2 give the outputs of the [N] dt, held against the Pallas body."""
+    x, u, dts, t_idx, trefs = case["args"]
+    assert bool((dts == dts[0]).all())
+    dt = float(dts[0]) if dt_form == "float" else dts[0].clone()
+    for derivs, outs in ((True, STAGE_OUT), (False, ("xnext", "l"))):
+        got = case["kernels"](derivs)(x, u, dt, t_idx, trefs)
+        for out, g in zip(outs, got):
+            atol, rtol = _tol(out)
+            np.testing.assert_allclose(g.numpy(), case["stage_ref"][out],
+                                       atol=atol, rtol=rtol)
 
 
 def test_gathered_rows_match_jax(case):

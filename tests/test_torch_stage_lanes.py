@@ -1,17 +1,21 @@
-"""The stage kernels' per-lane programs on the CPU, against the plain
-versions, f32.
+"""The stage and terminal kernels' per-lane programs on the CPU, against
+the plain versions, f32.
 
-K1 splits a node across LANES lanes (phases separated by warp barriers) and
-K2 splits it across two warps (`csrc/stage_kernels.cu`); their per-lane
-steps are host/device functions of `csrc/stage_kernels.cuh`. This test
-builds them with g++ into a host library (`tests/stage_lanes_harness.cpp`,
-which runs each phase lane by lane and K2's two warps one after the other),
-feeds it the wrapper's own source table (`cuda_costs.ref_table`) and packed
-constants, and holds every output against `StageKernel.plain` at
-`chip_smoke.TOL`, on chip_smoke's flagship, `full`, `yaml`, `vs` and `fv`
-specs at N = 19 (ragged against the kernels' 8 and 32 nodes per block),
-with the refs as `default_references` holds them and as the tick's ring-row
-views; and on the 2-DoF arm (4 lanes per node). Skips only without g++.
+K1 splits a node across LANES lanes (phases separated by warp barriers),
+K2 across two warps (`csrc/stage_kernels.cu`), and K3/K4 run a node on a
+warp that gathers its ref row (`csrc/terminal_kernels.cu`; K4 one cost
+item a lane); their per-lane steps are host/device functions of
+`csrc/stage_kernels.cuh`. This test builds them with g++ into a host
+library (`tests/stage_lanes_harness.cpp`, which runs each phase lane by
+lane and K2's two warps one after the other), feeds it the wrapper's own
+source table (`RefPlan.table`), dt (`dt_per_node`) and packed constants,
+and holds every output against `StageKernel.plain` / `TerminalKernel.plain`
+at `chip_smoke.TOL`, on chip_smoke's flagship, `full`, `yaml`, `vs`, `fv`
+and `cap25` (more ref keys than the by-value table holds) specs at N = 19
+(ragged against the kernels' 8 and 32 nodes per block), with the refs as
+`default_references` holds them and as the tick's ring-row views; K1/K2
+with one dt for every node, as a float and as a 0-d tensor; and on the
+2-DoF arm (4 lanes per node). Skips only without g++.
 """
 
 import ctypes
@@ -32,12 +36,13 @@ from agimus_controller_tpu_torch.ocp.spec import (
     default_references,
 )
 from agimus_controller_tpu_torch.ops import cuda_costs
+from agimus_controller_tpu_torch.ops.cuda_dynamics import dt_per_node
 from tests.test_ring_control_loop import URDF_2DOF
 
 ROOT = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
 N = 19
-SPECS = ("flagship", "full", "yaml", "vs", "fv")
+SPECS = ("flagship", "full", "yaml", "vs", "fv", "cap25")
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +59,11 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ag_stage_host.argtypes = [i, i, i, p, p, p, p, p, i, p, i, i] + [p] * 9
-    lib.ag_stage_host.restype = i
+    lib.ag_terminal_host.argtypes = [i, i, i, p, p, i, i, p, i, i, p, p, p]
+    lib.ag_step_derivs_host.argtypes = [i, i, i, p, p, p, p, p, p, p]
+    for fn in (lib.ag_stage_host, lib.ag_terminal_host,
+               lib.ag_step_derivs_host):
+        fn.restype = i
     return lib
 
 
@@ -68,10 +77,10 @@ def run_host(lib, k, x, u, dt, t_idx, refs):
     """The wrapper's launch, through the host harness."""
     nj, n = k.nj, x.shape[0]
     nx = 2 * nj
-    tab, keep = cuda_costs.ref_table(
-        k.layout, cuda_costs.with_geom_defaults(k.layout, refs, k.params), CPU)
+    tab, keep = k.plan.table(refs, CPU)
     consts = torch.as_tensor(cuda_costs._pack_constants(
         k.model, k.params, k.items, k.offsets))
+    dt = dt_per_node(dt, x)
     new = lambda *s: torch.full((n,) + s, float("nan"))
     if k.derivs:
         outs = (new(nx), new(nx, nx), new(nx, nj), new(), new(nx), new(nj),
@@ -85,6 +94,24 @@ def run_host(lib, k, x, u, dt, t_idx, refs):
         nj, int(k.derivs), n, x.data_ptr(), u.data_ptr(), dt.data_ptr(),
         t_idx.data_ptr(), ctypes.addressof(tab), k.width, consts.data_ptr(),
         consts.numel(), len(k.items), *ptrs)
+    assert err == 0
+    del keep
+    return outs
+
+
+def run_terminal_host(lib, k, x, refs):
+    """The terminal wrapper's launch, through the host harness."""
+    n, nx = x.shape[0], 2 * k.nj
+    tab, keep = k.plan.table(refs, CPU)
+    consts = torch.as_tensor(cuda_costs._pack_constants(
+        k.model, k.params, k.items, k.offsets))
+    outs = tuple(torch.full((n,) + s, float("nan"))
+                 for s in ((), (nx,), (nx, nx))[:3 if k.derivs else 1])
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    err = lib.ag_terminal_host(
+        k.nj, int(k.derivs), n, x.data_ptr(), ctypes.addressof(tab),
+        k.horizon, k.width, consts.data_ptr(), consts.numel(), len(k.items),
+        *ptrs)
     assert err == 0
     del keep
     return outs
@@ -139,7 +166,41 @@ def test_lanes_match_plain_2dof(host_lib, derivs):
     t_idx = torch.as_tensor(rng.integers(0, T, size=N))
     dt = f(rng.uniform(0.005, 0.03, N))
     k = cuda_costs.make_cuda_stage(model, params, spec, derivs, CPU)
-    assert cuda_costs.ref_table(k.layout, refs, CPU)[0].n == len(k.layout)
+    assert k.plan.table(refs, CPU)[0].n == len(k.layout)
     got = run_host(host_lib, k, x, u, dt, t_idx, refs)
     check(f"{'K1' if derivs else 'K2'} 2-DoF", got,
           k.plain(x, u, dt, t_idx, refs), derivs)
+
+
+@pytest.mark.parametrize("dt_kind", ["float", "0-d"])
+@pytest.mark.parametrize("derivs", [True, False], ids=["K1", "K2"])
+def test_lanes_scalar_dt(host_lib, panda, derivs, dt_kind):
+    """One dt for every node, as a Python float or a 0-d tensor: the
+    wrapper broadcasts it (`dt_per_node`) and the plain version agrees."""
+    model, params = panda
+    spec = smoke.SPECS["flagship"](100, model)
+    refs, x, u, _, t_idx = smoke.randomized_inputs(spec, model, N, seed=5,
+                                                   device=CPU)
+    dt = 0.0125 if dt_kind == "float" else torch.tensor(0.0125)
+    k = cuda_costs.make_cuda_stage(model, params, spec, derivs, CPU)
+    got = run_host(host_lib, k, x, u, dt, t_idx, refs)
+    check(f"{'K1' if derivs else 'K2'} {dt_kind} dt", got,
+          k.plain(x, u, dt, t_idx, refs), derivs)
+
+
+@pytest.mark.parametrize("view", ["refs", "tick"])
+@pytest.mark.parametrize("derivs", [True, False], ids=["K3", "K4"])
+@pytest.mark.parametrize("spec_name", SPECS)
+def test_terminal_lanes_match_plain(host_lib, panda, spec_name, derivs, view):
+    """K3/K4: the warp's gather of the horizon's ref row through the source
+    table, then K3's one-lane body or K4's item values one per lane."""
+    model, params = panda
+    spec = smoke.SPECS[spec_name](100, model)
+    refs, x, _, _, _ = smoke.randomized_inputs(spec, model, 5, seed=4,
+                                               device=CPU)
+    if view == "tick":
+        refs = smoke.tick_views(spec, model, refs)
+    k = cuda_costs.make_cuda_terminal(model, params, spec, derivs, CPU)
+    smoke.check_outputs(f"{'K3' if derivs else 'K4'} {spec_name} {view}",
+                        run_terminal_host(host_lib, k, x, refs),
+                        k.plain(x, refs), ("l", "lx", "lxx"))

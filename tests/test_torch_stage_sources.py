@@ -1,15 +1,17 @@
 """The stage kernels' in-kernel ref gather, emulated on the CPU.
 
 K1/K2 read node n's ref row from the wrapper's source table
-(`cuda_costs.ref_table`): columns [off, off + ncomp) of a key are
+(`cuda_costs.RefPlan.table`): columns [off, off + ncomp) of a key are
 src[(per_node ? t_idx[n] : row) * stride + i], a null src reads 0. This
 test reads the table's memory exactly so, in Python, and holds the result
 equal (bit for bit) to `gather_node_refs`, the plain versions' gather, on
 chip_smoke's five checked specs for refs made by `refs_from_numpy` and for
 the tick's ring-row views (`RowLayout.unpack_refs`); checks that float32
 refs with contiguous rows are read in place (no torch op), that a float64
-or strided ref is converted and still gives the same rows, and that a
-layout over the table's cap raises.
+or strided ref is converted and still gives the same rows, that a layout
+over the table's cap (`chip_smoke.cap_spec`) is read from the rows
+gathered once per call, and that the terminal kernels K3/K4 read the
+horizon's row.
 """
 
 import ctypes
@@ -57,8 +59,7 @@ def expected_rows(k, refs, t_idx):
 
 
 def table(k, refs):
-    return cuda_costs.ref_table(
-        k.layout, cuda_costs.with_geom_defaults(k.layout, refs, k.params), CPU)
+    return k.plan.table(refs, CPU)
 
 
 def inputs(spec_name, model):
@@ -131,12 +132,37 @@ def test_converted_refs_give_the_same_rows(panda, change):
     assert torch.equal(emulate_reads(tab, t_idx, k.width), want)
 
 
-def test_layout_over_the_cap_raises():
-    layout = [(f"ee_trans:f{i}", 3, True)
-              for i in range(cuda_costs.MAX_REFS + 1)]
-    with pytest.raises(NotImplementedError, match="MAX_REFS"):
-        cuda_costs.ref_table(layout, {}, CPU)
-    tab, keep = cuda_costs.ref_table(layout[:-1], {}, CPU)
-    assert tab.n == cuda_costs.MAX_REFS and keep == []
-    rows = emulate_reads(tab, torch.arange(3), 3 * cuda_costs.MAX_REFS)
-    assert torch.equal(rows, torch.zeros_like(rows))
+@pytest.mark.parametrize("view", ["numpy", "tick"])
+def test_layout_over_the_cap_reads_gathered_rows(panda, view):
+    """A layout of more than MAX_REFS keys (`chip_smoke.cap_spec`: 25
+    running keys) is handed over as one per-node key holding the rows of
+    every node time, which the kernels read as the plain gather."""
+    model, params = panda
+    spec, refs, t_idx = inputs("cap25", model)
+    if view == "tick":
+        refs = smoke.tick_views(spec, model, refs)
+    k = cuda_costs.make_cuda_stage(model, params, spec, True, CPU)
+    assert len(k.layout) == cuda_costs.MAX_REFS + 1
+    tab, keep = k.plan.table(refs, CPU)
+    assert tab.n == 1 and tab.e[0].per_node == 1
+    assert tab.e[0].ncomp == tab.e[0].stride == k.width
+    assert keep[0].shape == (spec.horizon + 1, k.width)
+    assert torch.equal(emulate_reads(tab, t_idx, k.width),
+                       expected_rows(k, refs, t_idx))
+
+
+@pytest.mark.parametrize("spec_name", SPECS + ("cap25",))
+def test_terminal_reads_equal_gather(panda, spec_name):
+    """K3/K4 read the row of the horizon through the same table (the
+    terminal model's layout: 26 keys on `cap25`)."""
+    model, params = panda
+    spec, refs, _ = inputs(spec_name, model)
+    refs = smoke.tick_views(spec, model, refs)
+    k = cuda_costs.make_cuda_terminal(model, params, spec, True, CPU)
+    t_idx = torch.full((3,), spec.horizon)
+    tab, keep = k.plan.table(refs, CPU)
+    over = len(k.layout) > cuda_costs.MAX_REFS
+    assert over == (spec_name == "cap25")
+    assert tab.n == (1 if over else len(k.layout))
+    assert torch.equal(emulate_reads(tab, t_idx, k.width),
+                       expected_rows(k, refs, t_idx))
