@@ -8,13 +8,6 @@ namespace ag {
 
 constexpr int kBlock = 128;  // threads per block
 
-// Copies the packed constants into the block's shared memory.
-__device__ inline void load_constants(float* C, const float* consts,
-                                      int len) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x) C[i] = consts[i];
-  __syncthreads();
-}
-
 // n floats rounded up to 16 bytes, so the shared-memory region after them
 // starts aligned.
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }

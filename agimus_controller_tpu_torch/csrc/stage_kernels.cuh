@@ -2,12 +2,14 @@
 // and of the dynamics-step kernels K5a/K5b (step_kernels.cu).
 //
 // The semi-implicit Euler step with Fx/Fu of one node (`dynamics_node`,
-// K5a and K2), the Gauss-Newton pack of every cost item of the descriptor
-// table (`node_costs`, K2-K4), K1's per-lane phases of the same (`k1_*`: a
-// node's tangent passes split over the lanes of a warp slice), K5b's
-// (`k5_*`: the step's primal shared by the lanes, its tangents one a lane)
-// and K4's (one cost item a lane). The same math, in plain PyTorch
-// component form, is
+// K2's step and the one-thread reference of K5a/K5b), the Gauss-Newton pack
+// of every cost item of the descriptor table (`node_costs`, K2 and K4; with
+// derivatives `terminal_node`, K3's one-thread reference), K1's per-lane
+// phases of the same (`k1_*`: a node's tangent passes split over the lanes
+// of a warp slice; K3 runs them at u = 0 through `k3_load` / `k3_store`),
+// K5a's and K5b's (`k5_*`: the step's primal shared by the lanes, the
+// mass-matrix columns and K5b's tangents one a lane) and K4's (one cost
+// item a lane). The same math, in plain PyTorch component form, is
 // `ops/cuda_dynamics.py::dynamics_terms` and
 // `ops/cuda_costs.py::_item_terms_c`.
 //
@@ -84,9 +86,10 @@ constexpr int K_STATE = 0, K_CONTROL = 1, K_CONTROL_GRAV = 2,
 constexpr int V_WORLD = 0, V_LOCAL = 1, V_LOCAL_WORLD_ALIGNED = 2;
 constexpr int A_WEIGHTED_QUAD = 0, A_EXP = 1, A_QUAD_EXP = 2;
 
-// Lanes that run one node of K1 / K5b: the power of two >= 2 NJ = nx.
-constexpr int node_lanes(int nx) {
-  return nx <= 2 ? 2 : nx <= 4 ? 4 : nx <= 8 ? 8 : nx <= 16 ? 16 : 32;
+// Lanes that run one node: the power of two >= n (K1, K3 and K5b: n = 2 NJ
+// = nx; K5a: n = NJ + 1).
+constexpr int node_lanes(int n) {
+  return n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;
 }
 
 // ---- forward-mode dual number ---------------------------------------------
@@ -883,13 +886,13 @@ AG_FN void node_costs(const float* C, int n_items, const float* row,
                                  lxu, luu);
 }
 
-// ---- the dynamics of one node on one thread (K5a, K2) -----------------------
+// ---- the dynamics of one node on one thread (K2) ---------------------------
 // Semi-implicit Euler step at (q, v, u, dt = h): joint transforms, RNEA bias,
 // mass matrix, Cholesky, x+ into xo [NX]; when DERIVS also Fx into fx
 // [NX*NX] and Fu into fu [NX*NJ] (row-major): 2 NJ dual-number RNEA passes
-// and the M^-1 columns (K5b's one-thread body before the `k5_*` phases;
-// the host harness holds those against it). The joint transforms at q are
-// left in R, P for the caller's cost items. The Pallas body is
+// and the M^-1 columns (K5a's and K5b's one-thread body before the `k5_*`
+// phases; the host harness holds those against it). The joint transforms
+// at q are left in R, P for the caller's cost items. The Pallas body is
 // `pallas_dynamics.py::dynamics_terms`.
 template <int NJ, bool DERIVS>
 AG_FN void dynamics_node(const float* C, const float* q, const float* v,
@@ -1014,8 +1017,9 @@ AG_HD int k5_parent(const float* C, int i) {
 
 // The bias b = rnea(q, v, 0) (the operations of `rnea`) into the scratch,
 // with each joint's velocity values w, v, hf, hn, which do not depend on
-// the acceleration, into the joint table.
-template <int NJ, bool CHAIN>
+// the acceleration, into the joint table when VALUES (K5b's tangents read
+// them; K5a's scratch ends before the table).
+template <int NJ, bool CHAIN, bool VALUES>
 AG_FN void k5_bias(const float* C, const float* xn, const ForceSlots& fs,
                    float* S) {
   typedef K5Shape<NJ> K;
@@ -1059,8 +1063,10 @@ AG_FN void k5_bias(const float* C, const float* xn, const ForceSlots& fs,
     V3<float> f_n = matvec(I, wai) + cross(c, f_l);
     fs.set(i, 0, f_n + (cross(wi, hn) + cross(vi, hf)));
     fs.set(i, 1, f_l + cross(wi, hf));
-    V3<float>* jv = Jv + i * K::JV;
-    jv[JW] = wi; jv[JVL] = vi; jv[JHF] = hf; jv[JHN] = hn;
+    if (VALUES) {
+      V3<float>* jv = Jv + i * K::JV;
+      jv[JW] = wi; jv[JVL] = vi; jv[JHF] = hf; jv[JHN] = hn;
+    }
   }
   AG_UNROLL
   for (int i = NJ - 1; i >= 0; --i) {
@@ -1140,7 +1146,8 @@ AG_FN void k5_primal(const float* C, const float* xn, const float* a,
   }
 }
 
-template <int NJ>
+// VALUES as `k5_bias`: K5b keeps the velocity values, K5a does not.
+template <int NJ, bool VALUES = true>
 AG_FN void k5_mass_bias(int lane, const float* C, const float* xn,
                         const ForceSlots& fs, float* S) {
   typedef K5Shape<NJ> K;
@@ -1153,9 +1160,9 @@ AG_FN void k5_mass_bias(int lane, const float* C, const float* xn,
       mass_matrix_column<NJ>(C, R, P, lane, S + K::S_M);
   } else if (lane == NJ) {
     if (is_chain<NJ>(C))
-      k5_bias<NJ, true>(C, xn, fs, S);
+      k5_bias<NJ, true, VALUES>(C, xn, fs, S);
     else
-      k5_bias<NJ, false>(C, xn, fs, S);
+      k5_bias<NJ, false, VALUES>(C, xn, fs, S);
   }
 }
 
@@ -1322,6 +1329,39 @@ AG_FN void k5_tangent(int lane, const float* C, const float* xn, float h,
       fu[i * NJ + k] = h2 * mcol[i];
       fu[(NJ + i) * NJ + k] = h * mcol[i];
     }
+  }
+}
+
+// ---- K5a: the primal step of one node across NJ + 1 lanes -----------------
+// LANES = the power of two >= NJ + 1 lanes run one node (8 for the Panda,
+// 4 for the 2-DoF arm), in K5b's first two phases and a finish of its own,
+// with a warp barrier between them:
+//   k5_place            lane i < NJ joint i's placement at q_i;
+//   k5_mass_bias<NJ, false>  lane j < NJ column j of the mass matrix,
+//                       lane NJ the bias rnea(q, v, 0);
+//   k5a_finish          lane 0 the Cholesky factor, a = M^-1 (u - b) and
+//                       x+ (K5b's `k5_solve` also keeps L, a and the
+//                       forces of rnea(q, v, a) for its tangents; K5a needs
+//                       none of them).
+// The scratch holds what these phases read: the placements, M and b.
+template <int NJ> struct K5aShape {
+  static constexpr int LANES = node_lanes(NJ + 1);
+  static constexpr int SIZE = K5Shape<NJ>::S_A;  // R, P, M, b
+};
+
+template <int NJ>
+AG_FN void k5a_finish(int lane, const float* xn, const float* un, float h,
+                      const float* S, float* xo) {
+  typedef K5Shape<NJ> K;
+  if (lane != 0) return;
+  float L[NJ * NJ], rhs[NJ], a[NJ];
+  chol_factor<NJ>(S + K::S_M, L);
+  for (int i = 0; i < NJ; ++i) rhs[i] = un[i] - S[K::S_B + i];
+  chol_solve<NJ>(L, rhs, a);
+  for (int i = 0; i < NJ; ++i) {  // semi-implicit Euler
+    const float vn = xn[NJ + i] + h * a[i];
+    xo[NJ + i] = vn;
+    xo[i] = xn[i] + h * vn;
   }
 }
 
@@ -1697,6 +1737,44 @@ AG_FN void k1_store(int lane, const float* S, const K1Lane<NJ>& st,
   }
 }
 
+// ---- K3: the terminal node on K1's lanes ------------------------------------
+// The terminal cost items at u = 0 with no dt scale, on LANES = the power of
+// two >= 2 NJ lanes and K1's node scratch (its Fx/Fu region unused):
+//   k3_load   the horizon's ref row, x and u = 0 into the scratch, and the
+//             lane's sums cleared;
+//   per cost item, in the table's order, `k1_item_tangent` (lane k tangent
+//   k) and `k1_item_accumulate` (each lane its owned entries);
+//   k3_store  l, lx and lxx, each once, at consecutive addresses across the
+//             lanes; the owned lu, lxu, luu entries are dropped, as
+//             `terminal_node` drops them.
+template <int NJ, int LANES>
+AG_FN void k3_load(int lane, const RefTable& tab, long long t,
+                   const float* xn, float* S, K1Lane<NJ>& st) {
+  typedef K1Shape<NJ> K;
+  gather_row<K::GATHER>(tab, t, lane, LANES, S + K::S_ROW);
+  for (int i = lane; i < K::NX; i += LANES) S[K::S_X + i] = xn[i];
+  for (int i = lane; i < NJ; i += LANES) S[K::S_U + i] = 0.f;
+  st.h = 1.f;  // the terminal model's costs are not dt-scaled
+  st.l = 0.f;
+  for (int j = 0; j < K::OWN; ++j) st.acc[j] = 0.f;
+}
+
+template <int NJ, int LANES>
+AG_FN void k3_store(int lane, const K1Lane<NJ>& st, long long n, float* l,
+                    float* lx, float* lxx) {
+  typedef K1Shape<NJ> K;
+  constexpr int NX = K::NX;
+  if (lane == 0) l[n] = st.l;
+  AG_UNROLL
+  for (int j = 0; j < K::OWN; ++j) {
+    const int e = lane + j * LANES;  // of lx | lu | lxx | lxu | luu
+    if (e < NX)
+      lx[n * NX + e] = st.acc[j];
+    else if (e >= NX + NJ && e < NX + NJ + NX * NX)
+      lxx[n * NX * NX + e - NX - NJ] = st.acc[j];
+  }
+}
+
 // ---- K2: the step and the cost items of one node, on two warps -------------
 // Inputs node-major, x [NX], u [NJ], dt, the gathered ref row; the step
 // writes x+ into xo [NX], the costs return the dt-scaled l.
@@ -1733,8 +1811,9 @@ AG_FN float k2_costs(const float* C, int n_items, const float* row,
 }
 
 // ---- one node of K3 / K4 ---------------------------------------------------
-// K3: the terminal cost items at u = 0, no dt scale, of the node's state xn
-// [NX] and ref row: its l, lx [NX] and lxx [NX*NX].
+// The terminal cost items at u = 0, no dt scale, of the node's state xn
+// [NX] and ref row: its l, lx [NX] and lxx [NX*NX], on one thread (K3's
+// body before the `k3_*` phases; the host harness holds those against it).
 template <int NJ>
 AG_FN void terminal_node(const float* xn, const float* row, const float* C,
                          int n_items, float* l, float* lx, float* lxx) {

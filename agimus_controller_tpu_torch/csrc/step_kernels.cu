@@ -8,11 +8,19 @@
 // and outputs stay node-major, as the callers hold them (the Pallas kernel
 // pads to 1024-node blocks in a component-major [c, R, 128] layout).
 //
-// K5a: one thread per node over a 1-D grid (`ag::dynamics_node`, which the
-// stage kernel K2 also runs), the ragged edge masked, the packed model
-// constants (`ops/cuda_dynamics.py::_pack_model`, ~230 floats) in shared
-// memory. Latency-bound at the batch FDDP's rollout shape (N = B = 4096
-// nodes, one launch per time step).
+// K5a: one node on LANES = 8 lanes (the power of two >= NJ + 1; 16 Panda
+// nodes per 128-thread block, 4 lanes and 32 nodes for the 2-DoF arm), in
+// K5b's first two phases and a finish of its own (`ag::k5_place`,
+// `k5_mass_bias`, `k5a_finish` of stage_kernels.cuh), with a warp barrier
+// between them: the joint placements one per lane; the mass-matrix columns
+// one per lane beside the bias rnea(q, v, 0) on lane NJ; on lane 0 the
+// Cholesky factor, a = M^-1 (u - b) and x+, into shared memory, which the
+// block stores at consecutive addresses. A node's chain is one placement,
+// the bias RNEA and the factor and solve, where the one-thread design
+// (`ag::dynamics_node`, which K2 still runs) also ran the NJ column passes
+// in sequence. What bounds it: latency. The batch FDDP's rollout launches
+// it once per time step at N = B = 4096 nodes: 256 blocks, a few
+// microseconds of arithmetic (PERF.md has the numbers).
 //
 // K5b: one node on LANES = 16 lanes (the power of two >= 2 NJ; 8 Panda
 // nodes per 128-thread block), in the phases `ag::k5_*` of
@@ -47,25 +55,55 @@ using ag::copy_out;
 using ag::kBlock;
 using ag::round4;
 
+// K5a's shared memory (floats): the constants, then per block the inputs
+// X [NPB, NX], U [NPB, NJ], H [NPB], the output XO [NPB, NX], the node
+// scratch W [NPB, K5aShape::SIZE] and the threads' force slots
+// DF [6 NJ, kBlock] (`ag::ForceSlots`, thread-minor); each region starts
+// 16-byte aligned.
+template <int NJ> struct K5aBlock {
+  typedef ag::K5aShape<NJ> K;
+  static constexpr int NX = 2 * NJ, NPB = kBlock / K::LANES;
+  static constexpr int X = 0, U = X + round4(NPB * NX),
+                       H = U + round4(NPB * NJ), XO = H + round4(NPB),
+                       W = XO + round4(NPB * NX),
+                       DF = W + round4(NPB * K::SIZE),
+                       SIZE = DF + 6 * NJ * kBlock;
+};
+
 template <int NJ>
-__global__ void step_kernel(int N, const float* x, const float* u,
-                            const float* dt, const float* consts,
-                            int consts_len, float* xnext) {
-  extern __shared__ float C[];
-  ag::load_constants(C, consts, consts_len);
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  constexpr int NX = 2 * NJ;
-  float q[NJ], v[NJ], un[NJ];
-  for (int i = 0; i < NJ; ++i) {
-    q[i] = x[(long)n * NX + i];
-    v[i] = x[(long)n * NX + NJ + i];
-    un[i] = u[(long)n * NJ + i];
+__global__ void __launch_bounds__(kBlock)
+step_kernel(int N, const float* __restrict__ x, const float* __restrict__ u,
+            const float* __restrict__ dt, const float* consts, int consts_len,
+            float* xnext) {
+  typedef ag::K5aShape<NJ> K;
+  typedef K5aBlock<NJ> B;
+  constexpr int NX = B::NX, LANES = K::LANES, NPB = B::NPB;
+  extern __shared__ float4 sm4[];
+  float* C = reinterpret_cast<float*>(sm4);
+  float* sb = C + round4(consts_len);
+  const long long n0 = (long long)blockIdx.x * NPB;
+  const int nb = N - n0 < NPB ? (int)(N - n0) : NPB;
+  const int tid = threadIdx.x;
+  copy_in<8>(C, consts, consts_len, tid, kBlock);
+  copy_in<1>(sb + B::X, x + n0 * NX, nb * NX, tid, kBlock);
+  copy_in<1>(sb + B::U, u + n0 * NJ, nb * NJ, tid, kBlock);
+  copy_in<1>(sb + B::H, dt + n0, nb, tid, kBlock);
+  __syncthreads();
+  const int node = tid / LANES, lane = tid % LANES;
+  if (node < nb) {  // whole nodes only: a node's lanes run together
+    const unsigned mask = ((1u << LANES) - 1u) << ((tid % 32) / LANES * LANES);
+    const float* xn = sb + B::X + node * NX;
+    float* S = sb + B::W + node * K::SIZE;
+    const ag::ForceSlots fs{sb + B::DF + tid, kBlock};
+    ag::k5_place<NJ>(lane, C, xn, S);
+    __syncwarp(mask);
+    ag::k5_mass_bias<NJ, false>(lane, C, xn, fs, S);
+    __syncwarp(mask);
+    ag::k5a_finish<NJ>(lane, xn, sb + B::U + node * NJ, sb[B::H + node], S,
+                       sb + B::XO + node * NX);
   }
-  ag::M3<float> R[NJ];
-  ag::V3<float> P[NJ];
-  ag::dynamics_node<NJ, false>(C, q, v, un, dt[n], R, P, xnext + (long)n * NX,
-                               nullptr, nullptr);
+  __syncthreads();
+  copy_out(xnext + n0 * NX, sb + B::XO, nb * NX, tid, kBlock);
 }
 
 // K5b's blocks per SM: the register cap (128) that lets four stay resident
@@ -136,27 +174,54 @@ step_derivs_kernel(int N, const float* __restrict__ x,
   copy_out(xnext + n0 * NX, sb + B::XO, nb * NX, tid, kBlock);
 }
 
+// The kernel of `derivs` and its block's shared memory in bytes.
+template <int NJ>
+void kernel_of(bool derivs, int consts_len, const void** fn, size_t* smem) {
+  *fn = derivs ? (const void*)step_derivs_kernel<NJ>
+               : (const void*)step_kernel<NJ>;
+  *smem = sizeof(float) * ((size_t)round4(consts_len) +
+                           (derivs ? K5Block<NJ>::SIZE : K5aBlock<NJ>::SIZE));
+}
+
 template <int NJ>
 cudaError_t launch(bool derivs, int N, const float* x, const float* u,
                    const float* dt, const float* consts, int consts_len,
                    float* xnext, float* Fx, float* Fu, cudaStream_t s) {
-  if (!derivs) {
-    step_kernel<NJ><<<(N + kBlock - 1) / kBlock, kBlock,
-                      (size_t)consts_len * sizeof(float), s>>>(
-        N, x, u, dt, consts, consts_len, xnext);
-    return cudaGetLastError();
-  }
-  typedef K5Block<NJ> B;
-  const size_t smem = sizeof(float) * ((size_t)round4(consts_len) + B::SIZE);
+  const void* fn;
+  size_t smem;
+  kernel_of<NJ>(derivs, consts_len, &fn, &smem);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        step_derivs_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  step_derivs_kernel<NJ><<<(N + B::NPB - 1) / B::NPB, kBlock, smem, s>>>(
-      N, x, u, dt, consts, consts_len, xnext, Fx, Fu);
+  if (!derivs) {
+    step_kernel<NJ><<<(N + K5aBlock<NJ>::NPB - 1) / K5aBlock<NJ>::NPB,
+                      kBlock, smem, s>>>(N, x, u, dt, consts, consts_len,
+                                         xnext);
+  } else {
+    step_derivs_kernel<NJ><<<(N + K5Block<NJ>::NPB - 1) / K5Block<NJ>::NPB,
+                             kBlock, smem, s>>>(N, x, u, dt, consts,
+                                                consts_len, xnext, Fx, Fu);
+  }
   return cudaGetLastError();
+}
+
+// Blocks of the kernel of `derivs` resident per SM (the occupancy calculator).
+template <int NJ>
+int blocks_per_sm(bool derivs, int consts_len) {
+  const void* fn;
+  size_t smem;
+  kernel_of<NJ>(derivs, consts_len, &fn, &smem);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  int n = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kBlock, smem) !=
+      cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
@@ -175,6 +240,13 @@ int ag_step(int nj, int derivs, int N, const float* x, const float* u,
     return (int)launch<2>(derivs != 0, N, x, u, dt, consts, consts_len, xnext,
                           Fx, Fu, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of ag_step's kernel resident per SM on the current device, or -1.
+int ag_step_blocks_per_sm(int nj, int derivs, int consts_len) {
+  if (nj == 7) return blocks_per_sm<7>(derivs != 0, consts_len);
+  if (nj == 2) return blocks_per_sm<2>(derivs != 0, consts_len);
+  return -1;
 }
 
 }  // extern "C"

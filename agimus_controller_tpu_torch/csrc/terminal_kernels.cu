@@ -4,19 +4,26 @@
 //   ag_terminal(derivs=1) K3  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_terminal(derivs=True)
 //   ag_terminal(derivs=0) K4  agimus_controller_tpu/ops/pallas_costs.py::make_pallas_terminal(derivs=False)
 //
-// Design. One node per warp, four per 128-thread block. As K1/K2, the
-// kernel gathers the node's references itself from the wrapper's source
-// table (`ag::RefTable`, by value) at the node time t (the horizon, the
-// same for every terminal node): the warp copies the ref row into shared
-// memory (`ag::gather_row`), so a call runs no torch op on the refs. K4
-// splits the cost items over the lanes, one item a lane
-// (`ag::terminal_item_values`), and lane 0 sums their values in the
-// table's order; K3 runs the one-thread body `ag::terminal_node` on lane 0
-// over the shared row.
+// Design. As K1/K2, the kernels gather the node's references themselves
+// from the wrapper's source table (`ag::RefTable`, by value) at the node
+// time t (the horizon, the same for every terminal node): the node's lanes
+// copy the ref row into shared memory (`ag::gather_row`), so a call runs
+// no torch op on the refs.
+//   K3: one node on LANES = 16 lanes (the power of two >= 2 NJ; 8 Panda
+//   nodes per 128-thread block), K1's cost-item phases at u = 0 and no dt
+//   scale: per item, lane k its tangent k of the item's residual into the
+//   node's scratch (`ag::k1_item_tangent`), then each lane sums the
+//   Gauss-Newton terms of the output entries it owns
+//   (`ag::k1_item_accumulate`); `ag::k3_store` writes l, lx and lxx once,
+//   at consecutive addresses. A node's chain is one dual pass per item,
+//   where the one-thread body (`ag::terminal_node`) ran one per tangent
+//   (7 for a frame item, 14 for a frame-velocity item).
+//   K4: one node per warp, four per 128-thread block; the cost items one
+//   a lane (`ag::terminal_item_values`), lane 0 sums their values in the
+//   table's order.
 //
-// What bounds it on this card: latency. The tick calls it at one node, a
-// few microseconds of work; before this design the wrapper's torch-side
-// gather of the ref row set its time (PERF.md has both).
+// What bounds them on this card: latency. The tick calls them at one node,
+// a few microseconds of work (PERF.md has the numbers).
 //
 // Launch discipline as stage_kernels.cu: the caller's stream, no
 // synchronisation, no allocation, cudaGetLastError() returned.
@@ -31,21 +38,63 @@ namespace {
 using ag::copy_in;
 using ag::round4;
 
-constexpr int kTermNodes = 4;  // nodes (warps) per block
+using ag::kBlock;
 
-// Shared memory (floats): the constants, then X [kTermNodes, NX], the ref
-// rows [kTermNodes, W] and K4's item values [kTermNodes, n_items].
+// K3's shared memory (floats): the constants, then the node scratch
+// [NPB, K1Shape::scratch(W)].
+template <int NJ>
+size_t k3_smem(int consts_len, int W) {
+  typedef ag::K1Shape<NJ> K;
+  return sizeof(float) * ((size_t)round4(consts_len) +
+                          (size_t)(kBlock / K::LANES) * K::scratch(W));
+}
+
+template <int NJ>
+__global__ void __launch_bounds__(kBlock)
+terminal_k3_kernel(int N, const float* __restrict__ x, const ag::RefTable tab,
+                   int t, int W, const float* consts, int consts_len,
+                   int n_items, float* l, float* lx, float* lxx) {
+  typedef ag::K1Shape<NJ> K;
+  constexpr int LANES = K::LANES, NPB = kBlock / LANES;
+  extern __shared__ float sm[];
+  __shared__ ag::RefTable stab;
+  if (threadIdx.x == 0) stab = tab;
+  copy_in<8>(sm, consts, consts_len, threadIdx.x, kBlock);
+  __syncthreads();  // the constants and stab
+  const int node = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const long long n = (long long)blockIdx.x * NPB + node;
+  if (n >= N) return;  // whole nodes only: a node's lanes leave together
+  const unsigned mask =
+      (LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1u))
+      << ((threadIdx.x % 32) / LANES * LANES);
+  float* S = sm + round4(consts_len) + node * K::scratch(W);
+  ag::K1Lane<NJ> st;
+  ag::k3_load<NJ, LANES>(lane, stab, t, x + n * K::NX, S, st);
+  __syncwarp(mask);
+  for (int it = 0; it < n_items; ++it) {
+    ag::K1Item o = ag::k1_item_tangent<NJ, LANES>(lane, sm, it, S, st);
+    __syncwarp(mask);
+    ag::k1_item_accumulate<NJ, LANES>(lane, o, S, st);
+    __syncwarp(mask);
+  }
+  ag::k3_store<NJ, LANES>(lane, st, n, l, lx, lxx);
+}
+
+constexpr int kTermNodes = 4;  // K4 nodes (warps) per block
+
+// K4's shared memory (floats): the constants, then X [kTermNodes, NX], the
+// ref rows [kTermNodes, W] and the item values [kTermNodes, n_items].
 template <int NJ>
 __host__ __device__ int term_smem(int consts_len, int W, int n_items) {
   return round4(consts_len) + round4(kTermNodes * 2 * NJ) +
          kTermNodes * (W + n_items);
 }
 
-template <int NJ, bool DERIVS>
+template <int NJ>
 __global__ void __launch_bounds__(32 * kTermNodes)
-terminal_kernel(int N, const float* __restrict__ x, const ag::RefTable tab,
-                int t, int W, const float* consts, int consts_len,
-                int n_items, float* l, float* lx, float* lxx) {
+terminal_k4_kernel(int N, const float* __restrict__ x, const ag::RefTable tab,
+                   int t, int W, const float* consts, int consts_len,
+                   int n_items, float* l) {
   constexpr int NX = 2 * NJ;
   extern __shared__ float sm[];
   __shared__ ag::RefTable stab;
@@ -65,12 +114,6 @@ terminal_kernel(int N, const float* __restrict__ x, const ag::RefTable tab,
   float* row = ROWS + warp * W;
   ag::gather_row<1>(stab, t, lane, 32, row);
   __syncwarp();
-  if (DERIVS) {
-    if (lane == 0)
-      ag::terminal_node<NJ>(xn, row, sm, n_items, l + n, lx + n * NX,
-                            lxx + n * NX * NX);
-    return;
-  }
   float* vals = VALS + warp * n_items;
   ag::terminal_item_values<NJ>(lane, xn, row, sm, n_items, vals);
   __syncwarp();
@@ -81,20 +124,30 @@ terminal_kernel(int N, const float* __restrict__ x, const ag::RefTable tab,
   }
 }
 
-template <int NJ, bool DERIVS>
-cudaError_t launch(int N, const float* x, const ag::RefTable& tab, int t,
-                   int W, const float* consts, int consts_len, int n_items,
-                   float* l, float* lx, float* lxx, cudaStream_t s) {
-  const size_t smem = sizeof(float) * term_smem<NJ>(consts_len, W, n_items);
+template <int NJ>
+cudaError_t launch(bool derivs, int N, const float* x,
+                   const ag::RefTable& tab, int t, int W, const float* consts,
+                   int consts_len, int n_items, float* l, float* lx,
+                   float* lxx, cudaStream_t s) {
+  const void* fn = derivs ? (const void*)terminal_k3_kernel<NJ>
+                          : (const void*)terminal_k4_kernel<NJ>;
+  const size_t smem =
+      derivs ? k3_smem<NJ>(consts_len, W)
+             : sizeof(float) * term_smem<NJ>(consts_len, W, n_items);
   if (smem + sizeof(ag::RefTable) > 48 * 1024) {  // with the static table
     cudaError_t e = cudaFuncSetAttribute(
-        terminal_kernel<NJ, DERIVS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  terminal_kernel<NJ, DERIVS>
-      <<<(N + kTermNodes - 1) / kTermNodes, 32 * kTermNodes, smem, s>>>(
-          N, x, tab, t, W, consts, consts_len, n_items, l, lx, lxx);
+  if (derivs) {
+    constexpr int NPB = kBlock / ag::K1Shape<NJ>::LANES;
+    terminal_k3_kernel<NJ><<<(N + NPB - 1) / NPB, kBlock, smem, s>>>(
+        N, x, tab, t, W, consts, consts_len, n_items, l, lx, lxx);
+  } else {
+    terminal_k4_kernel<NJ>
+        <<<(N + kTermNodes - 1) / kTermNodes, 32 * kTermNodes, smem, s>>>(
+            N, x, tab, t, W, consts, consts_len, n_items, l);
+  }
   return cudaGetLastError();
 }
 
@@ -112,14 +165,12 @@ int ag_terminal(int nj, int derivs, int N, const float* x,
   if (N <= 0) return 0;
   if (refs->n < 0 || refs->n > ag::kMaxRefs) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define AG_TERM(NJ, D) \
-  return (int)launch<NJ, D>(N, x, *refs, t, W, consts, consts_len, n_items, \
-                            l, lx, lxx, s)
-  if (nj == 7 && derivs) AG_TERM(7, true);
-  if (nj == 7) AG_TERM(7, false);
-  if (nj == 2 && derivs) AG_TERM(2, true);
-  if (nj == 2) AG_TERM(2, false);
-#undef AG_TERM
+  if (nj == 7)
+    return (int)launch<7>(derivs != 0, N, x, *refs, t, W, consts, consts_len,
+                          n_items, l, lx, lxx, s);
+  if (nj == 2)
+    return (int)launch<2>(derivs != 0, N, x, *refs, t, W, consts, consts_len,
+                          n_items, l, lx, lxx, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -105,6 +105,9 @@ def load_library() -> ctypes.CDLL:
     lib.ag_terminal.restype = i
     lib.ag_step.argtypes = [i, i, i, p, p, p, p, i, p, p, p, p]
     lib.ag_step.restype = i
+    # nj, derivs, consts_len -> resident blocks per SM of ag_step's kernel
+    lib.ag_step_blocks_per_sm.argtypes = [i, i, i]
+    lib.ag_step_blocks_per_sm.restype = i
     lib.ag_error_string.argtypes = [i]
     lib.ag_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,8 +9,8 @@ builds its kernels there and times, with CUDA events (median over 50
 calls, 20 at N = 409 600): K1 (`make_cuda_stage(derivs=True)`) and K2
 (`derivs=False`) on `chip_smoke.py`'s checked specs at N = 19, 100 and
 102 400; K3/K4 (`make_cuda_terminal`) on the same specs at N = 1, the
-tick's terminal node; K5a/K5b (`make_cuda_step(_derivs)`) at the batch
-path's N = 4 096 and 409 600 with per-node dt:
+tick's terminal node, and 1 024; K5a/K5b (`make_cuda_step(_derivs)`) at
+the batch path's N = 4 096 and 409 600 with per-node dt:
 
 - `wrapper_ms`: one wrapper call, as `chip_smoke.py` times it;
 - `kernel_ms`: the bare launch with the inputs, the refs and the outputs
@@ -18,13 +18,19 @@ path's N = 4 096 and 409 600 with per-node dt:
   launch as its `__call__`, with whatever it gathers on the torch side
   prepared too);
 - `host_ms`: the host-clock time of one wrapper call without a
-  synchronize (mean over 50 calls): the host's part of the call.
+  synchronize (mean over 50 calls): the host's part of the call;
+- `device_ms`: the device's time of one bare launch: 20 launches captured
+  in one CUDA graph, so that no host submission sits between them, the
+  graph replayed 10 times (median, CUDA events), per launch. `kernel_ms`
+  also holds the host's submission of its one launch.
 
 The inputs are `chip_smoke.randomized_inputs` / `step_inputs` of the
 checkout that holds this script, whatever DIR is. Prints one
-line per case and the card's name and power limit; with --out, writes the
-numbers as JSON. Run two checkouts in turns in one call to compare them
-(parent, change, change, parent).
+line per case, the card's name and power limit, the compiler's register,
+stack-frame and spill figures and, where the checkout's library reports it
+(`ag_step_blocks_per_sm`), the step kernels' resident blocks per SM; with
+--out, writes the numbers as JSON. Run two checkouts in turns in one call
+to compare them (parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 
 HERE = Path(__file__).resolve().parent.parent
 SIZES = (19, 100, 102_400)
+TERMINAL_SIZES = (1, 1024)
 STEP_SIZES = (4096, 409_600)
 
 
@@ -137,24 +144,42 @@ def step_launch(k, x, u, dt):
     return run
 
 
-def time_case(smoke, call, bare, reps):
-    """(wrapper ms, bare launch ms, host ms) of one case."""
+def graph_ms(smoke, make_bare, launches=20):
+    """Device ms of one bare launch: `launches` of them captured in one
+    CUDA graph (the launch's arguments prepared inside the capture, on its
+    stream), the graph replayed."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        bare = make_bare()
+        for _ in range(launches):
+            bare()
+    return smoke.cuda_time_ms(g.replay, reps=10) / launches
+
+
+def time_case(smoke, call, make_bare, reps):
+    """(wrapper ms, bare launch ms, host ms, device ms) of one case;
+    make_bare() returns the bare launch's callable."""
     wrapper_ms = smoke.cuda_time_ms(call, reps=reps)
-    kernel_ms = smoke.cuda_time_ms(bare, reps=reps)
+    kernel_ms = smoke.cuda_time_ms(make_bare(), reps=reps)
     torch.cuda.synchronize()
     h0 = time.perf_counter()
     for _ in range(reps):
         call()
     host_ms = (time.perf_counter() - h0) / reps * 1e3
     torch.cuda.synchronize()
-    return wrapper_ms, kernel_ms, host_ms
+    try:
+        device_ms = graph_ms(smoke, make_bare)
+    except RuntimeError as e:  # a launch this checkout cannot capture
+        print(f"  device time not measured: {e}")
+        device_ms = float("nan")
+    return wrapper_ms, kernel_ms, host_ms, device_ms
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, required=True)
     ap.add_argument("--out", type=Path)
-    ap.add_argument("--specs", default="flagship,full,yaml,vs,fv")
+    ap.add_argument("--specs", default="flagship,full,yaml,vs,fv,cap25")
     ap.add_argument("--kernels", default="stage,terminal,step")
     ap.add_argument("--tag", default="")
     a = ap.parse_args()
@@ -197,13 +222,13 @@ def main():
     out = []
 
     def record(name, spec_name, N, times):
-        wrapper_ms, kernel_ms, host_ms = times
+        wrapper_ms, kernel_ms, host_ms, device_ms = times
         print(f"[{a.tag}] {name} {spec_name:8s} N={N:6d}  wrapper "
               f"{wrapper_ms:9.4f} ms  kernel {kernel_ms:9.4f} ms  "
-              f"host {host_ms:8.4f} ms")
+              f"host {host_ms:8.4f} ms  device {device_ms:9.4f} ms")
         out.append(dict(kernel=name, spec=spec_name, N=N,
                         wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
-                        host_ms=host_ms))
+                        host_ms=host_ms, device_ms=device_ms))
 
     groups = a.kernels.split(",")
     for spec_name in a.specs.split(","):
@@ -216,22 +241,32 @@ def main():
                         spec, model, N, seed=N + derivs, device=device)
                     record("K1" if derivs else "K2", spec_name, N, time_case(
                         smoke, lambda: k(x, u, dt, t_idx, refs),
-                        stage_launch(k, x, u, dt, t_idx, refs), 50))
+                        lambda: stage_launch(k, x, u, dt, t_idx, refs), 50))
             if "terminal" in groups:
                 k = make_cuda_terminal(model, params, spec, derivs, device)
-                refs, x, _, _, _ = smoke.randomized_inputs(
-                    spec, model, 1, seed=1 + derivs, device=device)
-                record("K3" if derivs else "K4", spec_name, 1, time_case(
-                    smoke, lambda: k(x, refs), terminal_launch(k, x, refs),
-                    50))
+                for N in TERMINAL_SIZES:
+                    refs, x, _, _, _ = smoke.randomized_inputs(
+                        spec, model, N, seed=N + derivs, device=device)
+                    record("K3" if derivs else "K4", spec_name, N, time_case(
+                        smoke, lambda: k(x, refs),
+                        lambda: terminal_launch(k, x, refs), 50))
     if "step" in groups:
+        lib = _build.load_library()
         for derivs in (False, True):
             k = StepKernel(model, params, derivs, device)
+            if hasattr(lib, "ag_step_blocks_per_sm"):
+                blocks = lib.ag_step_blocks_per_sm(k.nj, int(derivs),
+                                                   k._consts.numel())
+                print(f"[{a.tag}] {'K5b' if derivs else 'K5a'} resident "
+                      f"blocks per SM: {blocks}")
+                out.append(dict(kernel="K5b" if derivs else "K5a",
+                                blocks_per_sm=blocks))
             for N in STEP_SIZES:
                 x, u, dt = smoke.step_inputs(N, N + derivs, device,
                                              "per_node")
                 record("K5b" if derivs else "K5a", "", N, time_case(
-                    smoke, lambda: k(x, u, dt), step_launch(k, x, u, dt),
+                    smoke, lambda: k(x, u, dt),
+                    lambda: step_launch(k, x, u, dt),
                     50 if N <= 4096 else 20))
     if a.out:
         a.out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,17 +1,20 @@
 // Host harness of the stage kernels K1/K2 (csrc/stage_kernels.cu), the
 // terminal kernels K3/K4 (csrc/terminal_kernels.cu) and the dynamics-step
-// kernel K5b (csrc/step_kernels.cu): runs the per-lane functions of
+// kernels K5a/K5b (csrc/step_kernels.cu): runs the per-lane functions of
 // csrc/stage_kernels.cuh as the kernels place them, one node after
-// another. K1 and K5b: each phase lane by lane, which is what the warp
-// barriers between the phases guarantee on the card; the node scratch (and
-// K5b's output scratch) starts as NaN, so a read of an entry no lane wrote
-// shows in the outputs. K2: warp 0's step, then warp 1's cost items. K3/K4:
-// the warp's gather of the ref row, then K3's lane 0, or K4's item values
-// lane by lane and their sum. Built with
+// another. K1, K3, K5a and K5b: each phase lane by lane, which is what the
+// warp barriers between the phases guarantee on the card; the node scratch
+// (and K5a's and K5b's output scratch) starts as NaN, so a read of an
+// entry no lane wrote shows in the outputs. K2: warp 0's step, then warp
+// 1's cost items. K4: the warp's gather of the ref row, then the item
+// values lane by lane and their sum. The one-thread bodies the lane
+// programs replaced (`ag::dynamics_node`, `ag::terminal_node`) run as
+// references. Built with
 //   g++ -std=c++17 -O2 -shared -fPIC -I agimus_controller_tpu_torch/csrc
 // by tests/test_torch_stage_lanes.py and test_torch_step_lanes.py and
 // called through ctypes with the arguments of `ag_stage`, `ag_terminal` and
-// `ag_step` (no stream).
+// `ag_step` (no stream; the step and the terminal one-thread body take a
+// lane-program switch).
 
 #include <algorithm>
 #include <cmath>
@@ -66,26 +69,91 @@ void k2(int N, const float* x, const float* u, const float* dt,
   }
 }
 
-template <int NJ, bool DERIVS>
-void terminal(int N, const float* x, const ag::RefTable& tab, int t, int W,
-              const float* C, int n_items, float* l, float* lx, float* lxx) {
+// K3's phases lane by lane.
+template <int NJ>
+void k3(int N, const float* x, const ag::RefTable& tab, int t, int W,
+        const float* C, int n_items, float* l, float* lx, float* lxx) {
+  typedef ag::K1Shape<NJ> K;
+  constexpr int LANES = K::LANES;
+  for (long long n = 0; n < N; ++n) {
+    std::vector<float> S(K::scratch(W), NAN);
+    ag::K1Lane<NJ> st[LANES];
+    for (int lane = 0; lane < LANES; ++lane)
+      ag::k3_load<NJ, LANES>(lane, tab, t, x + n * K::NX, S.data(),
+                             st[lane]);
+    for (int it = 0; it < n_items; ++it) {
+      ag::K1Item o[LANES];
+      for (int lane = 0; lane < LANES; ++lane)
+        o[lane] = ag::k1_item_tangent<NJ, LANES>(lane, C, it, S.data(),
+                                                 st[lane]);
+      for (int lane = 0; lane < LANES; ++lane)
+        ag::k1_item_accumulate<NJ, LANES>(lane, o[lane], S.data(), st[lane]);
+    }
+    for (int lane = 0; lane < LANES; ++lane)
+      ag::k3_store<NJ, LANES>(lane, st[lane], n, l, lx, lxx);
+  }
+}
+
+// K3's one-thread body over the gathered row.
+template <int NJ>
+void terminal_one_thread(int N, const float* x, const ag::RefTable& tab,
+                         int t, int W, const float* C, int n_items, float* l,
+                         float* lx, float* lxx) {
+  constexpr int NX = 2 * NJ;
+  std::vector<float> row(W > 0 ? W : 1, NAN);
+  for (long long n = 0; n < N; ++n) {
+    for (int lane = 0; lane < 32; ++lane)
+      ag::gather_row<1>(tab, t, lane, 32, row.data());
+    ag::terminal_node<NJ>(x + n * NX, row.data(), C, n_items, l + n,
+                          lx + n * NX, lxx + n * NX * NX);
+  }
+}
+
+template <int NJ>
+void k4(int N, const float* x, const ag::RefTable& tab, int t, int W,
+        const float* C, int n_items, float* l) {
   constexpr int NX = 2 * NJ;
   std::vector<float> row(W > 0 ? W : 1, NAN);
   std::vector<float> vals(n_items > 0 ? n_items : 1, NAN);
   for (long long n = 0; n < N; ++n) {
     for (int lane = 0; lane < 32; ++lane)
       ag::gather_row<1>(tab, t, lane, 32, row.data());
-    if (DERIVS) {
-      ag::terminal_node<NJ>(x + n * NX, row.data(), C, n_items, l + n,
-                            lx + n * NX, lxx + n * NX * NX);
-      continue;
-    }
     for (int lane = 0; lane < 32; ++lane)
       ag::terminal_item_values<NJ>(lane, x + n * NX, row.data(), C, n_items,
                                    vals.data());
     float lv = 0.f;
     for (int it = 0; it < n_items; ++it) lv += vals[it];
     l[n] = lv;
+  }
+}
+
+// K5a's phases lane by lane (lanes = 1: the one-thread body
+// `ag::dynamics_node` that K5a ran before them).
+template <int NJ>
+void step(int lanes, int N, const float* x, const float* u, const float* dt,
+          const float* C, float* xnext) {
+  typedef ag::K5aShape<NJ> K;
+  constexpr int NX = 2 * NJ;
+  for (long long n = 0; n < N; ++n) {
+    const float* xn = x + n * NX;
+    const float* un = u + n * NJ;
+    std::vector<float> S(K::SIZE, NAN), xo(NX, NAN);
+    if (lanes == 1) {
+      ag::M3<float> R[NJ];
+      ag::V3<float> P[NJ];
+      ag::dynamics_node<NJ, false>(C, xn, xn + NJ, un, dt[n], R, P,
+                                   xo.data(), nullptr, nullptr);
+    } else {
+      for (int lane = 0; lane < K::LANES; ++lane)
+        ag::k5_place<NJ>(lane, C, xn, S.data());
+      std::vector<float> df(6 * NJ * K::LANES, NAN);
+      for (int lane = 0; lane < K::LANES; ++lane)
+        ag::k5_mass_bias<NJ, false>(
+            lane, C, xn, ag::ForceSlots{&df[lane], K::LANES}, S.data());
+      for (int lane = 0; lane < K::LANES; ++lane)
+        ag::k5a_finish<NJ>(lane, xn, un, dt[n], S.data(), xo.data());
+    }
+    std::copy(xo.begin(), xo.end(), xnext + n * NX);
   }
 }
 
@@ -137,9 +205,9 @@ extern "C" int ag_terminal_host(int nj, int derivs, int N, const float* x,
   if (tab->n < 0 || tab->n > ag::kMaxRefs) return 1;
 #define AG_HOST(NJ)                                                        \
   if (derivs)                                                              \
-    terminal<NJ, true>(N, x, *tab, t, W, C, n_items, l, lx, lxx);          \
+    k3<NJ>(N, x, *tab, t, W, C, n_items, l, lx, lxx);                      \
   else                                                                     \
-    terminal<NJ, false>(N, x, *tab, t, W, C, n_items, l, lx, lxx);         \
+    k4<NJ>(N, x, *tab, t, W, C, n_items, l);                               \
   return 0
   if (nj == 7) { AG_HOST(7); }
   if (nj == 2) { AG_HOST(2); }
@@ -147,18 +215,39 @@ extern "C" int ag_terminal_host(int nj, int derivs, int N, const float* x,
   return 1;
 }
 
-extern "C" int ag_step_derivs_host(int nj, int lanes, int N, const float* x,
-                                   const float* u, const float* dt,
-                                   const float* C, float* xnext, float* Fx,
-                                   float* Fu) {
+// K3's one-thread body `ag::terminal_node`, with the arguments of
+// `ag_terminal` at derivs = 1.
+extern "C" int ag_terminal_node_host(int nj, int N, const float* x,
+                                     const ag::RefTable* tab, int t, int W,
+                                     const float* C, int n_items, float* l,
+                                     float* lx, float* lxx) {
+  if (tab->n < 0 || tab->n > ag::kMaxRefs) return 1;
   if (nj == 7) {
-    step_derivs<7>(lanes, N, x, u, dt, C, xnext, Fx, Fu);
+    terminal_one_thread<7>(N, x, *tab, t, W, C, n_items, l, lx, lxx);
     return 0;
   }
   if (nj == 2) {
-    step_derivs<2>(lanes, N, x, u, dt, C, xnext, Fx, Fu);
+    terminal_one_thread<2>(N, x, *tab, t, W, C, n_items, l, lx, lxx);
     return 0;
   }
+  return 1;
+}
+
+// K5a (derivs = 0) or K5b's phases, or with lanes = 1 their one-thread
+// body; Fx and Fu unused at derivs = 0.
+extern "C" int ag_step_host(int nj, int derivs, int lanes, int N,
+                            const float* x, const float* u, const float* dt,
+                            const float* C, float* xnext, float* Fx,
+                            float* Fu) {
+#define AG_HOST(NJ)                                                 \
+  if (derivs)                                                       \
+    step_derivs<NJ>(lanes, N, x, u, dt, C, xnext, Fx, Fu);          \
+  else                                                              \
+    step<NJ>(lanes, N, x, u, dt, C, xnext);                         \
+  return 0
+  if (nj == 7) { AG_HOST(7); }
+  if (nj == 2) { AG_HOST(2); }
+#undef AG_HOST
   return 1;
 }
 

@@ -11,7 +11,9 @@ keys than the kernels' by-value table holds ("cap25"); the inputs keep the
 collision, visual-servoing and frame-velocity terms live. K1/K2 also take
 one dt for every node (a float, a 0-d tensor), K1-K4 the tick's ring-row
 views of the refs. The step kernels K5a/K5b take random Panda nodes with v
-and u live, with per-node and scalar dt. On a GPU machine:
+and u live, with per-node and scalar dt. The nj = 2 instances run on a
+planar 2-DoF arm (K3/K4 with every kind in the terminal model). On a GPU
+machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
@@ -19,6 +21,7 @@ and u live, with per-node and scalar dt. On a GPU machine:
 not use.) Tolerances are those of the Pallas kernels' tests.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -193,3 +196,89 @@ def test_step_wrapper_rejects_bad_inputs(device, panda):
     with pytest.raises(ValueError):
         k(x, u.cpu(), dt)
     assert k.launches == 0
+
+
+# the planar 2-DoF arm of tests/test_ring_control_loop.py (which imports JAX)
+ARM_URDF = """<?xml version="1.0"?>
+<robot name="planar2">
+  <link name="base"><inertial><mass value="1"/>
+    <inertia ixx="0.01" iyy="0.01" izz="0.01" ixy="0" ixz="0" iyz="0"/></inertial></link>
+  <joint name="j1" type="revolute"><parent link="base"/><child link="l1"/>
+    <origin xyz="0 0 0.1" rpy="0 0 0"/><axis xyz="0 1 0"/>
+    <limit effort="50" lower="-3" upper="3" velocity="3"/></joint>
+  <link name="l1"><inertial><origin xyz="0 0 0.15"/><mass value="1.5"/>
+    <inertia ixx="0.02" iyy="0.02" izz="0.005" ixy="0" ixz="0" iyz="0"/></inertial></link>
+  <joint name="j2" type="revolute"><parent link="l1"/><child link="l2"/>
+    <origin xyz="0 0 0.3" rpy="0 0 0"/><axis xyz="0 1 0"/>
+    <limit effort="50" lower="-3" upper="3" velocity="3"/></joint>
+  <link name="l2"><inertial><origin xyz="0 0 0.12"/><mass value="0.8"/>
+    <inertia ixx="0.01" iyy="0.01" izz="0.003" ixy="0" ixz="0" iyz="0"/></inertial></link>
+  <joint name="jt" type="fixed"><parent link="l2"/><child link="tip"/>
+    <origin xyz="0 0 0.25"/></joint>
+  <link name="tip"/>
+</robot>"""
+
+
+@pytest.fixture(scope="module")
+def arm(device):
+    from agimus_controller_tpu_torch.models.urdf import build_model_from_urdf
+
+    return build_model_from_urdf(ARM_URDF, armature=np.array([0.1, 0.1]),
+                                 dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("kernel", [k[0] for k in smoke.STEP_KERNELS])
+def test_step_kernel_2dof(device, arm, kernel):
+    """nj = 2: K5a on 4 lanes a node, 32 nodes a block; K5b on 4 lanes."""
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
+
+    model, params = arm
+    derivs = kernel == "K5b_step_derivs"
+    rng = np.random.default_rng(6)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    N = 77
+    x, u = f(rng.normal(size=(N, 4)) * 0.5), f(rng.normal(size=(N, 2)))
+    dt = f(rng.uniform(0.005, 0.03, N))
+    k = StepKernel(model, params, derivs, device)
+    got, want = k(x, u, dt), k.plain(x, u, dt)
+    torch.cuda.synchronize()
+    if not derivs:
+        got, want = (got,), (want,)
+    smoke.check_outputs(f"{kernel} 2-DoF", got, want,
+                        ("xnext", "Fx", "Fu")[:len(got)])
+
+
+@pytest.mark.parametrize("kernel", ["K3_terminal_derivs", "K4_terminal_value"])
+def test_terminal_kernel_2dof(device, arm, kernel):
+    """nj = 2 (K3: 4 lanes a node) with every kind in the terminal model:
+    the control items at u = 0, frame_velocity over all 2 NJ tangents."""
+    from agimus_controller_tpu_torch.ocp.spec import (
+        CostItem,
+        ProblemSpec,
+        default_references,
+    )
+    from agimus_controller_tpu_torch.ops.cuda_costs import make_cuda_terminal
+
+    model, params = arm
+    items = (
+        CostItem(name="state_reg", kind="state", weight=0.5, update=True),
+        CostItem(name="ctrl", kind="control", weight=0.05, update=True),
+        CostItem(name="grav", kind="control_grav", weight=5e-3),
+        CostItem(name="goal", kind="frame_placement", weight=50.0,
+                 update=True, frame="tip"),
+        CostItem(name="vel", kind="frame_velocity", weight=2.5, update=True,
+                 frame="tip", reference_frame="local"))
+    spec = ProblemSpec(running_costs=items, terminal_costs=items, horizon=8,
+                       dt=0.01)
+    rng = np.random.default_rng(3)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    refs = default_references(spec, model, device=device)
+    for key, val in refs.items():
+        if key != "ee_rot:tip":
+            refs[key] = f(rng.uniform(0.1, 1.0, tuple(val.shape)))
+    x = f(rng.normal(size=(45, 4)) * 0.5)
+    k = make_cuda_terminal(model, params, spec,
+                           kernel == "K3_terminal_derivs", device)
+    got, want = k(x, refs), k.plain(x, refs)
+    torch.cuda.synchronize()
+    smoke.check_outputs(f"{kernel} 2-DoF", got, want, ("l", "lx", "lxx"))

@@ -60,9 +60,10 @@ def host_lib(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ag_stage_host.argtypes = [i, i, i, p, p, p, p, p, i, p, i, i] + [p] * 9
     lib.ag_terminal_host.argtypes = [i, i, i, p, p, i, i, p, i, i, p, p, p]
-    lib.ag_step_derivs_host.argtypes = [i, i, i, p, p, p, p, p, p, p]
+    lib.ag_terminal_node_host.argtypes = [i, i, p, p, i, i, p, i, p, p, p]
+    lib.ag_step_host.argtypes = [i, i, i, i, p, p, p, p, p, p, p]
     for fn in (lib.ag_stage_host, lib.ag_terminal_host,
-               lib.ag_step_derivs_host):
+               lib.ag_terminal_node_host, lib.ag_step_host):
         fn.restype = i
     return lib
 
@@ -99,8 +100,10 @@ def run_host(lib, k, x, u, dt, t_idx, refs):
     return outs
 
 
-def run_terminal_host(lib, k, x, refs):
-    """The terminal wrapper's launch, through the host harness."""
+def run_terminal_host(lib, k, x, refs, one_thread=False):
+    """The terminal wrapper's launch, through the host harness; with
+    one_thread, K3's one-thread body `terminal_node` in place of its lane
+    program."""
     n, nx = x.shape[0], 2 * k.nj
     tab, keep = k.plan.table(refs, CPU)
     consts = torch.as_tensor(cuda_costs._pack_constants(
@@ -108,10 +111,14 @@ def run_terminal_host(lib, k, x, refs):
     outs = tuple(torch.full((n,) + s, float("nan"))
                  for s in ((), (nx,), (nx, nx))[:3 if k.derivs else 1])
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
-    err = lib.ag_terminal_host(
-        k.nj, int(k.derivs), n, x.data_ptr(), ctypes.addressof(tab),
-        k.horizon, k.width, consts.data_ptr(), consts.numel(), len(k.items),
-        *ptrs)
+    args = (n, x.data_ptr(), ctypes.addressof(tab), k.horizon, k.width,
+            consts.data_ptr())
+    if one_thread:
+        assert k.derivs
+        err = lib.ag_terminal_node_host(k.nj, *args, len(k.items), *ptrs)
+    else:
+        err = lib.ag_terminal_host(k.nj, int(k.derivs), *args, consts.numel(),
+                                   len(k.items), *ptrs)
     assert err == 0
     del keep
     return outs
@@ -138,29 +145,43 @@ def test_lanes_match_plain(host_lib, panda, spec_name, derivs, view):
           k.plain(x, u, dt, t_idx, refs), derivs)
 
 
-@pytest.mark.parametrize("derivs", [True, False], ids=["K1", "K2"])
-def test_lanes_match_plain_2dof(host_lib, derivs):
-    """The 2-DoF arm: 4 lanes per node."""
-    model, params = build_model_from_urdf(
-        URDF_2DOF, armature=np.array([0.1, 0.1]), dtype=torch.float32,
-        device=CPU)
-    T = 8
-    spec = ProblemSpec(
-        running_costs=(
-            CostItem(name="state_reg", kind="state", weight=0.1, update=True),
-            CostItem(name="ctrl", kind="control", weight=1e-2, update=True),
-            CostItem(name="grav", kind="control_grav", weight=1e-3),
-            CostItem(name="goal", kind="frame_placement", weight=10.0,
-                     update=True, frame="tip"),
-            CostItem(name="vel", kind="frame_velocity", weight=0.5,
-                     update=True, frame="tip", reference_frame="local")),
-        terminal_costs=(), horizon=T, dt=0.01)
-    rng = np.random.default_rng(2)
+def arm():
+    return build_model_from_urdf(URDF_2DOF, armature=np.array([0.1, 0.1]),
+                                 dtype=torch.float32, device=CPU)
+
+
+def arm_items(w=1.0):
+    """Every kind the 2-DoF arm carries, weights scaled by w."""
+    return (
+        CostItem(name="state_reg", kind="state", weight=0.1 * w, update=True),
+        CostItem(name="ctrl", kind="control", weight=1e-2 * w, update=True),
+        CostItem(name="grav", kind="control_grav", weight=1e-3 * w),
+        CostItem(name="goal", kind="frame_placement", weight=10.0 * w,
+                 update=True, frame="tip"),
+        CostItem(name="vel", kind="frame_velocity", weight=0.5 * w,
+                 update=True, frame="tip", reference_frame="local"))
+
+
+def arm_refs(spec, model, rng):
+    """The spec's refs drawn from rng, the rotation reference kept."""
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
     refs = default_references(spec, model, device=CPU)
     for key, val in refs.items():
         if key != "ee_rot:tip":
             refs[key] = f(rng.uniform(0.1, 1.0, tuple(val.shape)))
+    return refs
+
+
+@pytest.mark.parametrize("derivs", [True, False], ids=["K1", "K2"])
+def test_lanes_match_plain_2dof(host_lib, derivs):
+    """The 2-DoF arm: 4 lanes per node."""
+    model, params = arm()
+    T = 8
+    spec = ProblemSpec(running_costs=arm_items(), terminal_costs=(),
+                       horizon=T, dt=0.01)
+    rng = np.random.default_rng(2)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
+    refs = arm_refs(spec, model, rng)
     x = f(rng.normal(size=(N, 4)) * 0.5)
     u = f(rng.normal(size=(N, 2)))
     t_idx = torch.as_tensor(rng.integers(0, T, size=N))
@@ -192,8 +213,9 @@ def test_lanes_scalar_dt(host_lib, panda, derivs, dt_kind):
 @pytest.mark.parametrize("derivs", [True, False], ids=["K3", "K4"])
 @pytest.mark.parametrize("spec_name", SPECS)
 def test_terminal_lanes_match_plain(host_lib, panda, spec_name, derivs, view):
-    """K3/K4: the warp's gather of the horizon's ref row through the source
-    table, then K3's one-lane body or K4's item values one per lane."""
+    """K3/K4: the gather of the horizon's ref row through the source table,
+    then K3's item tangents one a lane and each lane's owned entries, or
+    K4's item values one a lane."""
     model, params = panda
     spec = smoke.SPECS[spec_name](100, model)
     refs, x, _, _, _ = smoke.randomized_inputs(spec, model, 5, seed=4,
@@ -204,3 +226,42 @@ def test_terminal_lanes_match_plain(host_lib, panda, spec_name, derivs, view):
     smoke.check_outputs(f"{'K3' if derivs else 'K4'} {spec_name} {view}",
                         run_terminal_host(host_lib, k, x, refs),
                         k.plain(x, refs), ("l", "lx", "lxx"))
+
+
+@pytest.mark.parametrize("spec_name", SPECS)
+def test_terminal_lanes_match_one_thread(host_lib, panda, spec_name):
+    """K3's lane program against the one-thread body it replaced
+    (`terminal_node`), on the same gathered row."""
+    model, params = panda
+    spec = smoke.SPECS[spec_name](100, model)
+    refs, x, _, _, _ = smoke.randomized_inputs(spec, model, 5, seed=4,
+                                               device=CPU)
+    k = cuda_costs.make_cuda_terminal(model, params, spec, True, CPU)
+    smoke.check_outputs(f"K3 {spec_name} vs one-thread body",
+                        run_terminal_host(host_lib, k, x, refs),
+                        run_terminal_host(host_lib, k, x, refs,
+                                          one_thread=True),
+                        ("l", "lx", "lxx"))
+
+
+@pytest.mark.parametrize("derivs", [True, False], ids=["K3", "K4"])
+def test_terminal_lanes_2dof(host_lib, derivs):
+    """The 2-DoF arm (K3: 4 lanes per node) with every kind in the
+    terminal model: the control items see u = 0, control_grav still adds
+    its gravity Jacobian's Gauss-Newton term to lxx, frame_velocity takes
+    all 2 NJ tangents."""
+    model, params = arm()
+    spec = ProblemSpec(running_costs=arm_items(),
+                       terminal_costs=arm_items(5.0), horizon=8, dt=0.01)
+    rng = np.random.default_rng(3)
+    refs = arm_refs(spec, model, rng)
+    x = torch.as_tensor(rng.normal(size=(N, 4)) * 0.5, dtype=torch.float32)
+    k = cuda_costs.make_cuda_terminal(model, params, spec, derivs, CPU)
+    got = run_terminal_host(host_lib, k, x, refs)
+    labels = ("l", "lx", "lxx")
+    smoke.check_outputs(f"{'K3' if derivs else 'K4'} 2-DoF", got,
+                        k.plain(x, refs), labels)
+    if derivs:
+        smoke.check_outputs("K3 2-DoF vs one-thread body", got,
+                            run_terminal_host(host_lib, k, x, refs,
+                                              one_thread=True), labels)

@@ -1,18 +1,20 @@
-"""The dynamics-step kernel K5b's per-lane program on the CPU, f32.
+"""The dynamics-step kernels K5a/K5b's per-lane programs on the CPU, f32.
 
-K5b runs a node on LANES lanes (`csrc/step_kernels.cu`), in phases
+K5a and K5b run a node on LANES lanes (`csrc/step_kernels.cu`), in phases
 separated by warp barriers whose per-lane steps are the host/device
 functions `ag::k5_*` of `csrc/stage_kernels.cuh`. This test builds them with
 g++ into a host library (`tests/stage_lanes_harness.cpp`, which runs each
 phase lane by lane over a NaN-filled scratch), feeds it the wrapper's
-packed model constants, and holds x+, Fx and Fu at `chip_smoke.TOL` against
-`StepKernel.plain`, against the JAX package's
-`make_batched_step_with_derivs` in f32 (the Pallas kernel body on the
-tree, which the batched step does not take), and against the one-thread body
-`ag::dynamics_node` that K5b ran before, on the Panda (16 lanes per node),
-the 2-DoF arm (4 lanes) and a 2-DoF tree with a prismatic joint (the
-kernel's path for a tree that is no serial chain), with per-node and scalar
-dt, nodes drawn from a numpy seed. Skips only without g++.
+packed model constants, and holds K5b's x+, Fx and Fu and K5a's x+ at
+`chip_smoke.TOL` against `StepKernel.plain`, against the JAX package's
+`make_batched_step_with_derivs` / `make_batched_step` in f32 (the Pallas
+kernel body on the tree, which the batched step does not take), and against
+the one-thread body `ag::dynamics_node` that both ran before, on the Panda
+(16 lanes per K5b node, 8 per K5a node), the 2-DoF arm (4 lanes) and a
+2-DoF tree with a prismatic joint (the kernels' path for a tree that is no
+serial chain), with per-node and scalar dt, nodes drawn from a numpy seed.
+K5a's x+ also equals K5b's bit for bit (the same primal phases). Skips only
+without g++.
 """
 
 import jax.numpy as jnp
@@ -25,6 +27,7 @@ from agimus_controller_tpu.models.panda import load_panda as jax_load_panda
 from agimus_controller_tpu.models.urdf import build_model_from_urdf as jax_build
 from agimus_controller_tpu.ops.batched_dynamics import _StaticModel as JaxStaticModel
 from agimus_controller_tpu.ops.batched_dynamics import (
+    make_batched_step,
     make_batched_step_with_derivs,
 )
 from agimus_controller_tpu.ops.pallas_dynamics import (
@@ -75,35 +78,40 @@ def nodes(name, nj, dt_kind):
     return x, u, dt
 
 
-def run_host(lib, model, params, x, u, dt, lanes):
+def run_host(lib, model, params, x, u, dt, lanes, derivs=True):
+    """K5b (derivs) or K5a through the host harness: (x+, Fx, Fu), or
+    (x+,) for K5a; lanes = 1 runs the one-thread body."""
     nj = model.nj
     consts = torch.as_tensor(_pack_model(model, params).astype(np.float32))
     dt = dt_per_node(dt, x)
     outs = tuple(torch.full(s, float("nan")) for s in
                  ((N, 2 * nj), (N, 2 * nj, 2 * nj), (N, 2 * nj, nj)))
-    assert lib.ag_step_derivs_host(
-        nj, lanes, N, x.data_ptr(), u.data_ptr(), dt.data_ptr(),
+    assert lib.ag_step_host(
+        nj, int(derivs), lanes, N, x.data_ptr(), u.data_ptr(), dt.data_ptr(),
         consts.data_ptr(), *(o.data_ptr() for o in outs)) == 0
-    return outs
+    return outs if derivs else outs[:1]
 
 
-def jax_step(jm, jp, x, u, dt):
-    """The JAX package's step with derivatives, f32: the batched XLA step
-    on a serial chain (its scan form takes chains only), else the Pallas
-    kernel body on component arrays."""
+def jax_step(jm, jp, x, u, dt, derivs=True):
+    """The JAX package's step, with derivatives or without, f32: the
+    batched XLA step on a serial chain (its scan form takes chains only),
+    else the Pallas kernel body on component arrays."""
     jdt = jnp.asarray(dt if not isinstance(dt, torch.Tensor) else dt.numpy())
     if tuple(jm.parents) == tuple(range(-1, jm.nj - 1)):
+        make = make_batched_step_with_derivs if derivs else make_batched_step
+        out = make(jm, jp)(jnp.asarray(x.numpy()), jnp.asarray(u.numpy()), jdt)
         return tuple(torch.as_tensor(np.array(a)) for a in
-                     make_batched_step_with_derivs(jm, jp)(
-                         jnp.asarray(x.numpy()), jnp.asarray(u.numpy()), jdt))
+                     (out if derivs else (out,)))
     nj = jm.nj
     comps = lambda a: [jnp.asarray(a[:, i].numpy()[None]) for i in
                        range(a.shape[1])]
     xn, fx, fu = jax_dynamics_terms(
         JaxStaticModel(jm, jp), comps(x[:, :nj]), comps(x[:, nj:]), comps(u),
-        jnp.broadcast_to(jdt, (N,))[None].astype(jnp.float32), True)
+        jnp.broadcast_to(jdt, (N,))[None].astype(jnp.float32), derivs)
     rows = lambda cs: torch.as_tensor(np.stack(
         [np.broadcast_to(np.asarray(c)[0], (N,)) for c in cs], 1))
+    if not derivs:
+        return (rows(xn),)
     return (rows(xn), rows(fx).reshape(N, 2 * nj, 2 * nj),
             rows(fu).reshape(N, 2 * nj, nj))
 
@@ -120,3 +128,22 @@ def test_step_lanes_match_references(host_lib, robot, dt_kind):
                       ("one-thread body", one_thread)):
         smoke.check_outputs(f"K5b lanes {name} {dt_kind} dt vs {ref}", got,
                             want, OUT)
+
+
+@pytest.mark.parametrize("dt_kind", ["per_node", "scalar"])
+def test_step_a_lanes_match_references(host_lib, robot, dt_kind):
+    """K5a: placements one a lane, the mass-matrix columns beside the bias,
+    the factor, solve and x+ on lane 0."""
+    name, jm, jp, params = robot
+    x, u, dt = nodes(name, jm.nj, dt_kind)
+    got = run_host(host_lib, jm, params, x, u, dt, lanes=0, derivs=False)
+    plain = (StepKernel(jm, params, False, CPU).plain(x, u, dt),)
+    jax_out = jax_step(jm, jp, x, u, dt, derivs=False)
+    one_thread = run_host(host_lib, jm, params, x, u, dt, lanes=1,
+                          derivs=False)
+    for ref, want in (("plain", plain), ("jax", jax_out),
+                      ("one-thread body", one_thread)):
+        smoke.check_outputs(f"K5a lanes {name} {dt_kind} dt vs {ref}", got,
+                            want, OUT[:1])
+    k5b = run_host(host_lib, jm, params, x, u, dt, lanes=0)
+    assert torch.equal(got[0], k5b[0])
