@@ -62,7 +62,8 @@ class FusedTick:
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, ring: RefRing,
                  settings: CSQPSettings = CSQPSettings(),
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE,
+                 backend: str = "auto"):
         device = resolve_device(device)
         ts = np.asarray(spec.timesteps())
         self._dt = float(ts[0])
@@ -72,7 +73,8 @@ class FusedTick:
         self._hidx = torch.as_tensor(hidx, device=device)
         self._layout = ring.layout
         self._sm = _StaticModel(model, params)
-        self.solver = make_batch_sqp(model, params, spec, settings, device)
+        self.solver = make_batch_sqp(model, params, spec, settings, device,
+                                     backend)
 
     def shift(self, xs, us):
         if self._all_uniform:
@@ -111,9 +113,11 @@ class FusedTick:
 
 def make_fused_tick(model: RobotModel, params: ModelParams, spec: ProblemSpec,
                     ring: RefRing, settings: CSQPSettings = CSQPSettings(),
-                    device: torch.device | str = DEFAULT_DEVICE) -> FusedTick:
-    """Build the fused tick for `device` (see `FusedTick`)."""
-    return FusedTick(model, params, spec, ring, settings, device)
+                    device: torch.device | str = DEFAULT_DEVICE,
+                    backend: str = "auto") -> FusedTick:
+    """Build the fused tick for `device` (see `FusedTick`; `backend`, "auto"
+    or "xla", is the batch SQP's, `sqp_batch.BatchSQP`)."""
+    return FusedTick(model, params, spec, ring, settings, device, backend)
 
 
 class FusedTickRunner:
@@ -126,10 +130,11 @@ class FusedTickRunner:
     def __init__(self, model, params, spec, ring: RefRing, base_refs,
                  settings: CSQPSettings = CSQPSettings(),
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE,
+                 backend: str = "auto"):
         self.device = resolve_device(device)
         self._tick = make_fused_tick(model, params, spec, ring, settings,
-                                     self.device)
+                                     self.device, backend)
         self._ring = ring
         self._refs = base_refs
         self._dtype = dtype

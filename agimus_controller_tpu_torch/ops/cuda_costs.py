@@ -593,10 +593,12 @@ def _dense(comps, zero, N, shape):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_supported(spec: ProblemSpec, model: RobotModel,
-                     device: torch.device):
-    """Refuses what the Pallas kernels refuse (`pallas_costs._supported`),
-    a frame fixed to the root, and joint counts without a kernel."""
+def check_supported(spec: ProblemSpec, model: RobotModel,
+                    device: torch.device):
+    """Raises NotImplementedError, with the reason, on what the stage
+    kernels do not take: what the Pallas kernels refuse
+    (`pallas_costs._supported`), a frame fixed to the root, and on the card
+    joint counts without a kernel instance."""
     if spec.soft_contact is not None:
         raise NotImplementedError(
             "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
@@ -617,7 +619,7 @@ def _check_supported(spec: ProblemSpec, model: RobotModel,
     if device.type == "cuda" and model.nj not in KERNEL_NJ:
         raise NotImplementedError(
             f"the stage kernels are instantiated for nj in {KERNEL_NJ}, "
-            f"not {model.nj}")
+            f"not {model.nj} (ROADMAP queue 2, item 4)")
 
 
 def _pack_constants(model: RobotModel, params: ModelParams, items,
@@ -694,7 +696,7 @@ class _StageBase:
                  spec: ProblemSpec, items, derivs: bool,
                  device: torch.device | str):
         # the spec first: an uncovered spec raises the same on any machine
-        _check_supported(spec, model, torch.device(device))
+        check_supported(spec, model, torch.device(device))
         self.device = resolve_device(device)
         self.model, self.params, self.derivs = model, params, derivs
         self.nj = model.nj

@@ -225,7 +225,7 @@ class StepKernel:
         if self.device.type == "cuda" and model.nj not in KERNEL_NJ:
             raise NotImplementedError(
                 f"the step kernels are instantiated for nj in {KERNEL_NJ}, "
-                f"not {model.nj}")
+                f"not {model.nj} (ROADMAP queue 2, item 4)")
         self.nj, self.derivs = model.nj, derivs
         self.sm = _StaticModel(model, params)
         self.launches = 0  # kernel launches (CUDA path only)

@@ -1,8 +1,9 @@
 """Forward kinematics on tensors: joint and frame placements.
 
 Port of the JAX package's `ops/kinematics.py` (`joint_placements`,
-`frame_placement`, `frame_jacobian`, `frame_velocity`; pinocchio
-`forwardKinematics` / `updateFramePlacements` / `computeFrameJacobian`).
+`frame_placement`, `frame_jacobian`, `frame_velocity`, `integrate`,
+`difference`; pinocchio `forwardKinematics` / `updateFramePlacements` /
+`computeFrameJacobian` / `integrate` / `difference`).
 Single-sample over a static topology (the joint loop unrolls in Python);
 batch with `torch.func.vmap`. Motion vectors are `[w; v]`.
 """
@@ -102,3 +103,14 @@ def frame_velocity(model: RobotModel, params: ModelParams, q, v,
                    frame_id: int, reference_frame: str = "local_world_aligned"):
     """Spatial velocity `[w; v]` of a frame (J @ v)."""
     return frame_jacobian(model, params, q, frame_id, reference_frame) @ v
+
+
+def integrate(model: RobotModel, q, dq):
+    """Configuration integration (pinocchio `pin.integrate`): every
+    supported joint is revolute or prismatic, so this is plain addition."""
+    return q + dq
+
+
+def difference(model: RobotModel, q0, q1):
+    """Tangent-space difference (pinocchio `pin.difference`)."""
+    return q1 - q0

@@ -1,8 +1,8 @@
 """Residuals r(x, u, ref) on tensors.
 
-Port of the JAX package's `ops/residuals.py` without the control-grav
-residual: state, control, frame placement, translation, rotation and
-velocity, visual servoing and the collision distance (crocoddyl / colmpc
+Port of the JAX package's `ops/residuals.py`: state, control, control
+minus gravity, frame placement, translation, rotation and velocity, visual
+servoing and the collision distance (crocoddyl / colmpc
 residual models of the YAML DSL, `ocp/ocp_croco_generic.py:154-557`).
 Single-sample; Jacobians come from `torch.func` at the assembly level.
 """
@@ -13,6 +13,7 @@ import torch
 
 from ..models.model import ModelParams, RobotModel
 from . import collision as _collision
+from . import dynamics as _dynamics
 from . import kinematics as _kinematics
 from . import spatial
 
@@ -25,6 +26,12 @@ def state_residual(model: RobotModel, x, xref):
 def control_residual(u, uref):
     """r = u - uref (`ResidualModelControl`)."""
     return u - uref
+
+
+def control_grav_residual(model: RobotModel, params: ModelParams, x, u):
+    """r = u - g(q) (`ResidualModelControlGrav`)."""
+    q = x[..., :model.nq]
+    return u - _dynamics.generalized_gravity(model, params, q)
 
 
 def frame_placement_residual(model: RobotModel, params: ModelParams, x,

@@ -1,6 +1,5 @@
-"""SO(3)/SE(3) maps and 6-D motion/force operations on tensors: the part
-of the JAX package's `ops/spatial.py` that kinematics, dynamics, collision
-and the residuals call.
+"""SO(3)/SE(3) maps and 6-D motion/force operations on tensors: port of
+the JAX package's `ops/spatial.py`.
 
 Conventions (as in the JAX package): a placement is the pair ``(R, p)`` with
 ``x_A = R @ x_B + p``; twists are ``[w; v]``. Every function takes leading
@@ -94,6 +93,30 @@ def log6(R, p):
     return torch.cat([w, v], dim=-1)
 
 
+def exp6(nu):
+    """se(3) exponential. ``nu = [w; v]`` -> placement ``(R, p)``."""
+    w, v = nu[..., :3], nu[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    W = hat(w)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2_safe)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / theta2_safe)
+    eye = torch.eye(3, dtype=nu.dtype, device=nu.device)
+    WW = W @ W
+    R = eye + a[..., None, None] * W + b[..., None, None] * WW
+    V = eye + b[..., None, None] * W + c[..., None, None] * WW
+    return R, _mv(V, v)
+
+
+def se3_identity(dtype=torch.float32, device=None):
+    return (torch.eye(3, dtype=dtype, device=device),
+            torch.zeros(3, dtype=dtype, device=device))
+
+
 def se3_mul(a, b):
     """Compose placements: (R, p) of ``a @ b``."""
     Ra, pa = a
@@ -105,6 +128,39 @@ def se3_inv(m):
     R, p = m
     Rt = torch.swapaxes(R, -1, -2)
     return Rt, -torch.einsum("...ij,...j->...i", Rt, p)
+
+
+def se3_act_point(m, x):
+    R, p = m
+    return _mv(R, x) + p
+
+
+def rpy_to_matrix(rpy):
+    """URDF roll-pitch-yaw (extrinsic XYZ) -> rotation matrix: Rz Ry Rx."""
+    r, pch, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(pch), torch.sin(pch)
+    cy, sy = torch.cos(y), torch.sin(y)
+    row0 = torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
+                       dim=-1)
+    row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
+                       dim=-1)
+    row2 = torch.stack([-sp, cp * sr, cp * cr], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def quat_to_matrix(q):
+    """Quaternion ``[x, y, z, w]`` (pinocchio/eigen order) -> rotation matrix."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = 2.0 / torch.where(n > 0, n, torch.ones_like(n))
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    row0 = torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1)
+    row1 = torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1)
+    row2 = torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
 
 
 def _mv(R, x):
@@ -153,6 +209,15 @@ def force_act(m, f):
     fl = _mv(R, f[..., 3:])
     n = _mv(R, f[..., :3]) + torch.linalg.cross(p, fl)
     return torch.cat([n, fl], dim=-1)
+
+
+def force_act_inv(m, f):
+    """Force vector from frame A to frame B (inverse of `force_act`)."""
+    R, p = m
+    Rt = torch.swapaxes(R, -1, -2)
+    fl_a = f[..., 3:]
+    n = _mv(Rt, f[..., :3] - torch.linalg.cross(p, fl_a))
+    return torch.cat([n, _mv(Rt, fl_a)], dim=-1)
 
 
 def inertia_apply(mass, com, I_com, nu):

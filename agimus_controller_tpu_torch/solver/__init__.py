@@ -1,2 +1,3 @@
-"""OCP solvers: the batch multiple-shooting SQP (`sqp_batch`) and the batch
-FDDP (`fddp_batch`)."""
+"""OCP solvers: the batch multiple-shooting SQP (`sqp_batch`), the batch
+FDDP (`fddp_batch`) and the single-scenario `solve_fddp` (`fddp`) and
+`solve_csqp` (`csqp`)."""

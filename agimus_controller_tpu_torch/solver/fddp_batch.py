@@ -8,7 +8,9 @@ through every stage:
   nodes with per-node dt (`ops/cuda_dynamics.py`; multi-resolution horizons
   work), plus one call of the XLA-style component cost pack over all T*B
   running nodes (`ops/batched_costs.make_batched_cost_pack`) and one over
-  the B terminal nodes,
+  the B terminal nodes; where the pack declines the spec, the batched
+  forms of the generic `ocp.costs.CostFunctions` take its place, as the
+  JAX solver falls back to `vmap(cf.cost_derivs)`,
 - Riccati backward: the batch-minor `riccati_components.backward_components`
   ("component", the default) or the dense `[B, n, n]` sweep with batched
   Cholesky factors ("dense"),
@@ -29,9 +31,8 @@ after the rollout's T steps and sums them over t in the order of the JAX
 scan, so the numbers are those of one call per step.
 
 Not ported (each raises NotImplementedError): `riccati="pscan"` (ROADMAP
-queue 1, slice 16), soft contact (slice 12; the port's models have no
-manifold state yet either), and the specs the cost pack declines, where the
-JAX solver falls back to the autodiff `CostFunctions` (slice 11).
+queue 1, slice 16) and soft contact (slice 12; the port's models have no
+manifold state yet either).
 """
 
 from __future__ import annotations
@@ -40,26 +41,14 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.model import ModelParams, RobotModel
+from ..ocp.costs import build_cost_functions
 from ..ocp.spec import ProblemSpec
 from ..ops.batched_costs import make_batched_cost_pack
 from ..ops.cuda_dynamics import make_cuda_step, make_cuda_step_derivs
-from .fddp import Solution, SolverSettings
+from .fddp import Solution, SolverSettings, cho_solve, cholesky
 from .riccati_components import backward_components
 
 _RICCATI = ("component", "pscan", "dense")
-
-
-def _cholesky(A):
-    """Lower Cholesky factors of the symmetrised A [B, n, n]; NaN where a
-    matrix is not positive definite (as the JAX factorisation)."""
-    L, info = torch.linalg.cholesky_ex((A + A.transpose(-1, -2)) / 2)
-    return torch.where((info == 0)[:, None, None], L, float("nan"))
-
-
-def _tri_solve_mat(L, Bm):
-    """(L L^T) X = Bm with L [B, n, n], Bm [B, n, m]."""
-    y = torch.linalg.solve_triangular(L, Bm, upper=False)
-    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
 
 
 def _all_finite(a, B):
@@ -89,9 +78,9 @@ def backward_dense(Fx, Fu, lx, lu, lxx, lxu, luu, fs, term_lx, term_lxx,
         VFu = ein("bij,bjk->bik", Vxx, Fut)
         Quu = luu[t] + ein("bji,bjk->bik", Fut, VFu) + (
             reg[:, None, None] * eye_u)
-        L = _cholesky(Quu)
-        kk = _tri_solve_mat(L, Qu[..., None])[..., 0]
-        KK = _tri_solve_mat(L, Qux)
+        L = cholesky(Quu)
+        kk = cho_solve(L, Qu[..., None])[..., 0]
+        KK = cho_solve(L, Qux)
         Vx = Qx - ein("bji,bj->bi", Qux, kk)
         Vxx = Qxx - ein("bji,bjk->bik", Qux, KK)
         Vxx = 0.5 * (Vxx + Vxx.transpose(-1, -2))
@@ -120,13 +109,13 @@ class BatchFDDP:
             raise NotImplementedError(
                 "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
         self.device = resolve_device(device)
+        # the batched cost pack, or the generic CostFunctions where it
+        # declines the spec (same batched interface)
         self.pack = make_batched_cost_pack(model, params, spec,
                                            device=self.device)
         if self.pack is None:
-            raise NotImplementedError(
-                "the batched cost pack declines this spec; the generic "
-                "CostFunctions path is not ported yet (ROADMAP queue 1, "
-                "slice 11)")
+            self.pack = build_cost_functions(model, params, spec,
+                                             torch.float64)
         self.T = spec.horizon
         self.settings, self.riccati = settings, riccati
         self.step_k = make_cuda_step(model, params, self.device)
@@ -329,5 +318,6 @@ def make_batch_fddp(model: RobotModel, params: ModelParams, spec: ProblemSpec,
                     device: torch.device | str = DEFAULT_DEVICE) -> BatchFDDP:
     """Build the batch FDDP solver for `device` (see `BatchFDDP`). Unlike the
     JAX factory it takes no `CostFunctions`: the costs come from `spec`
-    through the batched cost pack."""
+    through the batched cost pack, or the generic `CostFunctions` where the
+    pack declines the spec."""
     return BatchFDDP(model, params, spec, settings, riccati, device)

@@ -9,7 +9,9 @@ shooting with linear step updates
 Port of the JAX package's `solver/sqp_batch.py::make_batch_sqp`:
 
 - stage linearisation: ONE launch of the fused stage kernel K1 over all T*B
-  running nodes plus K3 for the terminal nodes (`ops/cuda_costs.py`),
+  running nodes plus K3 for the terminal nodes (`ops/cuda_costs.py`); on
+  the "xla" backend one K5b launch over the T*B nodes
+  (`ops/cuda_dynamics.py`) and one cost evaluation of them (see below),
 - Riccati backward: factor once per iteration, batch-minor layout
   (`riccati_components`), then a cheap vector sweep,
 - QP (constrained specs): OSQP-style ADMM over the cached factorisation
@@ -19,8 +21,9 @@ Port of the JAX package's `solver/sqp_batch.py::make_batch_sqp`:
   to the initial rho, across solves (`y0` / `solution.y`). The constraint
   rows and Jacobians come from `ocp.costs.ConstraintFunctions`,
 - line search: first-accept filter ladder over alpha = 0.5**i, each trial
-  one K2 + K4 launch (costs + dynamics gaps) plus, when constrained, the
-  violation terms and the constraint envelope,
+  one K2 + K4 launch (costs + dynamics gaps; on the "xla" backend one K5a
+  launch and the cost values) plus, when constrained, the violation terms
+  and the constraint envelope,
 - per-scenario convergence masks, Levenberg-Marquardt regularisation and a
   runtime iteration limit.
 
@@ -31,19 +34,38 @@ host once per SQP iteration, once per ADMM iteration and once per
 line-search trial (counted in `BatchSQP.host_syncs`). The sweeps run in the
 trajectory dtype (no `sweep_f64`). Soft contact and manifold states are not
 ported yet.
+
+The backend (JAX `sqp_batch.py:135-170`, where "pallas" is this port's
+"kernels"): "kernels" runs the stage kernels K1-K4; "xla" runs the
+dynamics-step kernels K5a/K5b with the batched cost pack
+(`ops/batched_costs.make_batched_cost_pack`) where the pack takes the spec,
+else the generic `ocp.costs.CostFunctions` in its batched forms. The
+default, "auto", takes "kernels" when `cuda_costs.check_supported` passes
+for the spec, the model and the device, else "xla", and logs the refusal's
+reason; `backend="xla"` forces the fallback on any spec. A kernel that
+fails to build or launch raises, it never changes the backend. On the card
+the step kernels, as the stage kernels, refuse a joint count outside
+`KERNEL_NJ` (ROADMAP queue 2, item 4); on the CPU every backend takes any.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.model import ModelParams, RobotModel
-from ..ocp.costs import build_constraint_functions
+from ..ocp.costs import build_constraint_functions, build_cost_functions
 from ..ocp.spec import ProblemSpec
-from ..ops.cuda_costs import make_cuda_stage, make_cuda_terminal
+from ..ops.batched_costs import make_batched_cost_pack
+from ..ops.cuda_costs import (
+    check_supported,
+    make_cuda_stage,
+    make_cuda_terminal,
+)
+from ..ops.cuda_dynamics import make_cuda_step, make_cuda_step_derivs
 from .csqp import CSQPSettings
 from .riccati_components import (
     _chol_lanes,
@@ -73,6 +95,25 @@ class BatchSQPSolution(NamedTuple):
     y: Optional[torch.Tensor] = None
 
 
+BACKENDS = ("auto", "xla")
+
+
+def select_backend(model: RobotModel, spec: ProblemSpec,
+                   device: torch.device | str, backend: str = "auto"):
+    """(backend, reason): the backend "auto" resolves to for the spec, the
+    model and the device, with the stage kernels' refusal as the reason
+    (None when they take the spec); "xla" passes through."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    if backend != "auto":
+        return backend, None
+    try:
+        check_supported(spec, model, torch.device(device))
+    except NotImplementedError as refusal:
+        return "xla", str(refusal)
+    return "kernels", None
+
+
 def _violation(g, lb, ub):
     return torch.clamp(torch.maximum(lb - g, g - ub), min=0.0)
 
@@ -96,21 +137,45 @@ def _chol_solve_dense(Ld, rhs, nu):
 
 class BatchSQP:
     """`solve(x0s [B,nx], refs, xs [B,T+1,nx], us [B,T,nu], max_iters=None,
-    y0=None) -> BatchSQPSolution` over the fused stage kernels."""
+    y0=None) -> BatchSQPSolution` over the fused stage kernels ("kernels")
+    or the step kernels and a cost evaluation ("xla"); `backend` holds the
+    one chosen, `backend_reason` why "auto" declined the stage kernels."""
 
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, settings: CSQPSettings = CSQPSettings(),
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE,
+                 backend: str = "auto"):
         if spec.soft_contact is not None:
             raise NotImplementedError(
                 "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
         self.T = spec.horizon
         self.settings = settings
         self.device = resolve_device(device)
-        self.stage_dk = make_cuda_stage(model, params, spec, True, self.device)
-        self.stage_vk = make_cuda_stage(model, params, spec, False, self.device)
-        self.term_dk = make_cuda_terminal(model, params, spec, True, self.device)
-        self.term_vk = make_cuda_terminal(model, params, spec, False, self.device)
+        self.backend, self.backend_reason = select_backend(
+            model, spec, self.device, backend)
+        if self.backend_reason is not None:
+            logging.getLogger(__name__).info(
+                "BatchSQP backend='auto': the stage kernels decline this "
+                "spec (%s); using the 'xla' backend", self.backend_reason)
+        if self.backend == "kernels":
+            self.stage_dk = make_cuda_stage(model, params, spec, True,
+                                            self.device)
+            self.stage_vk = make_cuda_stage(model, params, spec, False,
+                                            self.device)
+            self.term_dk = make_cuda_terminal(model, params, spec, True,
+                                              self.device)
+            self.term_vk = make_cuda_terminal(model, params, spec, False,
+                                              self.device)
+        else:
+            self.step_k = make_cuda_step(model, params, self.device)
+            self.step_dk = make_cuda_step_derivs(model, params, self.device)
+            # the costs: the batched pack where it takes the spec, else the
+            # generic CostFunctions (same batched interface)
+            self.costs = make_batched_cost_pack(model, params, spec,
+                                                self.device)
+            if self.costs is None:
+                self.costs = build_cost_functions(model, params, spec,
+                                                  torch.float64)
         self.cf = build_constraint_functions(model, params, spec)
         self.nc = self.cf.n_constraints
         self._ts = torch.as_tensor(spec.timesteps(), dtype=torch.float64)
@@ -122,8 +187,11 @@ class BatchSQP:
 
     @property
     def kernels(self):
-        """The four stage-kernel wrappers, K1-K4."""
-        return (self.stage_dk, self.stage_vk, self.term_dk, self.term_vk)
+        """The kernel wrappers of the backend: K1-K4 ("kernels"), or K5a
+        and K5b ("xla")."""
+        if self.backend == "kernels":
+            return (self.stage_dk, self.stage_vk, self.term_dk, self.term_vk)
+        return (self.step_k, self.step_dk)
 
     def _all(self, mask: torch.Tensor) -> bool:
         self.host_syncs += 1
@@ -150,26 +218,39 @@ class BatchSQP:
 
     def cost_and_gaps(self, x0s, xs, us, refs):
         """(total cost [B], defects fs [T+1,B,nx]): the line-search merit
-        terms, from one K2 and one K4 launch. The cost sum stays in the
-        trajectory dtype."""
+        terms, from one K2 and one K4 launch ("xla": one K5a launch and the
+        cost values). The cost sum stays in the trajectory dtype."""
         T, B, nx = self.T, xs.shape[1], xs.shape[2]
         x_flat, u_flat, dts_flat, t_idx = self._flatten_nodes(xs, us)
-        xnext_f, l_f = self.stage_vk(x_flat, u_flat, dts_flat, t_idx, refs)
-        (lT,) = self.term_vk(xs[-1], refs)
+        if self.backend == "kernels":
+            xnext_f, l_f = self.stage_vk(x_flat, u_flat, dts_flat, t_idx,
+                                         refs)
+            (lT,) = self.term_vk(xs[-1], refs)
+        else:
+            xnext_f = self.step_k(x_flat, u_flat, dts_flat)
+            l_f = self.costs.value(x_flat, u_flat, t_idx, refs)
+            lT = self.costs.term_value(xs[-1], refs)
         cost = l_f.reshape(T, B).sum(0) + lT
         return cost, self._gaps_of(x0s, xs, xnext_f.reshape(T, B, nx))
 
     def derivs_of(self, xs, us, refs):
         T, B, nx, nu = self.T, xs.shape[1], xs.shape[2], us.shape[2]
         x_flat, u_flat, dts_flat, t_idx = self._flatten_nodes(xs, us)
-        (xn, Fx, Fu, l, lx, lu, lxx, lxu, luu) = self.stage_dk(
-            x_flat, u_flat, dts_flat, t_idx, refs)
+        if self.backend == "kernels":
+            (xn, Fx, Fu, l, lx, lu, lxx, lxu, luu) = self.stage_dk(
+                x_flat, u_flat, dts_flat, t_idx, refs)
+            term = self.term_dk(xs[-1], refs)
+        else:
+            xn, Fx, Fu = self.step_dk(x_flat, u_flat, dts_flat)
+            l, lx, lu, lxx, lxu, luu = self.costs.pack(x_flat, u_flat, t_idx,
+                                                       refs)
+            term = self.costs.term_pack(xs[-1], refs)
         dyn = (xn.reshape(T, B, nx), Fx.reshape(T, B, nx, nx),
                Fu.reshape(T, B, nx, nu))
         costs = (l.reshape(T, B), lx.reshape(T, B, nx), lu.reshape(T, B, nu),
                  lxx.reshape(T, B, nx, nx), lxu.reshape(T, B, nx, nu),
                  luu.reshape(T, B, nu, nu))
-        return dyn, costs, self.term_dk(xs[-1], refs)
+        return dyn, costs, term
 
     # ------------------------------------------------------------------
     # constraints: all (T+1)*B nodes in one batched evaluation
@@ -608,8 +689,9 @@ class _ADMM:
 
 def make_batch_sqp(model: RobotModel, params: ModelParams, spec: ProblemSpec,
                    settings: CSQPSettings = CSQPSettings(),
-                   device: torch.device | str = DEFAULT_DEVICE) -> BatchSQP:
-    """Build the batch SQP solver for `device` (see `BatchSQP`). Unlike the
-    JAX factory it takes no `CostFunctions`: the constraint rows come from
-    `spec` (`ocp.costs.build_constraint_functions`)."""
-    return BatchSQP(model, params, spec, settings, device)
+                   device: torch.device | str = DEFAULT_DEVICE,
+                   backend: str = "auto") -> BatchSQP:
+    """Build the batch SQP solver for `device` (see `BatchSQP`; `backend`
+    "auto" or "xla"). Unlike the JAX factory it takes no
+    `CostFunctions`: the costs and constraint rows come from `spec`."""
+    return BatchSQP(model, params, spec, settings, device, backend)

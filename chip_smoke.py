@@ -80,8 +80,15 @@ SOURCES = {"stage": "agimus_controller_tpu_torch/csrc/stage_kernels.cu",
            "terminal": "agimus_controller_tpu_torch/csrc/terminal_kernels.cu",
            "step": "agimus_controller_tpu_torch/csrc/step_kernels.cu"}
 # the batch path's shapes of the step kernels: K5a steps the B = 4096
-# scenarios of a rollout, K5b linearises all T x B = 409 600 nodes
+# scenarios of a rollout, K5b linearises all T x B = 409 600 nodes (the
+# shapes of the kernels line)
 STEP_SIZES = {"K5a_step": 4096, "K5b_step_derivs": 409_600}
+# every shape the paths launch the step kernels at, each kernel checked
+# against its plain version at all of them: phase 5's ticks step and
+# linearise T x B = 100 nodes (B = 1; 100 is no whole number of 16-node K5a
+# or 8-node K5b blocks), its batch FDDPs roll out B = 4, 8, 64 nodes a step
+# and linearise T x B = 400, 800, 6 400; the batch path's two sizes
+STEP_CHECK_SIZES = (4, 8, 64, 100, 400, 800, 4096, 6400, 409_600)
 # published H100 SXM peaks: device memory rate and fp32 outside the tensor
 # cores (the kernels' arithmetic)
 PEAK_BYTES_PER_S = 3.35e12
@@ -676,9 +683,9 @@ def step_inputs(N, seed, device, dt_kind):
 
 def check_step_kernels(model, params, device):
     """K5a and K5b vs their plain versions on the same CUDA inputs, f32, at
-    the batch path's two sizes, with per-node and scalar dt; each call's
-    time and kernel-only time (per-node dt) and bound. Returns {kernel:
-    {N: numbers}}."""
+    every size the paths launch them at (`STEP_CHECK_SIZES`), with per-node
+    and scalar dt; each call's time and kernel-only time (per-node dt) and
+    bound. Returns {kernel: {N: numbers}}."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
 
@@ -687,7 +694,8 @@ def check_step_kernels(model, params, device):
     for name, kind, derivs, _ in STEP_KERNELS:
         k = StepKernel(model, params, derivs, device)
         labels = ("xnext", "Fx", "Fu") if derivs else ("xnext",)
-        for N in sorted(STEP_SIZES.values()):
+        ops_node = None
+        for N in STEP_CHECK_SIZES:
             errs = {}
             for dt_kind in ("scalar", "per_node"):
                 x, u, dt = step_inputs(N, N + derivs, device, dt_kind)
@@ -700,13 +708,14 @@ def check_step_kernels(model, params, device):
                         f"{name} N={N} {dt_kind} dt", got, as_tuple(plain()),
                         labels).items():
                     errs[lab] = max(errs.get(lab, 0.0), e)
-            reps = 50 if N <= 4096 else 20
+            reps = 50 if N <= 6400 else 20
             ms = cuda_time_ms(run, reps=reps)
             prepared, _ = k.prepare(x, u, dt)
             kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=reps)
             plain_ms = cuda_time_ms(plain, reps=1, warmup=0)
-            ops_node = ops_per_node(model_cpu, params_cpu, None, kind, derivs,
-                                    None, x, u, dt, None)
+            if ops_node is None:  # per node: the same at every size
+                ops_node = ops_per_node(model_cpu, params_cpu, None, kind,
+                                        derivs, None, x, u, dt, None)
             b_ms, b_by = bound_ms(k, kind, N, ops_node)
             print(f"{name:20s} {'':8s} N={N:6d}  wrapper {ms:9.4f} ms (kernel "
                   f"only {kernel_ms:9.4f} ms)  plain {plain_ms:9.3f} ms  bound "
@@ -719,11 +728,14 @@ def check_step_kernels(model, params, device):
     return report
 
 
-def build_slice(device, n_ticks: int = 80):
+def build_slice(device, n_ticks: int = 80, spec=None, keep_away=False):
     """The runtime bench scenario through the port: a PackedTrajectoryBuffer
     streaming a fixed end-effector goal and a FusedTickRunner over it, Panda,
-    T=100, f32, plus the drifting measured states of the chain. Returns a
-    namespace (runner, x0, xs_init, us_init, x0_seq, goal, ee_pose)."""
+    T=100, f32, plus the drifting measured states of the chain. `spec`
+    replaces `flagship_spec(100)`; with `keep_away`, the points also stream
+    link 7's keep-away point (`KEEP_AWAY` from link 7 at the ready pose) for
+    `keep_away_spec`. Returns a namespace (runner, x0, xs_init, us_init,
+    x0_seq, goal, ee_pose, p7, away)."""
     from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
     from agimus_controller_tpu_torch.mpc.buffer import (
         DTFactorsNSeq,
@@ -738,9 +750,11 @@ def build_slice(device, n_ticks: int = 80):
     from agimus_controller_tpu_torch.ops.batched_dynamics import _StaticModel, _rnea_c
     from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
 
+    from agimus_controller_tpu_torch.ops.kinematics import frame_placement
+
     T, dtype = 100, torch.float32
     model, params = load_panda(dtype=dtype, device=device)
-    spec = flagship_spec(T)
+    spec = flagship_spec(T) if spec is None else spec
     refs = default_references(spec, model, dtype=dtype, device=device)
     q0 = np.asarray(PANDA_Q_READY)
     x0 = np.concatenate([q0, np.zeros(7)])
@@ -760,22 +774,29 @@ def build_slice(device, n_ticks: int = 80):
                 np.array([float(c) for c in p]))
 
     R0, p0 = ee_pose(q0)
+    fid7 = model.frame_id("panda_link7")
+    p7 = lambda q: frame_placement(model, params64, torch.as_tensor(
+        q, dtype=torch.float64), fid7)[1].numpy()
+    R7 = frame_placement(model, params64, torch.as_tensor(q0), fid7)[0].numpy()
+    away = p7(q0) + np.asarray(KEEP_AWAY)
     z = [torch.zeros(1, dtype=torch.float64)] * 7
     tau_g = np.array([float(t) for t in _rnea_c(
         sm64, [torch.as_tensor(q0[i:i + 1]) for i in range(7)], z, z)])
     goal = p0 + np.asarray([0.05, -0.05, 0.08])
 
     def mk(i):
+        poses = {"panda_hand_tcp": (R0, goal)}
+        if keep_away:
+            poses["panda_link7"] = (R7, away)
         pt = TrajectoryPoint(
             id=i, time_ns=int(i * 1e7), robot_configuration=q0,
             robot_velocity=np.zeros(7), robot_acceleration=np.zeros(7),
-            robot_effort=tau_g,
-            end_effector_poses={"panda_hand_tcp": (R0, goal)})
+            robot_effort=tau_g, end_effector_poses=poses)
         w = TrajectoryPointWeights(
             w_robot_configuration=np.full(7, 0.1),
             w_robot_velocity=np.full(7, 1.0),
             w_robot_effort=np.ones(7),
-            w_end_effector_poses={"panda_hand_tcp": np.ones(6)})
+            w_end_effector_poses={f: np.ones(6) for f in poses})
         return WeightedTrajectoryPoint(point=pt, weights=w)
 
     layout = RowLayout(spec, model)
@@ -796,7 +817,7 @@ def build_slice(device, n_ticks: int = 80):
     return SimpleNamespace(
         runner=runner, x0=x0, xs_init=np.tile(x0[None], (T + 1, 1)),
         us_init=np.tile(tau_g[None], (T, 1)), x0_seq=x0_seq, goal=goal,
-        ee_pose=ee_pose)
+        ee_pose=ee_pose, p7=p7, away=away)
 
 
 def run_slice(device):
@@ -1336,6 +1357,408 @@ def run_batch_path(device):
         + "; ".join(f"{k} {v:.3f}" for k, v in phases.items())]
 
 
+# -- phase 5: the fallback backend and the single-scenario solvers ----------
+# link 7's keep-away point, from link 7 at the ready pose: away from where
+# the goal takes the arm. quad_exp is repulsive (exp(-|r|^2 / alpha) falls
+# off with the distance): at alpha 5e-3 the 6.9 cm start distance gives
+# 0.38 of the peak, so the term is not flat at the start
+KEEP_AWAY = (-0.04, 0.04, -0.04)
+KEEP_AWAY_ALPHA = 5e-3
+# a posture to keep away from (state under quad_exp, alpha 0.1): the ready
+# state with joints 1-3 moved 0.15 rad, 0.51 of the peak at the start
+POSTURE_SHIFT = (0.15, 0.15, -0.15, 0.0, 0.0, 0.0, 0.0)
+POSTURE_ALPHA = 0.1
+FALLBACK_ROWS, FALLBACK_B = 8, 64
+
+
+def keep_away_spec(T: int, posture=None):
+    """The flagship spec plus link 7 kept away from a streamed point
+    (`frame_translation` under quad_exp, running and terminal): the stage
+    kernels decline the activation on a non-collision item, the batched
+    cost pack takes it. With `posture` (a state [14]) also a static
+    posture kept away from (`state` under quad_exp): the pack declines that
+    too, so the costs come from `CostFunctions`."""
+    import dataclasses
+
+    from agimus_controller_tpu_torch.ocp.spec import CostItem
+
+    s = flagship_spec(T)
+    away = CostItem(name="keep_away", kind="frame_translation", weight=10.0,
+                    update=True, frame="panda_link7", activation="quad_exp",
+                    act_alpha=KEEP_AWAY_ALPHA)
+    extra = (away,)
+    if posture is not None:
+        extra += (CostItem(name="posture_away", kind="state", weight=1.0,
+                           static_ref=tuple(float(v) for v in posture),
+                           activation="quad_exp", act_alpha=POSTURE_ALPHA),)
+    return dataclasses.replace(s, running_costs=s.running_costs + extra,
+                               terminal_costs=s.terminal_costs + (away,))
+
+
+def avoided_posture():
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+
+    return np.concatenate([np.asarray(PANDA_Q_READY)
+                           + np.asarray(POSTURE_SHIFT), np.zeros(7)])
+
+
+def _median_ms(times):
+    return float(np.median(times)) * 1e3
+
+
+def run_fallback_tick(device, posture: bool, n_ticks: int):
+    """Part (a) (`posture` False: the pack route) or (b) (True: the
+    `CostFunctions` route): a declined spec through `FusedTickRunner` on the
+    "xla" backend, the first solve at limit 300, `n_ticks` ticks at limit 2
+    with a drifting x0, one final tick at limit 10. Returns (launches of
+    K5a/K5b on the ticks, summary line)."""
+    from agimus_controller_tpu_torch.ocp.costs import CostFunctions
+    from agimus_controller_tpu_torch.ops.batched_costs import BatchedCostPack
+
+    spec = keep_away_spec(100, avoided_posture() if posture else None)
+    sl = build_slice(device, n_ticks=n_ticks + 1, spec=spec, keep_away=True)
+    runner, solver = sl.runner, sl.runner.solver
+    part = "(b)" if posture else "(a)"
+    route = CostFunctions if posture else BatchedCostPack
+    if solver.backend != "xla" or not isinstance(solver.costs, route):
+        raise AssertionError(
+            f"fallback {part}: backend {solver.backend!r} with "
+            f"{type(getattr(solver, 'costs', None)).__name__}, expected 'xla' "
+            f"with {route.__name__}")
+    if hasattr(solver, "stage_dk") or hasattr(solver, "term_dk"):
+        raise AssertionError(f"fallback {part}: the solver holds K1-K4")
+    for k in solver.kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    runner.initialize(sl.x0, sl.xs_init, sl.us_init, limit=300)
+    _, _, kkt0, it0, conv0 = runner.fetch()
+    first_s = time.perf_counter() - t0
+    after_init = [k.launches for k in solver.kernels]
+    syncs0 = solver.host_syncs
+    times = []
+    for i in range(n_ticks):
+        t0 = time.perf_counter()
+        runner.step(sl.x0_seq[i], limit=2)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    syncs = (solver.host_syncs - syncs0) / n_ticks
+    runner.step(sl.x0_seq[n_ticks], limit=10)
+    K0, u0, kkt, iters, conv = runner.fetch()
+    launches = {name: k.launches for (name, *_), k in
+                zip(STEP_KERNELS, solver.kernels)}
+    for (name, n), a in zip(launches.items(), after_init):
+        if not n > a:
+            raise AssertionError(
+                f"fallback {part}: {name} was not launched during the ticks")
+    if not (np.all(np.isfinite(u0)) and np.all(np.isfinite(K0))):
+        raise AssertionError(f"fallback {part}: non-finite control message")
+    if not (conv and kkt < 1e-4):
+        raise AssertionError(
+            f"fallback {part}: final tick did not converge (kkt={kkt:.2e})")
+    xT = runner._xs[-1].double().cpu().numpy()
+    _, pT = sl.ee_pose(xT[:7])
+    ee_err = float(np.linalg.norm(pT - sl.goal))
+    away = float(np.linalg.norm(sl.p7(xT[:7]) - sl.away))
+    if not posture and not ee_err < 0.02:
+        raise AssertionError(
+            f"fallback (a): terminal EE error {ee_err:.4f} m >= 0.02 m")
+    return launches, (
+        f"fallback {part} tick, backend {solver.backend} with "
+        f"{type(solver.costs).__name__}: first solve {first_s:.2f} s, "
+        f"iters={it0} kkt={kkt0:.2e} conv={conv0}; tick median "
+        f"{_median_ms(times):.3f} ms over {n_ticks} ticks at limit 2 (host "
+        f"clock, synchronized); {syncs:.2f} host syncs per tick; final tick "
+        f"iters={iters} kkt={kkt:.2e} conv={conv}; terminal EE error "
+        f"{ee_err * 1e3:.2f} mm; link 7 {away * 1e3:.2f} mm from its "
+        f"keep-away point (start {np.linalg.norm(KEEP_AWAY) * 1e3:.1f} mm); "
+        f"K1-K4 launches 0 (no stage kernel built); launches {launches}")
+
+
+def keep_away_refs(spec, model, device, dtype=torch.float32):
+    """Fixed refs of `keep_away_spec`: the ready state, the hand's goal
+    `BATCH_GOAL` from its ready pose, link 7's keep-away point."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+    from agimus_controller_tpu_torch.ops.kinematics import frame_placement
+
+    _, params64 = load_panda(dtype=torch.float64, device="cpu")
+    q0 = np.asarray(PANDA_Q_READY)
+    pose = lambda f: [a.numpy() for a in frame_placement(
+        model, params64, torch.as_tensor(q0), model.frame_id(f))]
+    R0, p0 = pose("panda_hand_tcp")
+    R7, p7 = pose("panda_link7")
+    tile = lambda a: torch.as_tensor(np.tile(
+        np.asarray(a)[None], (spec.horizon + 1,) + (1,) * np.ndim(a)),
+        dtype=dtype, device=device)
+    refs = default_references(spec, model, dtype=dtype, device=device)
+    refs["xref"] = tile(np.concatenate([q0, np.zeros(7)]))
+    refs["ee_rot:panda_hand_tcp"] = tile(R0)
+    refs["ee_trans:panda_hand_tcp"] = tile(p0 + np.asarray(BATCH_GOAL))
+    refs["ee_rot:panda_link7"] = tile(R7)
+    refs["ee_trans:panda_link7"] = tile(p7 + np.asarray(KEEP_AWAY))
+    return refs
+
+
+def run_fallback_fddp(device):
+    """Part (b), batch: `make_batch_fddp` on the `CostFunctions` spec,
+    T=100, f32, 10 iterations at most, a B=8 solve of rows 0-7 then B=64,
+    x0 = ready + N(0, 0.02^2) on q. Returns (launches, summary line)."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.ocp.costs import CostFunctions
+    from agimus_controller_tpu_torch.solver.fddp import SolverSettings
+    from agimus_controller_tpu_torch.solver.fddp_batch import make_batch_fddp
+
+    T, dtype = 100, torch.float32
+    model, params = load_panda(dtype=dtype, device=device)
+    spec = keep_away_spec(T, avoided_posture())
+    x0 = np.concatenate([np.asarray(PANDA_Q_READY), np.zeros(7)])
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    refs = keep_away_refs(spec, model, device)
+    rng = np.random.default_rng(0)
+    x0s = f(x0[None] + np.concatenate(
+        [rng.normal(size=(FALLBACK_B, 7)) * BATCH_X0_NOISE,
+         np.zeros((FALLBACK_B, 7))], 1))
+    xs0 = f(np.tile(x0[None, None], (FALLBACK_B, T + 1, 1)))
+    us0 = torch.zeros((FALLBACK_B, T, 7), dtype=dtype, device=device)
+    solver = make_batch_fddp(model, params, spec, SolverSettings(max_iters=10),
+                             device=device)
+    if not isinstance(solver.pack, CostFunctions):
+        raise AssertionError("fallback (b) batch: the cost pack took the spec")
+    for k in solver.kernels:
+        k.launches = 0
+    n = FALLBACK_ROWS
+    t0 = time.perf_counter()
+    small = solver(x0s[:n], refs, xs0[:n], us0[:n])
+    _sync(device)
+    small_s = time.perf_counter() - t0
+    s0 = solver.host_syncs
+    t0 = time.perf_counter()
+    big = solver(x0s, refs, xs0, us0)
+    _sync(device)
+    big_s = time.perf_counter() - t0
+    launches = {name: k.launches for (name, *_), k in
+                zip(STEP_KERNELS, solver.kernels)}
+    for field in ("xs", "us", "K", "k", "cost", "kkt", "gap_norm"):
+        if not bool(torch.isfinite(getattr(big, field)).all()):
+            raise AssertionError(f"fallback (b) batch: non-finite {field}")
+    rows = slice(0, n)
+    du = float((big.us[rows] - small.us).abs().max())
+    if not (torch.equal(big.iters[rows], small.iters)
+            and torch.equal(big.converged[rows], small.converged)
+            and du < 1e-3):
+        raise AssertionError(
+            f"fallback (b) batch: rows 0-{n - 1} of B={FALLBACK_B} (iters "
+            f"{big.iters[rows].tolist()}) differ from the B={n} solve (iters "
+            f"{small.iters.tolist()}), us max abs diff {du:.3e}")
+    for name, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"fallback (b) batch: {name} not launched")
+    c = lambda a: a.double().cpu().numpy()
+    return launches, (
+        f"fallback (b) batch FDDP with {type(solver.pack).__name__}, T={T}, "
+        f"f32: B={n} {small_s:.2f} s, iters {small.iters.tolist()}; "
+        f"B={FALLBACK_B} {big_s:.3f} s (host clock, synchronized), mean "
+        f"iterations {float(c(big.iters).mean()):.2f}, converged share "
+        f"{float(c(big.converged).mean()):.4f}, kkt max "
+        f"{float(c(big.kkt).max()):.3e}, {solver.host_syncs - s0} host syncs; "
+        f"rows 0-{n - 1} match the B={n} solve (us max abs diff {du:.3e}); "
+        f"launches {launches}")
+
+
+def _collision_problem(device, B):
+    """Part (c)'s problem: the collision path's OCP (`yaml_spec(19)`, its
+    obstacle and goal weight 2700) with fixed refs, x0 = ready + N(0,
+    0.02^2) on q for B rows."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+    from agimus_controller_tpu_torch.ops.dynamics import generalized_gravity
+    from agimus_controller_tpu_torch.ops.kinematics import frame_placement
+
+    T, dtype = 19, torch.float32
+    model, params = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
+                               dtype=dtype, device=device)
+    _, params64 = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
+                             dtype=torch.float64, device="cpu")
+    spec = yaml_spec(T, model)
+    q0 = np.asarray(PANDA_Q_READY)
+    x0 = np.concatenate([q0, np.zeros(7)])
+    R0 = frame_placement(model, params64, torch.as_tensor(q0),
+                         model.frame_id("panda_hand_tcp"))[0].numpy()
+    tau_g = generalized_gravity(model, params64, torch.as_tensor(q0)).numpy()
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    tile = lambda a: f(np.tile(np.asarray(a)[None], (T + 1,) + (1,) * np.ndim(a)))
+    refs = default_references(spec, model, dtype=dtype, device=device)
+    refs["xref"] = tile(x0)
+    refs["w_x"] = tile(np.concatenate([np.full(7, 0.1), np.ones(7)]))
+    refs["uref"] = tile(tau_g)
+    refs["ee_rot:panda_hand_tcp"] = tile(R0)
+    refs["ee_trans:panda_hand_tcp"] = tile([0.45, 0.05, 0.50])
+    refs["w_ee:panda_hand_tcp"] = tile(np.full(6, 2700.0))
+    rng = np.random.default_rng(0)
+    x0s = x0[None] + 0.02 * np.concatenate(
+        [rng.normal(size=(B, 7)), np.zeros((B, 7))], 1)
+    return (model, params, spec, refs, f(x0s),
+            f(np.tile(x0s[:, None], (1, T + 1, 1))),
+            f(np.tile(tau_g[None, None], (B, T, 1))))
+
+
+# part (c)/(d) agreement: the bounds of the JAX tests the parts follow
+# (f64), and the bound checked in f32 on the card where f32 does not reach
+# them. (d) on an H100 (PERF.md): us 3.6e-4 and cost 1.1e-6 apart at 12
+# iterations, 8.3e-4 and 6.8e-7 at 4, on controls up to tens of N m: both
+# solvers reach kkt ~4e-8, f32's noise floor, by the 4th iteration, and
+# the two f32 routes to the derivatives (K5b and the cost pack against
+# `jacrev` of the plain step and costs) leave that much between their
+# iterates; checked at 5e-3 on us and 1e-5 on the cost
+SINGLE_BOUNDS = {"(c)": dict(f64=(5e-5, 1e-5), check=(5e-5, 1e-5)),
+                 "(d)": dict(f64=(2e-6, 1e-6), check=(5e-3, 1e-5))}
+
+
+def _agreement(part, du, dcost):
+    """Summary of one part's agreement; raises outside the checked bound."""
+    (fa, fr), (ca, cr) = (SINGLE_BOUNDS[part][k] for k in ("f64", "check"))
+    line = (f"us max abs diff {du:.3e}, cost max rel diff {dcost:.3e}: "
+            f"f64 bounds ({fa:g}, {fr:g}) "
+            f"{'met' if du <= fa and dcost <= fr else 'not met'} in f32")
+    if not (du <= ca and dcost <= cr):
+        raise AssertionError(f"single {part}: {line}; checked at ({ca:g}, "
+                             f"{cr:g})")
+    return line + ("" if (ca, cr) == (fa, fr) else
+                   f", checked at ({ca:g}, {cr:g})")
+
+
+def run_single_csqp(device, rows: int, settings: dict):
+    """Part (c): `solve_csqp` over `CostFunctions` against the
+    kernel-backed `BatchSQP`, row by row, with `tests/test_sqp_batch.py`'s
+    settings but `max_qp_iters` from `settings`. Returns (launches of
+    K1-K4, summary line)."""
+    from agimus_controller_tpu_torch.ocp.costs import build_cost_functions
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings, solve_csqp
+    from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
+
+    model, params, spec, refs, x0s, xs0, us0 = _collision_problem(device, rows)
+    s = CSQPSettings(**settings)
+    batch = make_batch_sqp(model, params, spec, s, device=device)
+    if batch.backend != "kernels":
+        raise AssertionError(f"single (c): batch backend {batch.backend!r}")
+    cf = build_cost_functions(model, params, spec)
+    for k in batch.kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    sol_b = batch(x0s, refs, xs0, us0)
+    _sync(device)
+    batch_s = time.perf_counter() - t0
+    launches = {name: k.launches for (name, *_), k in
+                zip(STAGE_KERNELS, batch.kernels)}
+    times, sols = [], []
+    for i in range(rows):
+        t0 = time.perf_counter()
+        sols.append(solve_csqp(cf, x0s[i], refs, xs0[i], us0[i], s))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    for sol in sols + [sol_b]:
+        if not (bool(torch.isfinite(sol.us).all())
+                and bool(torch.isfinite(sol.cost).all())):
+            raise AssertionError("single (c): non-finite solution")
+    if not float(sol_b.constraint_norm.max()) < 1e-3:
+        raise AssertionError("single (c): batch solution violates the band")
+    du = max(float((sol_b.us[i] - sols[i].us).abs().max()) for i in range(rows))
+    dc = max(abs(float(sol_b.cost[i] - sols[i].cost)) / abs(float(sols[i].cost))
+             for i in range(rows))
+    agree = _agreement("(c)", du, dc)
+    return launches, (
+        f"single (c) solve_csqp on yaml_spec(19), f32, {rows} rows, "
+        f"max_iters {s.max_iters}, max_qp_iters {s.max_qp_iters}, fixed rho: "
+        f"solve median {_median_ms(times):.1f} ms (host clock, synchronized), "
+        f"iters {[int(x.iters) for x in sols]}, ADMM iterations "
+        f"{[int(x.qp_iters) for x in sols]}, host syncs "
+        f"{[x.host_syncs for x in sols]}, backend CostFunctions; BatchSQP "
+        f"(backend {batch.backend}) B={rows} {batch_s * 1e3:.1f} ms, iters "
+        f"{sol_b.iters.tolist()}, ADMM {sol_b.qp_iters.tolist()}, "
+        f"{batch.host_syncs} host syncs; {agree}; launches {launches}")
+
+
+def run_single_fddp(device, rows: int, max_iters: int):
+    """Part (d): `solve_fddp` over `CostFunctions` against `BatchFDDP` (the
+    pack and K5a/K5b) on the flagship spec at T=100, f32, from `rows` x0
+    rows of `build_batch`'s first variant, `tests/test_fddp_batch.py`'s
+    settings but `max_iters`. Returns (launches of K5a/K5b, summary
+    line)."""
+    from agimus_controller_tpu_torch.ocp.costs import build_cost_functions
+    from agimus_controller_tpu_torch.solver.fddp import SolverSettings, solve_fddp
+    from agimus_controller_tpu_torch.solver.fddp_batch import make_batch_fddp
+    from agimus_controller_tpu_torch.models.panda import load_panda
+
+    bp = build_batch(device, n_variants=1)
+    model, params = load_panda(dtype=torch.float32, device=device)
+    spec = flagship_spec(BATCH_T)
+    s = SolverSettings(max_iters=max_iters, termination_tolerance=1e-8)
+    batch = make_batch_fddp(model, params, spec, s, device=device)
+    cf = build_cost_functions(model, params, spec)
+    x0s, xs0, us0 = bp.variants[0][:rows], bp.xs0[:rows], bp.us0[:rows]
+    for k in batch.kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    sol_b = batch(x0s, bp.refs, xs0, us0)
+    _sync(device)
+    batch_s = time.perf_counter() - t0
+    launches = {name: k.launches for (name, *_), k in
+                zip(STEP_KERNELS, batch.kernels)}
+    times, sols = [], []
+    for i in range(rows):
+        t0 = time.perf_counter()
+        sols.append(solve_fddp(cf, x0s[i], bp.refs, xs0[i], us0[i], s))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    for sol in sols + [sol_b]:
+        if not (bool(torch.isfinite(sol.us).all())
+                and bool(torch.isfinite(sol.cost).all())):
+            raise AssertionError("single (d): non-finite solution")
+    du = max(float((sol_b.us[i] - sols[i].us).abs().max()) for i in range(rows))
+    dc = max(abs(float(sol_b.cost[i] - sols[i].cost)) / abs(float(sols[i].cost))
+             for i in range(rows))
+    agree = _agreement("(d)", du, dc)
+    dist = bp.ee_dist(torch.stack([x.xs for x in sols]))
+    return launches, (
+        f"single (d) solve_fddp on flagship_spec({BATCH_T}), f32, {rows} rows, "
+        f"max_iters {max_iters}: solve median {_median_ms(times):.1f} ms (host "
+        f"clock, synchronized), iters {[int(x.iters) for x in sols]}, host "
+        f"syncs {[x.host_syncs for x in sols]}, kkt "
+        f"{[f'{float(x.kkt):.2e}' for x in sols]}, backend CostFunctions, "
+        f"terminal EE distance to the goal (mm) "
+        + " ".join(f"{d * 1e3:.2f}" for d in dist)
+        + f"; max |us| {float(sol_b.us.abs().max()):.2f}"
+        + f"; BatchFDDP B={rows} {batch_s * 1e3:.1f} ms, iters "
+        f"{sol_b.iters.tolist()}; {agree}; launches {launches}")
+
+
+def run_fallback_phase(device, n_ticks_a=10, n_ticks_b=4, csqp_rows=1,
+                       csqp_qp_iters=50, fddp_rows=4, fddp_iters=4):
+    """Phase 5: (a), (b) and its batch FDDP, (c), (d), with the ticks and
+    iterations cut to keep the phase near 2 minutes on the card (the JAX
+    tests run (c) at 200 ADMM iterations and 3 rows, (d) at 12
+    iterations). Returns (launches per kernel, summary lines)."""
+    launches = {name: 0 for name, *_ in KERNELS}
+    lines = []
+    parts = [
+        lambda: run_fallback_tick(device, False, n_ticks_a),
+        lambda: run_fallback_tick(device, True, n_ticks_b),
+        lambda: run_fallback_fddp(device),
+        lambda: run_single_csqp(device, csqp_rows, dict(
+            max_iters=20, max_qp_iters=csqp_qp_iters, eps_abs=1e-10,
+            termination_tolerance=1e-8, rho=1e-1, adaptive_rho=False,
+            soc_iters=0, constraint_envelope=False)),
+        lambda: run_single_fddp(device, fddp_rows, fddp_iters),
+    ]
+    for part in parts:
+        t0 = time.perf_counter()
+        path_launches, line = part()
+        lines.append(f"{line} [{time.perf_counter() - t0:.1f} s]")
+        for name, n in path_launches.items():
+            launches[name] += n
+    return launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -1380,7 +1803,14 @@ def main():
         for name, n in path_launches.items():
             launches[name] += n
 
-    # -- 5. result: launches over the four paths, the max error over every
+    # -- 5. the fallback backend and the single-scenario solvers
+    path_launches, lines = run_fallback_phase(device)
+    for line in lines:
+        print(line)
+    for name, n in path_launches.items():
+        launches[name] += n
+
+    # -- 6. result: launches over the five paths, the max error over every
     # checked spec and size; times (wrapper and bare launch) and bounds at
     # the flagship tick shape for K1-K4 and at the batch path's shapes for
     # K5a/K5b (no single PyTorch call computes a fused stage or a dynamics

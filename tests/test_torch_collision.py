@@ -334,7 +334,6 @@ def test_constraint_counts_match_jax(constraint_case):
 def test_unported_constraint_kind_raises(panda):
     jm, _, p = panda
     spec = dataclasses.replace(to_port_spec(_box_band_spec()), constraints=(
-        tspec.ConstraintItem(name="v", kind="frame_velocity",
-                             frame="panda_hand_tcp"),))
-    with pytest.raises(NotImplementedError, match="frame_velocity"):
+        tspec.ConstraintItem(name="f", kind="force_box"),))
+    with pytest.raises(NotImplementedError, match="force_box.*slice 12"):
         build_constraint_functions(jm, p, spec)

@@ -282,3 +282,53 @@ def test_terminal_kernel_2dof(device, arm, kernel):
     got, want = k(x, refs), k.plain(x, refs)
     torch.cuda.synchronize()
     smoke.check_outputs(f"{kernel} 2-DoF", got, want, ("l", "lx", "lxx"))
+
+
+@pytest.mark.parametrize("route", ["pack", "cost_functions"])
+def test_xla_backend_launches_step_kernels_only(device, panda, route):
+    """The "xla" backend of the batch SQP on a spec the stage kernels
+    decline (`chip_smoke.keep_away_spec` at T=19, the goal and keep-away
+    refs of phase 5): K5a/K5b launch, no stage kernel is built, and three
+    SQP iterations give the iterations and, to 1e-2 on controls of order
+    10-100, the controls of the same solve on the CPU (plain versions,
+    f32)."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+    from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
+
+    model, params = panda
+    posture = smoke.avoided_posture() if route == "cost_functions" else None
+    spec = smoke.keep_away_spec(19, posture)
+    x0 = torch.cat([torch.as_tensor(np.asarray(PANDA_Q_READY),
+                                    dtype=torch.float32), torch.zeros(7)])
+    sols = {}
+    for dev in (device, torch.device("cpu")):
+        p = type(params)(*(t.to(dev) for t in params))
+        refs = smoke.keep_away_refs(spec, model, dev)
+        solver = make_batch_sqp(model, p, spec, CSQPSettings(max_iters=3),
+                                device=dev)
+        assert solver.backend == "xla" and not hasattr(solver, "stage_dk")
+        xs = x0.to(dev).expand(1, 20, 14).contiguous()
+        us = torch.zeros((1, 19, 7), device=dev)
+        sols[dev.type] = solver(x0.to(dev)[None], refs, xs, us)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert [k.launches > 0 for k in solver.kernels] == [True, True]
+    g, w = sols["cuda"], sols["cpu"]
+    assert bool(torch.isfinite(g.us).all())
+    assert torch.equal(g.iters.cpu(), w.iters)
+    np.testing.assert_allclose(g.us.cpu().numpy(), w.us.numpy(), rtol=0,
+                               atol=1e-2)
+
+
+def test_auto_keeps_checked_specs_on_the_kernels(device, panda):
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+    from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
+
+    model, params = panda
+    for name in smoke.CHECKED_SPECS:
+        spec = smoke.SPECS[name](100, model)
+        solver = make_batch_sqp(model, params, spec, CSQPSettings(),
+                                device=device)
+        assert solver.backend == "kernels", (name, solver.backend_reason)
+        assert len(solver.kernels) == 4

@@ -106,10 +106,14 @@ ENTRY_POINTS = {
                                        **kw),
     "make_batch_sqp": lambda a, kw: make_batch_sqp(
         a["model"], a["params"], a["spec"], **kw),
+    "make_batch_sqp_xla": lambda a, kw: make_batch_sqp(
+        a["model"], a["params"], a["spec"], backend="xla", **kw),
     "FusedTick": lambda a, kw: FusedTick(a["model"], a["params"], a["spec"],
                                          a["ring"], **kw),
     "make_fused_tick": lambda a, kw: make_fused_tick(
         a["model"], a["params"], a["spec"], a["ring"], **kw),
+    "make_fused_tick_xla": lambda a, kw: make_fused_tick(
+        a["model"], a["params"], a["spec"], a["ring"], backend="xla", **kw),
     "FusedTickRunner": lambda a, kw: FusedTickRunner(
         a["model"], a["params"], a["spec"], a["ring"],
         _refs(a, device="cpu"), dtype=torch.float64, **kw),

@@ -488,10 +488,12 @@ def test_batch_fddp_refuses_what_is_not_ported(arm):
     with pytest.raises(NotImplementedError, match="slice 12"):
         make_batch_fddp(jm, p, dataclasses.replace(ps, soft_contact=object()),
                         **CPU)
+    # the pack declines a soft-contact cost; its fallback, CostFunctions,
+    # refuses it too
     C = jspec.CostItem
     declined = to_port_spec(dataclasses.replace(
         arm_spec(4), running_costs=(C(name="f", kind="force_tracking"),)))
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(NotImplementedError, match="slice 12"):
         make_batch_fddp(jm, p, declined, **CPU)
     with pytest.raises(ValueError):
         make_batch_fddp(jm, p, ps, riccati="nope", **CPU)

@@ -80,3 +80,12 @@ def test_vs_path_module_is_probed(module):
 def test_batch_path_module_is_probed(module):
     """The batch FDDP path's modules are among the modules probed above."""
     assert f"{PKG}.{module}" in MODULES
+
+
+@pytest.mark.parametrize("module", [
+    "ocp.costs", "ops.dynamics", "ops.integrator", "solver.csqp",
+    "solver.fddp", "solver.sqp_batch"])
+def test_single_scenario_module_is_probed(module):
+    """The modules of the generic cost functions, the single-scenario
+    solvers and the fallback backend are among the modules probed above."""
+    assert f"{PKG}.{module}" in MODULES
