@@ -270,6 +270,44 @@ def _parse_srdf_disabled(srdf: str) -> List[Tuple[str, str]]:
     ]
 
 
+@dataclasses.dataclass
+class RobotModelParameters:
+    """Build parameters. API mirrors the reference `RobotModelParameters`
+    (`factory/robot_model.py:12-85`) minus the pinocchio/coal specifics;
+    ``dtype`` is the tensors' (the JAX package's is a numpy dtype)."""
+
+    q0: np.ndarray = dataclasses.field(default_factory=lambda: np.array([]))
+    free_flyer: bool = False  # floating base (6-DoF chart, see build_model_from_urdf)
+    moving_joint_names: List[str] = dataclasses.field(default_factory=list)
+    robot_urdf: Union[Path, str] = ""
+    env_urdf: Union[None, Path, str] = None
+    srdf: Union[None, Path, str] = None
+    robot_attachment_frame: str = ""
+    collision_as_capsule: bool = False
+    collision_pairs: List[Tuple[str, str]] = dataclasses.field(default_factory=list)
+    self_collision: bool = False
+    armature: np.ndarray = dataclasses.field(default_factory=lambda: np.array([]))
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if not self.robot_urdf:
+            raise ValueError("Robot URDF can not be an empty string.")
+        if isinstance(self.robot_urdf, Path) and not self.robot_urdf.is_file():
+            raise ValueError(f"Robot URDF file '{self.robot_urdf}' doesn't exist!")
+        if isinstance(self.env_urdf, Path) and not self.env_urdf.is_file():
+            raise ValueError(f"Environment URDF file '{self.env_urdf}' doesn't exist!")
+        if isinstance(self.srdf, Path) and not self.srdf.is_file():
+            raise ValueError(f"SRDF file '{self.srdf}' doesn't exist!")
+        self.armature = np.asarray(self.armature, dtype=np.float64)
+        if self.armature.size == 0:
+            self.armature = np.zeros(len(self.moving_joint_names))
+        if len(self.armature) != len(self.moving_joint_names):
+            raise ValueError(
+                "Armature must have the same shape as moving_joint_names. "
+                f"Got {self.armature.shape} and {len(self.moving_joint_names)}."
+            )
+
+
 def _read(src: Union[Path, str]) -> str:
     if isinstance(src, Path):
         text = src.read_text()
@@ -278,9 +316,11 @@ def _read(src: Union[Path, str]) -> str:
     else:
         text = src
     if "http://www.ros.org/wiki/xacro" in text:
-        raise NotImplementedError(
-            "xacro expansion is not ported yet (ROADMAP queue 1, slice 2); "
-            "pass an expanded URDF")
+        # a reference-shipped .xacro drops in directly (the reference
+        # expands xacro at runtime, `mpc_plot_node.py:34-97`)
+        from .xacro import expand_xacro
+
+        text = expand_xacro(text)
     return text
 
 
@@ -554,3 +594,56 @@ def build_model_from_urdf(
     params = params_from_numpy(
         SimpleNamespace(**arrays), dtype=dtype, device=device)
     return model, params
+
+
+class RobotModels:
+    """Reference-API facade (`RobotModels`, `factory/robot_model.py:88-351`):
+    builds both the full and the reduced model from `RobotModelParameters`,
+    their tensors on ``device``."""
+
+    def __init__(self, params: RobotModelParameters,
+                 device: torch.device | str = DEFAULT_DEVICE):
+        device = resolve_device(device)
+        self._params = params
+        self.full_model, self.full_params = build_model_from_urdf(
+            params.robot_urdf,
+            moving_joint_names=None,
+            env_urdf=params.env_urdf,
+            robot_attachment_frame=params.robot_attachment_frame,
+            srdf=params.srdf,
+            collision_as_capsule=params.collision_as_capsule,
+            collision_pairs=params.collision_pairs,
+            self_collision=params.self_collision,
+            dtype=params.dtype,
+            device=device,
+            free_flyer=params.free_flyer,
+        )
+        q0 = params.q0 if params.q0.size else None
+        self.model, self.params = build_model_from_urdf(
+            params.robot_urdf,
+            moving_joint_names=params.moving_joint_names or None,
+            q0=q0,
+            armature=params.armature if params.moving_joint_names else None,
+            env_urdf=params.env_urdf,
+            robot_attachment_frame=params.robot_attachment_frame,
+            srdf=params.srdf,
+            collision_as_capsule=params.collision_as_capsule,
+            collision_pairs=params.collision_pairs,
+            self_collision=params.self_collision,
+            dtype=params.dtype,
+            device=device,
+            free_flyer=params.free_flyer,
+        )
+
+    @property
+    def robot_model(self):
+        return self.model
+
+    @property
+    def armature(self):
+        return self.params.armature
+
+
+def build_robot_models(params: RobotModelParameters,
+                       device: torch.device | str = DEFAULT_DEVICE) -> RobotModels:
+    return RobotModels(params, device)

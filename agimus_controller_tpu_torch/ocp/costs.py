@@ -479,6 +479,15 @@ class CostFunctions:
         return StageDerivs(*self._map(self._stage_derivs, self._run_keys, x, u,
                                       t, refs))
 
+    def cost_breakdown_b(self, x, u, t, refs):
+        """`cost_breakdown` of N running nodes: {item name: (weighted value
+        [N], residual [N, r])}."""
+        return self._map(
+            lambda x1, u1, rt, dt: {item.name: (v, r) for item, v, r in
+                                    self._item_values(self.running, x1, u1,
+                                                      rt)},
+            self._run_keys, x, u, t, refs)
+
     def pack(self, x, u, t, refs):
         """`cost_derivs` of N nodes: (l, lx, lu, lxx, lxu, luu), [N, ...]."""
         return self._map(self._cost_derivs, self._run_keys, x, u, t, refs)

@@ -9,10 +9,11 @@ flagship goal tracking, the Pallas kernels' test spec with its collision
 item, the shipped collision-avoidance YAML, the visual-servoing OCP
 `VS_OCP`, a visual-servoing + frame-velocity spec, and `cap_spec`, with
 more ref keys than the kernels' by-value table holds) with every term live,
-K1/K2 at N = 19, 100 and 102 400 (`cap_spec` up to 100), also with one dt
-for every node (a float, a 0-d tensor), K1-K4 also on the tick's ring-row
-views of the refs, and K5a/K5b at the batch path's shapes with per-node and
-scalar dt; times each call and its bare launch and computes its bound.
+K1/K2 at N = 19, 20, 100 and 102 400 (`cap_spec` at 100), also with one
+dt for every node (a float, a 0-d tensor), K1-K4 also on the tick's
+ring-row views of the refs, and K5a/K5b at every shape the paths launch
+them at, with per-node and scalar dt; times each call and its bare launch
+and computes its bound.
 Then drives the port's four main paths, every entry point on the card, the
 first three through `FusedTickRunner`:
 
@@ -31,6 +32,18 @@ first three through `FusedTickRunner`:
   from the ready pose and x0 perturbed per scenario, solved on three x0
   variants (solves/s), after a B=8 solve of the first variant's rows 0-7
   that the B=4096 solve must reproduce.
+
+Phase 5 runs the specs the stage kernels decline on the "xla" backend and
+the single-scenario solvers. Phase 6 drives the reference-shaped control
+loop of the README's Quick start and the demos (`examples/pick_and_place.py`,
+`examples/dummy_mpc.py`): the Panda from the model factory with an obstacle
+given as xacro, `OCPParams` from the engine config loader, the OCP
+registry, the warm starts, `MPC` and `ControllerRuntime`, T=20, dt 0.01,
+f32: (a) the pick-and-place loop, held against the JAX package's joint
+tracking error; (b) the same in ring mode with the debug streams, one solve
+held against host packing; (c) the sine loop at the reference's default
+`max_solve_time`; (d) the collision-avoidance OCP through the facade, T=19,
+checked to hold the band.
 
 The tick paths must have launched every stage kernel, the batch path both
 step kernels and no stage kernel. Exits non-zero without a result when
@@ -83,6 +96,10 @@ SOURCES = {"stage": "agimus_controller_tpu_torch/csrc/stage_kernels.cu",
 # scenarios of a rollout, K5b linearises all T x B = 409 600 nodes (the
 # shapes of the kernels line)
 STEP_SIZES = {"K5a_step": 4096, "K5b_step_derivs": 409_600}
+# the node counts K1/K2 are checked at: every one the paths launch them at
+# (B = 1: the T = 19 collision, VS and phase 5 (c) and 6 (d) solves, phase
+# 6's T = 20 loops, the flagship tick's T = 100) and 102 400 nodes
+STAGE_CHECK_SIZES = (19, 20, 100, 102_400)
 # every shape the paths launch the step kernels at, each kernel checked
 # against its plain version at all of them: phase 5's ticks step and
 # linearise T x B = 100 nodes (B = 1; 100 is no whole number of 16-node K5a
@@ -118,34 +135,8 @@ def _cost(name, residual, activation, update=True, weight=1.0):
 
 
 _QUAD = {"class": "ActivationModelWeightedQuad", "weights": 1.0}
-_DISTANCE = _cost("distance", {"class": "ResidualDistanceCollision",
-                               "collision_pair_id": 0},
-                  {"class": "ActivationModelQuadExp", "alpha": "1e-4"},
-                  update=False)
-_GOAL = _cost("goal_tracking", {"class": "ResidualModelFramePlacement", "id": 0},
-              _QUAD)
 _STATE = _cost("state_reg", {"class": "ResidualModelState"}, _QUAD)
 _DAM = "DifferentialActionModelFreeFwdDynamics"
-# The tree of `agimus_controller_tpu/ocp/definitions/
-# ocp_traj_tracking_collision_avoidance.yaml` as `yaml.safe_load` gives it
-# (so "1e-4" and "inf" stay strings); the card's machine has no PyYAML.
-COLLISION_OCP = {
-    "running_model": {
-        "class": "IntegratedActionModelEuler",
-        "differential": {
-            "class": _DAM,
-            "costs": [
-                _cost("control_reg", {"class": "ResidualModelControl"}, _QUAD),
-                _STATE, _GOAL, _DISTANCE],
-            "constraints": [{"name": "collision", "constraint": {
-                "class": "ConstraintModelResidual", "lower": 0.01,
-                "upper": "inf", "residual": {
-                    "class": "ResidualDistanceCollision",
-                    "collision_pair_id": 0}}}]}},
-    "terminal_model": {
-        "class": "IntegratedActionModelEuler",
-        "differential": {"class": _DAM, "costs": [_STATE, _GOAL, _DISTANCE]}},
-}
 
 
 _VS = _cost("visual_servoing", {"class": "ResidualModelVisualServoing",
@@ -260,11 +251,16 @@ def full_spec(T: int):
 
 
 def yaml_spec(T: int, model, dt: float = 0.01):
-    """The shipped collision-avoidance OCP, compiled by the port."""
+    """The shipped collision-avoidance OCP (the package's parsed tree of
+    the YAML file: the card's machine has no PyYAML), compiled by the
+    port."""
+    from agimus_controller_tpu_torch.ocp.definitions import (
+        TRAJ_TRACKING_COLLISION_AVOIDANCE,
+    )
     from agimus_controller_tpu_torch.ocp.yaml_compiler import load_ocp_spec
 
-    return load_ocp_spec(COLLISION_OCP, model, horizon=T, dt=dt,
-                         default_ee_frame="panda_hand_tcp")
+    return load_ocp_spec(TRAJ_TRACKING_COLLISION_AVOIDANCE, model, horizon=T,
+                         dt=dt, default_ee_frame="panda_hand_tcp")
 
 
 def vs_spec(T: int, model, dt: float = 0.01):
@@ -556,15 +552,16 @@ def bound_ms(k, kind, n_nodes, ops_node):
                                        else "operations")
 
 
-def check_kernels(model, params, device, sizes=(19, 100, 102_400)):
+def check_kernels(model, params, device, sizes=STAGE_CHECK_SIZES):
     """K1-K4 vs their plain versions on the same CUDA inputs, f32, on the
     checked specs (`cap25` at N = 100 only), with each call's time,
     kernel-only time (CUDA events around the bare launch, inputs, source
-    table and outputs prepared) and bound; at a spec's first size also on
-    the tick's ring-row views of the same refs and, for K1/K2, with one dt
-    for every node (a float and a 0-d tensor). The terminal kernels take
-    N // 100 nodes (at least 1) and skip N < 100. Returns {kernel: {spec:
-    {N: numbers}}}."""
+    table and outputs prepared) and bound; at the node counts of the
+    T = 19 and T = 20 paths, and at `cap25`'s one size, also on the tick's
+    ring-row views of the same refs and, for K1/K2, with one dt for every
+    node (a float and a 0-d tensor). The terminal kernels take N // 100
+    nodes (at least 1) and skip N < 100. Returns {kernel: {spec: {N:
+    numbers}}}."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
@@ -604,7 +601,8 @@ def check_kernels(model, params, device, sizes=(19, 100, 102_400)):
                 errs = check_outputs(f"{name} {spec_name} N={n_nodes}", got,
                                      want, labels)
                 views = ""
-                if N == spec_sizes[0]:
+                with_views = N < 100 or N == spec_sizes[0]
+                if with_views:
                     got_v = k(*args[:-1], tick_views(spec, model, refs))
                     torch.cuda.synchronize()
                     for lab, e in check_outputs(
@@ -613,7 +611,7 @@ def check_kernels(model, params, device, sizes=(19, 100, 102_400)):
                         errs[lab] = max(errs[lab], e)
                     same = all(torch.equal(a, b) for a, b in zip(got, got_v))
                     views = f"  tick views {'equal' if same else 'differ'}"
-                if kind == "stage" and N == spec_sizes[0]:
+                if kind == "stage" and with_views:
                     views += check_scalar_dt(k, name, spec_name, args, labels,
                                              errs)
                 ms = cuda_time_ms(run, reps=50)
@@ -1759,6 +1757,520 @@ def run_fallback_phase(device, n_ticks_a=10, n_ticks_b=4, csqp_rows=1,
     return launches, lines
 
 
+# -- phase 6: the reference-shaped control loop ------------------------------
+# examples/pick_and_place.py's and examples/dummy_mpc.py's loop: the Panda
+# (7 DoF), T = 20, dt = 0.01 s, f32, every object built through the port's
+# entry points on the card (the model factory, the engine config, the OCP
+# registry, the warm starts, MPC, ControllerRuntime)
+P6_JOINTS = tuple(f"panda_joint{i}" for i in range(1, 8))
+P6_T, P6_DT = 20, 0.01
+P6_COLLISION_T = 19  # the shipped collision YAML's horizon
+# examples/pick_and_place.py: the pick and place poses as offsets from the
+# ready pose, the three quintic moves (home -> pick -> place -> home) and
+# their durations (s), and the generator's weights
+PICK_OFFSET = (0.5, 0.3, 0.0, -0.3, 0.0, 0.2, 0.0)
+PLACE_OFFSET = (-0.6, 0.25, 0.1, -0.2, 0.1, 0.3, -0.4)
+MOVE_DURATIONS = (1.5, 2.0, 1.5)
+PICK_PLACE_WEIGHTS = dict(w_q=(5.0,) * 7, w_qdot=(1.0,) * 7,
+                          w_qddot=(0.0,) * 7, w_robot_effort=(1e-3,) * 7,
+                          w_pose=(20.0,) * 6)
+PICK_PLACE_TICKS = 60
+RING_TICKS = 30
+SINE_TICKS = 30
+COLLISION_TICKS = 10
+# the environment of phase 6 in the reference's xacro form (expanded by the
+# port's `models/xacro.py`): phase 4's obstacle sphere on a fixed joint
+P6_ENV_XACRO = """<?xml version="1.0"?>
+<robot xmlns:xacro="http://www.ros.org/wiki/xacro" name="env">
+  <xacro:property name="radius" value="0.1"/>
+  <xacro:property name="height" value="0.5"/>
+  <link name="obstacle_base"/>
+  <joint name="obstacle_joint" type="fixed">
+    <parent link="obstacle_base"/><child link="obstacle"/>
+    <origin xyz="0.5 0.0 ${height}" rpy="0 0 0"/>
+  </joint>
+  <link name="obstacle">
+    <collision name="obstacle_sphere">
+      <geometry><sphere radius="${radius}"/></geometry>
+    </collision>
+  </link>
+</robot>
+"""
+# the JAX package's run of loop (a) (`examples/pick_and_place_reference.py`,
+# on the CPU in f32, jax 0.9.0): the largest joint tracking error over its
+# 60 ticks, rad (mean 0.003882). The card's run must stay within 2x of it
+# plus 0.01 rad.
+JAX_PICK_PLACE_MAX_ERR = 0.008432
+# (b): the ring's solve against the host-packed one, us (f32)
+RING_HOST_TOL = 1e-4
+
+
+def engine_values(horizon: int, **ocp):
+    """An engine configuration in the reference's values layout
+    (`agimus_controller_params`), for `load_engine_config`: dt 0.01,
+    `max_iter` 10, `max_solve_time` 10.0 s (the JAX closed-loop test's), the
+    Panda's armature, phase 4's collision pair, and any `ocp` entry
+    given."""
+    return {"agimus_controller_params": {
+        "rate": 100.0, "constant_delay": False,
+        "ocp": {"dt": P6_DT, "horizon_size": horizon,
+                "dt_factor_n_seq": {"factors": [1], "n_steps": [horizon]},
+                "max_iter": 10, "max_solve_time": 10.0,
+                "armature": [0.1] * 7, **ocp},
+        "collision_pairs_names": ["pair_1"],
+        "pair_1": {"first": PAIR[0][0], "second": PAIR[0][1]}}}
+
+
+def pick_and_place_moves(q_home, dt: float = P6_DT):
+    """The three rest-to-rest quintic moves of `examples/pick_and_place.py`
+    as (q, dq, ddq) arrays (its `quintic_join`)."""
+    q_pick = q_home + np.asarray(PICK_OFFSET)
+    q_place = q_home + np.asarray(PLACE_OFFSET)
+    moves = []
+    for qa, qb, duration in zip((q_home, q_pick, q_place),
+                                (q_pick, q_place, q_home), MOVE_DURATIONS):
+        n = max(int(round(duration / dt)), 2)
+        s = np.linspace(0.0, duration, n, endpoint=False) / duration
+        blend = 10 * s**3 - 15 * s**4 + 6 * s**5
+        dblend = (30 * s**2 - 60 * s**3 + 30 * s**4) / duration
+        ddblend = (60 * s - 180 * s**2 + 120 * s**3) / duration**2
+        dq = qb - qa
+        moves.append((qa[None] + blend[:, None] * dq[None],
+                      dblend[:, None] * dq[None], ddblend[:, None] * dq[None]))
+    return moves
+
+
+def pick_and_place_generator(model, params):
+    """The demo's `GenericTrajectory` of its three moves from the ready
+    pose, its FK and RNEA on the params' device."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+    from agimus_controller_tpu_torch.trajectories import GenericTrajectory
+
+    gen = GenericTrajectory("panda_hand_tcp", **{
+        k: np.asarray(v) for k, v in PICK_PLACE_WEIGHTS.items()})
+    q_home = np.asarray(PANDA_Q_READY, dtype=float)
+    gen.initialize(model, params, q_home)
+    for qs, vs, accs in pick_and_place_moves(q_home):
+        gen.add_trajectory(gen.build_trajectory_from_q_dq_ddq_arrays(
+            qs, vs, accs))
+    return gen
+
+
+def p6_robot(device):
+    """The phase's model through the port's model factory: the Panda with
+    `P6_ENV_XACRO` grafted on `panda_link0` and phase 4's collision pair,
+    f32 on `device`, and an f64 host copy for the checks."""
+    from agimus_controller_tpu_torch.models.panda import (
+        PANDA_DEFAULT_ARMATURE,
+        PANDA_URDF,
+    )
+    from agimus_controller_tpu_torch.models.urdf import (
+        RobotModelParameters,
+        build_robot_models,
+    )
+
+    def build(dtype, dev):
+        return build_robot_models(RobotModelParameters(
+            robot_urdf=PANDA_URDF, moving_joint_names=list(P6_JOINTS),
+            armature=PANDA_DEFAULT_ARMATURE, env_urdf=P6_ENV_XACRO,
+            robot_attachment_frame="panda_link0", collision_as_capsule=True,
+            collision_pairs=PAIR, dtype=dtype), dev)
+
+    return build(torch.float32, device), build(torch.float64, "cpu")
+
+
+def _timed_solves(ocp, device):
+    """Wrap `ocp.solve` to record each call's time (host clock, the device
+    synchronized); returns the list it fills."""
+    times, solve = [], ocp.solve
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        res = solve(*args, **kw)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        return res
+
+    ocp.solve = timed
+    return times
+
+
+def run_control_loop(device, robot, ocp, buffer, next_point, n_ticks: int,
+                     on_tick=None):
+    """Drive `ocp` the way the demos do: a shift warm start, a reference
+    warm start for the first solve, `MPC` and `ControllerRuntime` over
+    `buffer`; the buffer prefilled with 2T+2 points of `next_point()`, then
+    `n_ticks` ticks from the ready pose, the measured state closed through
+    `ocp.integrate` of the published control, one new point a tick. The
+    launch counts of the solver's kernels are set to 0 just before the
+    first tick and read after the last. Returns a namespace of the run."""
+    from agimus_controller_tpu_torch.factory import create_warm_start
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+    from agimus_controller_tpu_torch.mpc.mpc import MPC
+    from agimus_controller_tpu_torch.runtime.controller import (
+        ControllerRuntime,
+        RuntimeParams,
+        Sensor,
+    )
+
+    model, params = robot.model, robot.params
+    ws = create_warm_start("shift_previous_solution", model, params,
+                           timesteps=ocp.spec.timesteps(), device=device)
+    ws_ref = create_warm_start("reference", model, params, device=device)
+    mpc = MPC()
+    mpc.setup(ocp, ws, buffer)
+    rt = ControllerRuntime(mpc, buffer, ws_ref, RuntimeParams())
+    for _ in range(2 * ocp.n_controls + 2):
+        rt.append_reference(next_point())
+    solve_times = _timed_solves(ocp, device)
+    kernels = ocp.solver.kernels
+    for k in kernels:
+        k.launches = 0
+    q, v = np.asarray(PANDA_Q_READY, dtype=float).copy(), np.zeros(7)
+    controls, kkts, iters, phases = [], [], [], []
+    syncs = None
+    t_start = time.perf_counter()
+    for it in range(n_ticks):
+        if it == 1:  # per-tick counts leave out the initialization
+            syncs = (ocp.host_syncs, ocp.solver_host_syncs)
+            t_start = time.perf_counter()
+        now = int(it * ocp.dt * 1e9)
+        rt.set_sensor(Sensor(time_ns=now, position=q, velocity=v))
+        ctrl = rt.step(now_ns=now)
+        if ctrl is None:
+            raise AssertionError(f"tick {it}: the runtime published nothing")
+        x = ocp.integrate(np.concatenate([q, v]), ctrl.feedforward)
+        q, v = x[:7].astype(float), x[7:].astype(float)
+        dbg = mpc.mpc_debug_data
+        controls.append(np.concatenate([ctrl.feedforward,
+                                        ctrl.feedback_gain.reshape(-1)]))
+        kkts.append(dbg.ocp.kkt_norm)
+        iters.append(dbg.ocp.nb_iter)
+        if it > 0:
+            phases.append((dbg.duration_iteration_ns,
+                           dbg.duration_horizon_update_ns,
+                           dbg.duration_generate_warm_start_ns,
+                           dbg.duration_ocp_solve_ns))
+        if on_tick is not None:
+            on_tick(it, q, v)
+        rt.append_reference(next_point())
+    _sync(device)
+    wall = time.perf_counter() - t_start
+    launches = [k.launches for k in kernels]
+    n = n_ticks - 1
+    return SimpleNamespace(
+        rt=rt, mpc=mpc, q=q, v=v, controls=np.stack(controls), kkts=kkts,
+        iters=iters, launches=launches, first_solve_s=solve_times[0],
+        tick_ms=wall / n * 1e3,
+        phases_ms=np.median(np.asarray(phases, float), 0) / 1e6,
+        facade_syncs=(ocp.host_syncs - syncs[0]) / n,
+        solver_syncs=(ocp.solver_host_syncs - syncs[1]) / n)
+
+
+def _check_loop(part, run, ocp):
+    """The checks every part makes: finite controls, the kernels backend
+    and every stage kernel launched during the ticks. Returns the
+    launches per kernel."""
+    if not np.all(np.isfinite(run.controls)):
+        raise AssertionError(f"phase 6 {part}: non-finite control")
+    if ocp.solver.backend != "kernels":
+        raise AssertionError(
+            f"phase 6 {part}: backend {ocp.solver.backend!r} "
+            f"({ocp.solver.backend_reason}), expected 'kernels'")
+    launches = dict(zip([k[0] for k in STAGE_KERNELS], run.launches))
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"phase 6 {part}: {missing} never launched")
+    return launches
+
+
+def _loop_line(part, run, ocp, extra):
+    it, hu, ws, solve = run.phases_ms
+    return (f"phase 6 {part}: first solve {run.first_solve_s:.3f} s; "
+            f"budget_iters {ocp.budget_iters}; tick {run.tick_ms:.3f} ms "
+            f"(host clock, mean over ticks 1-{len(run.iters) - 1}); "
+            f"MPCDebugData medians: iteration {it:.3f} ms, horizon_update "
+            f"{hu:.3f} ms, generate_warm_start {ws:.3f} ms, ocp_solve "
+            f"{solve:.3f} ms; host syncs per tick: facade "
+            f"{run.facade_syncs:.2f}, solver {run.solver_syncs:.2f}; "
+            f"iterations per tick median {float(np.median(run.iters[1:])):.1f}"
+            f"; last tick kkt {run.kkts[-1]:.2e}; {extra}")
+
+
+def run_pick_and_place(device, robot, cfg):
+    """Part (a): `examples/pick_and_place.py`'s loop, "goal_reaching_yaml"
+    over a `TrajectoryBuffer`, fed a `GenericTrajectory` of its three
+    quintic moves. Returns (launches, summary line, the OCP)."""
+    from agimus_controller_tpu_torch.factory import create_ocp
+    from agimus_controller_tpu_torch.mpc.buffer import (
+        DTFactorsNSeq,
+        TrajectoryBuffer,
+    )
+
+    model, params = robot.model, robot.params
+    T = cfg.ocp.horizon_size
+    ocp = create_ocp("goal_reaching_yaml", model, params, cfg.ocp,
+                     ee_frame="panda_hand_tcp", device=device)
+    gen = pick_and_place_generator(model, params)  # index-stepped playback
+    errs = []
+
+    def on_tick(it, q, v):
+        ref_q = gen.trajectory[min(it, len(gen.trajectory) - 1)]
+        errs.append(float(np.linalg.norm(q - ref_q.robot_configuration)))
+
+    run = run_control_loop(
+        device, robot, ocp, TrajectoryBuffer(DTFactorsNSeq([1], [T])),
+        lambda: gen.get_traj_point_at_t(0.0), PICK_PLACE_TICKS, on_tick)
+    launches = _check_loop("(a)", run, ocp)
+    if not run.kkts[-1] < 1e-4:
+        raise AssertionError(
+            f"phase 6 (a): last tick kkt {run.kkts[-1]:.2e} >= 1e-4")
+    bound = 2 * JAX_PICK_PLACE_MAX_ERR + 0.01
+    if not max(errs) <= bound:
+        raise AssertionError(
+            f"phase 6 (a): joint tracking error {max(errs):.4f} rad > "
+            f"{bound:.4f} (2x the JAX package's {JAX_PICK_PLACE_MAX_ERR:.4f}"
+            " + 0.01)")
+    return launches, _loop_line("(a) pick and place", run, ocp, (
+        f"joint tracking error max {max(errs):.4f} rad, mean "
+        f"{np.mean(errs):.4f} (JAX f32 on the CPU: max "
+        f"{JAX_PICK_PLACE_MAX_ERR:.4f}); launches {launches}")), ocp
+
+
+def run_ring_loop(device, robot, cfg):
+    """Part (b): the same loop in ring mode (`PackedTrajectoryBuffer`,
+    `ring=buf.ring`, debug streams on), the goal-reaching definition with
+    the goal's residual published; then one solve on the ring against the
+    host-packed OCP from the same horizon. Returns (launches, summary line,
+    the OCP)."""
+    import copy
+    import dataclasses
+
+    from agimus_controller_tpu_torch.factory import create_ocp
+    from agimus_controller_tpu_torch.mpc.buffer import DTFactorsNSeq
+    from agimus_controller_tpu_torch.mpc.ring import PackedTrajectoryBuffer, RowLayout
+    from agimus_controller_tpu_torch.ocp.definitions import GOAL_REACHING
+    from agimus_controller_tpu_torch.ocp.yaml_compiler import load_ocp_spec
+
+    model, params = robot.model, robot.params
+    T = cfg.ocp.horizon_size
+    tree = copy.deepcopy(GOAL_REACHING)
+    for entry in tree["running_model"]["differential"]["costs"]:
+        if entry["name"] == "goal_tracking":
+            entry["publish_residual"] = True
+    ocp_params = dataclasses.replace(cfg.ocp, use_debug_data=True)
+    spec = load_ocp_spec(tree, model, horizon=T, dt=P6_DT,
+                         default_ee_frame="panda_hand_tcp")
+    buf = PackedTrajectoryBuffer(DTFactorsNSeq([1], [T]), RowLayout(spec, model),
+                                 dtype=torch.float32, device=device)
+    ocp = create_ocp("yaml", model, params, ocp_params, yaml_file=tree,
+                     ee_frame="panda_hand_tcp", ring=buf.ring, device=device)
+    gen = pick_and_place_generator(model, params)
+    ids = iter(range(10**6))
+
+    def next_point():
+        i = next(ids)
+        wp = gen.get_traj_point_at_t(0.0)
+        return dataclasses.replace(wp, point=dataclasses.replace(wp.point, id=i))
+
+    run = run_control_loop(device, robot, ocp, buf, next_point, RING_TICKS)
+    launches = _check_loop("(b)", run, ocp)
+    dbg = run.mpc.mpc_debug_data.ocp
+    shapes = {k: v.shape for k, v in dbg.references.items()}
+    want = {"control_reg": (T + 1, 7), "state_reg": (T + 1, 14),
+            "goal_tracking": (T + 1, 3)}
+    if shapes != want:
+        raise AssertionError(f"phase 6 (b): reference streams {shapes}, "
+                             f"expected {want}")
+    res_shapes = {k: v.shape for k, v in dbg.residuals.items()}
+    if res_shapes != {"goal_tracking": (T, 6)} or not np.all(
+            np.isfinite(dbg.residuals["goal_tracking"])):
+        raise AssertionError(f"phase 6 (b): residual streams {res_shapes}")
+    # one solve on the ring against the host-packed OCP, same horizon
+    x0 = np.concatenate([run.q, run.v])
+    prev = run.mpc._warm_start._previous_solution
+    xs, us = list(prev.states), list(prev.feed_forward_terms)
+    res_ring = ocp.solve(x0, xs, us)
+    host = create_ocp("yaml", model, params, cfg.ocp, yaml_file=tree,
+                      ee_frame="panda_hand_tcp", device=device)
+    host.set_reference_weighted_trajectory(buf.horizon)
+    res_host = host.solve(x0, xs, us)
+    gap_us = float(np.abs(res_ring.feed_forward_terms
+                          - res_host.feed_forward_terms).max())
+    gap_xs = float(np.abs(res_ring.states - res_host.states).max())
+    if not gap_us <= RING_HOST_TOL:
+        raise AssertionError(
+            f"phase 6 (b): ring vs host us {gap_us:.2e} > {RING_HOST_TOL}")
+    return launches, _loop_line("(b) ring, debug streams", run, ocp, (
+        f"streams {sorted(shapes)} + residual goal_tracking {res_shapes['goal_tracking']}; "
+        f"ring vs host-packed solve: us {gap_us:.2e}, xs {gap_xs:.2e} "
+        f"(bound us {RING_HOST_TOL}); launches {launches}")), ocp
+
+
+def run_sine_loop(device, robot):
+    """Part (c): `examples/dummy_mpc.py`'s loop: "goal_reaching_yaml" with
+    its `OCPParams(dt, horizon_size)` (so the reference's default
+    `max_solve_time` of 0.1 s), fed a `SinusWaveConfigurationSpace` at
+    amplitude 0.3 rad and period 4 s. After the ticks, one unlimited solve
+    from the runtime's state must converge. Returns (launches, summary
+    line, the OCP)."""
+    from agimus_controller_tpu_torch.factory import create_ocp
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+    from agimus_controller_tpu_torch.mpc.buffer import (
+        DTFactorsNSeq,
+        TrajectoryBuffer,
+    )
+    from agimus_controller_tpu_torch.mpc.ocp_base import OCPParams
+    from agimus_controller_tpu_torch.trajectories import (
+        SinusWaveConfigurationSpace,
+        SinWaveParams,
+    )
+
+    model, params = robot.model, robot.params
+    T = P6_T
+    ocp = create_ocp("goal_reaching_yaml", model, params,
+                     OCPParams(dt=P6_DT, horizon_size=T),
+                     ee_frame="panda_hand_tcp", device=device)
+    traj = SinusWaveConfigurationSpace(
+        SinWaveParams(amplitude=[0.3] * 7, period=[4.0] * 7,
+                      scale_duration=[1.0] * 7),
+        "panda_hand_tcp", w_q=np.full(7, 10.0), w_qdot=np.ones(7),
+        w_qddot=np.zeros(7), w_robot_effort=np.full(7, 1e-3),
+        w_pose=np.zeros(6))
+    traj.initialize(model, params, np.asarray(PANDA_Q_READY, dtype=float))
+    stream = iter(range(10**6))
+    errs = []
+
+    def on_tick(it, q, v):
+        ref = traj.get_traj_point_at_t(it * P6_DT).point.robot_configuration
+        errs.append(float(np.linalg.norm(q - ref)))
+
+    run = run_control_loop(
+        device, robot, ocp, TrajectoryBuffer(DTFactorsNSeq([1], [T])),
+        lambda: traj.get_traj_point_at_t(next(stream) * P6_DT), SINE_TICKS,
+        on_tick)
+    launches = _check_loop("(c)", run, ocp)
+    x0 = np.concatenate([run.q, run.v])
+    prev = run.mpc._warm_start._previous_solution
+    ocp.set_reference_weighted_trajectory(run.mpc._buffer.horizon)
+    ocp.solve(x0, list(prev.states), list(prev.feed_forward_terms),
+              use_iteration_limits_and_timeout=False)
+    final = ocp.debug_data
+    if not final.problem_solved:
+        raise AssertionError(
+            f"phase 6 (c): the unlimited solve after the loop did not "
+            f"converge (kkt {final.kkt_norm:.2e}, {final.nb_iter} iterations)")
+    return launches, _loop_line(
+        "(c) sine, default max_solve_time 0.1 s", run, ocp, (
+            f"joint tracking error max {max(errs):.4f} rad; unlimited solve "
+            f"after the loop: {final.nb_iter} iterations, kkt "
+            f"{final.kkt_norm:.2e}; launches {launches}")), ocp
+
+
+def run_collision_facade(device, robot, robot64):
+    """Part (d): "traj_tracking_collision_avoidance" through the facade
+    (host-packed `TrajectoryBuffer`, MPC, ControllerRuntime) at the shipped
+    YAML's T = 19, phase 4's goal pulling link 7 onto the 1 cm band of the
+    obstacle sphere, `max_qp_iter` 25 and termination tolerance 1e-4 as
+    phase 4, the reference's default `max_solve_time` of 0.1 s (so each
+    tick runs the iterations the calibrated budget allows, one on the
+    card); the ADMM branch and the dual carry through `OCPTorch`. The band must hold (> 9 mm) on the last
+    tick's planned trajectory. Returns (launches, summary line, the
+    OCP)."""
+    from agimus_controller_tpu_torch.factory import create_ocp
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+    from agimus_controller_tpu_torch.mpc.buffer import (
+        DTFactorsNSeq,
+        TrajectoryBuffer,
+        TrajectoryPoint,
+        TrajectoryPointWeights,
+        WeightedTrajectoryPoint,
+    )
+    from agimus_controller_tpu_torch.ops import dynamics
+    from agimus_controller_tpu_torch.ops.collision import pair_distance
+    from agimus_controller_tpu_torch.ops.kinematics import frame_placement
+    from agimus_controller_tpu_torch.runtime.config import load_engine_config
+
+    model, params = robot.model, robot.params
+    m64, p64 = robot64.model, robot64.params
+    T = P6_COLLISION_T
+    cfg = load_engine_config(engine_values(
+        T, max_qp_iter=25, termination_tolerance=1e-4, max_solve_time=0.1))
+    ocp = create_ocp("traj_tracking_collision_avoidance", model, params,
+                     cfg.ocp, ee_frame="panda_hand_tcp", device=device)
+    q0 = np.asarray(PANDA_Q_READY, dtype=float)
+    R0 = frame_placement(m64, p64, torch.as_tensor(q0),
+                         m64.frame_id("panda_hand_tcp"))[0].numpy()
+    z = torch.zeros(7, dtype=torch.float64)
+    tau_g = dynamics.rnea(m64, p64, torch.as_tensor(q0), z, z).numpy()
+    goal = np.asarray([0.45, 0.05, 0.50])  # phase 4's
+    ids = iter(range(10**6))
+
+    def next_point():
+        i = next(ids)
+        pt = TrajectoryPoint(
+            id=i, time_ns=int(i * 1e7), robot_configuration=q0,
+            robot_velocity=np.zeros(7), robot_acceleration=np.zeros(7),
+            robot_effort=tau_g,
+            end_effector_poses={"panda_hand_tcp": (R0, goal)})
+        w = TrajectoryPointWeights(
+            w_robot_configuration=np.full(7, 0.1),
+            w_robot_velocity=np.full(7, 1.0), w_robot_effort=np.ones(7),
+            w_end_effector_poses={"panda_hand_tcp": np.full(6, 2700.0)})
+        return WeightedTrajectoryPoint(point=pt, weights=w)
+
+    run = run_control_loop(device, robot, ocp,
+                           TrajectoryBuffer(DTFactorsNSeq([1], [T])),
+                           next_point, COLLISION_TICKS)
+    launches = _check_loop("(d)", run, ocp)
+    if tuple(ocp._y_carry.shape) != (T + 1, 1):
+        raise AssertionError(
+            f"phase 6 (d): dual carry {tuple(ocp._y_carry.shape)}")
+    qp = ocp.debug_data.nb_qp_iter
+    if not qp > 0:
+        raise AssertionError("phase 6 (d): the ADMM did not run")
+    xs = torch.as_tensor(ocp.ocp_results.states, dtype=torch.float64)
+    d = torch.func.vmap(lambda q: pair_distance(m64, p64, q, 0))(xs[1:, :7])
+    d_min = float(d.min())
+    if not d_min > 0.009:
+        raise AssertionError(
+            f"phase 6 (d): band violated, min distance {d_min * 1e3:.3f} mm")
+    return launches, _loop_line("(d) collision OCP through the facade", run,
+                                ocp, (
+        f"last tick {qp} ADMM iterations; min pair distance on t >= 1 "
+        f"{d_min * 1e3:.3f} mm (band 10 mm, held above 9 mm); |y carry| max "
+        f"{float(ocp._y_carry.abs().max()):.3e}; launches {launches}")), ocp
+
+
+def run_control_loop_phase(device):
+    """Phase 6: the reference-shaped control loop, parts (a)-(d). Returns
+    (launches per kernel, summary lines)."""
+    from agimus_controller_tpu_torch.runtime.config import load_engine_config
+
+    robot, robot64 = p6_robot(device)
+    # (a) and (b) converge to 1e-4 (the check of (a)); (c) keeps the
+    # reference's default termination tolerance, 1e-3
+    cfg = load_engine_config(engine_values(P6_T, termination_tolerance=1e-4))
+    parts = {"(a)": lambda: run_pick_and_place(device, robot, cfg),
+             "(b)": lambda: run_ring_loop(device, robot, cfg),
+             "(c)": lambda: run_sine_loop(device, robot),
+             "(d)": lambda: run_collision_facade(device, robot, robot64)}
+    launches = {name: 0 for name, *_ in KERNELS}
+    lines, ocps = [], {}
+    for part, run in parts.items():
+        t0 = time.perf_counter()
+        got, line, ocps[part] = run()
+        lines.append(f"{line} [{time.perf_counter() - t0:.1f} s]")
+        for name, n in got.items():
+            launches[name] += n
+    lines.append(
+        f"phase 6: budget_iters {ocps['(a)'].budget_iters} under "
+        f"max_solve_time 10.0 s (part (a)), {ocps['(c)'].budget_iters} and "
+        f"{ocps['(d)'].budget_iters} under the reference's default 0.1 s "
+        "(parts (c) and (d))")
+    return launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -1803,15 +2315,17 @@ def main():
         for name, n in path_launches.items():
             launches[name] += n
 
-    # -- 5. the fallback backend and the single-scenario solvers
-    path_launches, lines = run_fallback_phase(device)
-    for line in lines:
-        print(line)
-    for name, n in path_launches.items():
-        launches[name] += n
+    # -- 5. the fallback backend and the single-scenario solvers, then
+    # -- 6. the reference-shaped control loop
+    for phase in (run_fallback_phase, run_control_loop_phase):
+        path_launches, lines = phase(device)
+        for line in lines:
+            print(line)
+        for name, n in path_launches.items():
+            launches[name] += n
 
-    # -- 6. result: launches over the five paths, the max error over every
-    # checked spec and size; times (wrapper and bare launch) and bounds at
+    # -- 7. result: launches over the paths of phases 4-6, the max error over
+    # every checked spec and size; times (wrapper and bare launch) and bounds at
     # the flagship tick shape for K1-K4 and at the batch path's shapes for
     # K5a/K5b (no single PyTorch call computes a fused stage or a dynamics
     # step: no library time)

@@ -11,10 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from agimus_controller_tpu_torch.factory import create_ocp, create_warm_start
 from agimus_controller_tpu_torch.models.model import params_from_numpy
 from agimus_controller_tpu_torch.models.panda import load_panda
-from agimus_controller_tpu_torch.models.urdf import build_model_from_urdf
+from agimus_controller_tpu_torch.models.urdf import (
+    RobotModelParameters,
+    RobotModels,
+    build_model_from_urdf,
+    build_robot_models,
+)
 from agimus_controller_tpu_torch.mpc.buffer import DTFactorsNSeq
+from agimus_controller_tpu_torch.mpc.ocp_base import OCPParams, OCPTorch
 from agimus_controller_tpu_torch.mpc.ring import (
     PackedTrajectoryBuffer,
     RefRing,
@@ -25,6 +32,11 @@ from agimus_controller_tpu_torch.mpc.tick import (
     FusedTickRunner,
     make_fused_tick,
 )
+from agimus_controller_tpu_torch.mpc.warm_start import (
+    WarmStartReference,
+    WarmStartShiftPreviousSolution,
+)
+from agimus_controller_tpu_torch.ocp.goal_reaching import OCPGoalReaching
 from agimus_controller_tpu_torch.ocp.spec import (
     CostItem,
     ProblemSpec,
@@ -117,6 +129,30 @@ ENTRY_POINTS = {
     "FusedTickRunner": lambda a, kw: FusedTickRunner(
         a["model"], a["params"], a["spec"], a["ring"],
         _refs(a, device="cpu"), dtype=torch.float64, **kw),
+    "OCPTorch": lambda a, kw: OCPTorch(a["model"], a["params"], a["spec"],
+                                       dtype=torch.float64, **kw),
+    "OCPTorch_ring": lambda a, kw: OCPTorch(
+        a["model"], a["params"], a["spec"], dtype=torch.float64,
+        ring=a["ring"], **kw),
+    "OCPGoalReaching": lambda a, kw: OCPGoalReaching(
+        a["model"], a["params"], OCPParams(horizon_size=T), "tip", **kw),
+    "create_ocp": lambda a, kw: create_ocp(
+        "goal_reaching_yaml", a["model"], a["params"],
+        OCPParams(horizon_size=T), ee_frame="tip", **kw),
+    "create_warm_start_reference": lambda a, kw: create_warm_start(
+        "reference", a["model"], a["params"], **kw),
+    "create_warm_start_shift": lambda a, kw: create_warm_start(
+        "shift_previous_solution", a["model"], a["params"],
+        timesteps=a["spec"].timesteps(), **kw),
+    "WarmStartReference.setup": lambda a, kw: WarmStartReference().setup(
+        a["model"], a["params"], **kw) or True,
+    "WarmStartShiftPreviousSolution.setup": lambda a, kw: (
+        WarmStartShiftPreviousSolution().setup(
+            a["model"], a["params"], a["spec"].timesteps(), **kw) or True),
+    "RobotModels": lambda a, kw: RobotModels(
+        RobotModelParameters(robot_urdf=URDF_2DOF), **kw),
+    "build_robot_models": lambda a, kw: build_robot_models(
+        RobotModelParameters(robot_urdf=URDF_2DOF), **kw),
 }
 
 

@@ -89,3 +89,16 @@ def test_single_scenario_module_is_probed(module):
     """The modules of the generic cost functions, the single-scenario
     solvers and the fallback backend are among the modules probed above."""
     assert f"{PKG}.{module}" in MODULES
+
+
+@pytest.mark.parametrize("module", [
+    "factory", "factory.registry", "models.xacro", "mpc.data", "mpc.mpc",
+    "mpc.ocp_base", "mpc.warm_start", "ocp.definitions", "ocp.goal_reaching",
+    "runtime", "runtime.config", "runtime.controller",
+    "trajectories.sine_waves"])
+def test_control_loop_module_is_probed(module):
+    """The modules of the reference-shaped control loop (the model factory
+    and xacro, the OCP facade, warm starts, MPC, the registries, the engine
+    config, the controller runtime and the sine generators) are among the
+    modules probed above."""
+    assert f"{PKG}.{module}" in MODULES

@@ -72,7 +72,20 @@ def test_params_from_numpy_round_trip(built):
 
 
 def test_xacro_not_ported():
-    with pytest.raises(NotImplementedError):
-        build_model_from_urdf(
-            '<robot xmlns:xacro="http://www.ros.org/wiki/xacro" name="r"/>',
-            device="cpu")
+    """The URDF reader expands xacro, as the JAX `_read` does: the 2-DoF
+    arm written with a xacro property compiles to the plain URDF's model
+    and params."""
+    doc = URDF_2DOF.replace(
+        '<robot name="planar2">',
+        '<robot xmlns:xacro="http://www.ros.org/wiki/xacro" name="planar2">'
+        '<xacro:property name="l2_len" value="0.3"/>').replace(
+        '<origin xyz="0 0 0.3" rpy="0 0 0"/>',
+        '<origin xyz="0 0 ${l2_len}" rpy="0 0 0"/>')
+    assert "${l2_len}" in doc
+    m, p = build_model_from_urdf(doc, dtype=torch.float64, device="cpu")
+    m0, p0 = build_model_from_urdf(URDF_2DOF, dtype=torch.float64,
+                                   device="cpu")
+    assert m == m0
+    for f in ModelParams._fields:
+        np.testing.assert_array_equal(getattr(p, f).numpy(),
+                                      getattr(p0, f).numpy())

@@ -3,9 +3,9 @@
 Both shipped definitions (read from `agimus_controller_tpu/ocp/definitions/`),
 a control-limit YAML written here and `chip_smoke.py`'s visual-servoing OCP
 `VS_OCP` compile to equal specs, from a path, from text and from an
-already-parsed tree; `chip_smoke.py`'s copy of the collision-avoidance tree,
-which lets the card's machine run without PyYAML, equals `yaml.safe_load` of
-the file.
+already-parsed tree; the package's copy of the collision-avoidance tree
+(`ocp/definitions.py`), which lets the card's machine run without PyYAML,
+equals `yaml.safe_load` of the file.
 """
 
 import dataclasses
@@ -18,6 +18,7 @@ import yaml
 import chip_smoke
 from agimus_controller_tpu.models.panda import load_panda as jax_load_panda
 from agimus_controller_tpu.ocp.yaml_compiler import load_ocp_spec as jax_load_ocp_spec
+from agimus_controller_tpu_torch.ocp import definitions
 from agimus_controller_tpu_torch.ocp.yaml_compiler import load_ocp_spec
 from tests._torch_csqp_cases import YAML as COLLISION_YAML
 from tests.test_robot_models import ENV_URDF
@@ -103,13 +104,18 @@ def test_spec_matches_jax(model, name, form, tmp_path):
 
 
 def test_collision_tree_constant_matches_file():
-    assert chip_smoke.COLLISION_OCP == yaml.safe_load(COLLISION_YAML.read_text())
+    """The collision tree `chip_smoke.py` compiles is the package's copy of
+    the shipped file (`ocp/definitions.py`)."""
+    assert (definitions.TRAJ_TRACKING_COLLISION_AVOIDANCE
+            == yaml.safe_load(COLLISION_YAML.read_text()))
+    assert "COLLISION_OCP" not in vars(chip_smoke)
 
 
 def test_collision_spec_from_constant(model):
-    """The compiled constant: quad_exp collision costs (alpha 1e-4) in the
+    """The compiled tree: quad_exp collision costs (alpha 1e-4) in the
     running and terminal models and one 1 cm distance row on every node."""
-    spec = load_ocp_spec(chip_smoke.COLLISION_OCP, model, horizon=19, dt=0.01,
+    spec = load_ocp_spec(definitions.TRAJ_TRACKING_COLLISION_AVOIDANCE, model,
+                         horizon=19, dt=0.01,
                          default_ee_frame="panda_hand_tcp")
     for items in (spec.running_costs, spec.terminal_costs):
         (coll,) = [i for i in items if i.kind == "collision_distance"]
