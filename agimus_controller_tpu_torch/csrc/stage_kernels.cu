@@ -186,6 +186,10 @@ int ag_stage(int nj, int derivs, int N, const float* x, const float* u,
   if (N <= 0) return 0;
   if (refs->n < 0 || refs->n > ag::kMaxRefs) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (nj == 8)
+    return (int)launch<8>(derivs != 0, N, x, u, dt, t_idx, *refs, W, consts,
+                          consts_len, n_items, xnext, Fx, Fu, l, lx, lu, lxx,
+                          lxu, luu, s);
   if (nj == 7)
     return (int)launch<7>(derivs != 0, N, x, u, dt, t_idx, *refs, W, consts,
                           consts_len, n_items, xnext, Fx, Fu, l, lx, lu, lxx,

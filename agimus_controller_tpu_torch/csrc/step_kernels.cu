@@ -9,7 +9,8 @@
 // pads to 1024-node blocks in a component-major [c, R, 128] layout).
 //
 // K5a: one node on LANES = 8 lanes (the power of two >= NJ + 1; 16 Panda
-// nodes per 128-thread block, 4 lanes and 32 nodes for the 2-DoF arm), in
+// nodes per 128-thread block, 4 lanes and 32 nodes for the 2-DoF arm, 16
+// lanes and 8 nodes for the 8-joint Tiago-Pro arm), in
 // K5b's first two phases and a finish of its own (`ag::k5_place`,
 // `k5_mass_bias`, `k5a_finish` of stage_kernels.cuh), with a warp barrier
 // between them: the joint placements one per lane; the mass-matrix columns
@@ -233,6 +234,9 @@ int ag_step(int nj, int derivs, int N, const float* x, const float* u,
             float* xnext, float* Fx, float* Fu, void* stream) {
   if (N <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (nj == 8)
+    return (int)launch<8>(derivs != 0, N, x, u, dt, consts, consts_len, xnext,
+                          Fx, Fu, s);
   if (nj == 7)
     return (int)launch<7>(derivs != 0, N, x, u, dt, consts, consts_len, xnext,
                           Fx, Fu, s);
@@ -244,6 +248,7 @@ int ag_step(int nj, int derivs, int N, const float* x, const float* u,
 
 // Blocks of ag_step's kernel resident per SM on the current device, or -1.
 int ag_step_blocks_per_sm(int nj, int derivs, int consts_len) {
+  if (nj == 8) return blocks_per_sm<8>(derivs != 0, consts_len);
   if (nj == 7) return blocks_per_sm<7>(derivs != 0, consts_len);
   if (nj == 2) return blocks_per_sm<2>(derivs != 0, consts_len);
   return -1;

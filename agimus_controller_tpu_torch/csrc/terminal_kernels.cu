@@ -165,6 +165,9 @@ int ag_terminal(int nj, int derivs, int N, const float* x,
   if (N <= 0) return 0;
   if (refs->n < 0 || refs->n > ag::kMaxRefs) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (nj == 8)
+    return (int)launch<8>(derivs != 0, N, x, *refs, t, W, consts, consts_len,
+                          n_items, l, lx, lxx, s);
   if (nj == 7)
     return (int)launch<7>(derivs != 0, N, x, *refs, t, W, consts, consts_len,
                           n_items, l, lx, lxx, s);

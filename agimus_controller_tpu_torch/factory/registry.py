@@ -91,9 +91,10 @@ def _ws_shift(model, params, *, timesteps, device=DEFAULT_DEVICE, **kw):
 
 
 @register_warm_start("shift_previous_solution_force_feedback")
-def _ws_shift_ff(model, params, **kw):
+def _ws_shift_ff(model, params, *, timesteps, soft_contact,
+                 device=DEFAULT_DEVICE, **kw):
     ws = WarmStartShiftPreviousSolutionForceFeedback()
-    ws.setup(model, params, **kw)  # raises: soft contact is slice 12
+    ws.setup(model, params, timesteps, soft_contact, device=device)
     return ws
 
 

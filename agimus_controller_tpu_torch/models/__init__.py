@@ -9,6 +9,12 @@ from .urdf import (
     build_model_from_urdf,
     build_robot_models,
 )
+from .tiago_pro import (
+    TIAGO_PRO_LEFT_ARM_JOINTS,
+    TIAGO_PRO_Q_READY,
+    load_tiago_pro,
+    tiago_pro_urdf,
+)
 
 __all__ = [
     "Frame",
@@ -17,7 +23,11 @@ __all__ = [
     "RobotModel",
     "RobotModelParameters",
     "RobotModels",
+    "TIAGO_PRO_LEFT_ARM_JOINTS",
+    "TIAGO_PRO_Q_READY",
     "build_model_from_urdf",
     "build_robot_models",
+    "load_tiago_pro",
     "params_from_numpy",
+    "tiago_pro_urdf",
 ]

@@ -75,8 +75,9 @@ class RowLayout:
             add(f"ee_vel:{f}", 6)
             add(f"w_ee_vel:{f}", 6)
         if spec.soft_contact is not None:
-            raise NotImplementedError(
-                "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
+            add("f_des", spec.soft_contact.nc)
+            add("w_force", spec.soft_contact.nc)
+            add("contact_active", 1)
         self.fields = tuple(fields)
         self.width = off
         self._by_key = {f.key: f for f in fields}
@@ -144,6 +145,20 @@ class RowLayout:
             if wv is not None:
                 wv = np.asarray(wv)
                 put(f"w_ee_vel:{frame}", np.concatenate([wv[3:], wv[:3]]))
+        sc = self.spec.soft_contact
+        if sc is not None:
+            # the contact frame's force [n; f] and weight, masked to the
+            # enabled directions; the contact is active where the weight is
+            mask = list(sc.mask_indices())
+            forces = (pt.forces or {}).get(sc.frame)
+            wf = (w.w_forces or {}).get(sc.frame)
+            if forces is not None:
+                put("f_des", np.asarray(forces)[3:6][mask])
+            if wf is not None:
+                wsel = np.asarray(wf)[:3][mask]
+                put("w_force", wsel)
+                put("contact_active",
+                    1.0 if np.sum(np.abs(wsel)) > 1e-9 else 0.0)
         return row
 
     # -- device side -----------------------------------------------------
@@ -169,6 +184,10 @@ class RowLayout:
         for frame in self._vel_frames:
             refs[f"ee_vel:{frame}"] = get(f"ee_vel:{frame}")
             refs[f"w_ee_vel:{frame}"] = get(f"w_ee_vel:{frame}")
+        if self.spec.soft_contact is not None:
+            refs["f_des"] = get("f_des")
+            refs["w_force"] = get("w_force")
+            refs["contact_active"] = get("contact_active")[:, 0]
         return refs
 
     def row_ids(self, rows: torch.Tensor) -> torch.Tensor:

@@ -158,10 +158,42 @@ class WarmStartShiftPreviousSolution(WarmStartBase):
 
 class WarmStartShiftPreviousSolutionForceFeedback(WarmStartShiftPreviousSolution):
     """Shift warm start on the force-augmented state x = [q; v; f]
-    (reference `warm_start_shift_previous_solution_force_feedback.py:29-98`).
-    Its integrator is the soft-contact step, which is not ported yet."""
+    (reference `warm_start_shift_previous_solution_force_feedback.py:29-98`):
+    the integrator of the coarse nodes is the soft-contact step, and x0
+    appends the measured contact force masked to the enabled directions
+    (`:82-97`)."""
 
-    def setup(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "the force-feedback warm start needs the soft-contact step, which "
-            "is not ported yet (ROADMAP queue 1, slice 12)")
+    def setup(self, model: RobotModel, params: ModelParams, timesteps,
+              soft_contact, device: torch.device | str = DEFAULT_DEVICE
+              ) -> None:
+        from ..ops.soft_contact import soft_contact_step
+
+        device = resolve_device(device)
+        self._timesteps = np.asarray(timesteps, dtype=float)
+        dt = float(self._timesteps[0])
+        assert np.all(self._timesteps >= dt), "timesteps[i] must be >= timesteps[0]"
+        self._sc = soft_contact
+        p = _params_on(params, device)
+        ref = p.joint_rot
+
+        def step(x, u):
+            t = lambda a: torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
+            return soft_contact_step(model, p, soft_contact, t(x), t(u),
+                                     dt).cpu().numpy()
+
+        self._step = step
+
+    def generate(self, initial_state, reference_trajectory):
+        assert self._previous_solution is not None
+        self.shift()
+        pt = initial_state
+        force = np.zeros(3)
+        if pt.forces:
+            # single contact frame: the measured wrench's linear part
+            force = np.asarray(next(iter(pt.forces.values())))[3:6]
+        mask = list(self._sc.mask_indices())
+        x0 = np.concatenate([pt.robot_configuration, pt.robot_velocity,
+                             force[mask]])
+        x_init = list(self._previous_solution.states)
+        u_init = list(self._previous_solution.feed_forward_terms)
+        return x0, x_init, u_init

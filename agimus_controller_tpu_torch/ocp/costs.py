@@ -24,9 +24,13 @@ PyTorch's forward mode is not an option in float32: the tangent of a 0-dim
 tensor divided by a Python scalar comes out in float64 (torch 2.13), which
 breaks the next matrix product. The activation derivatives are analytic and
 the Hessians Gauss-Newton, J^T diag(a'') J, as in Crocoddyl. The state is
-the plain vector [q; v] (`ntan` None: the manifold state waits for ROADMAP
-queue 1, slice 12, with soft contact). In the JAX package this is XLA, not
-a Pallas kernel, so it stays plain PyTorch here.
+the vector [q; v], or with soft contact (`spec.soft_contact`) the
+force-augmented [q; v; f] of `ops/soft_contact.py`: the step is the
+soft-contact step with the per-node activation `refs["contact_active"]`,
+the `force_tracking` cost and the `force_box` constraint read the force
+part. The quaternion free-flyer state (`ntan`, `state_diff`,
+`state_integrate`) is `ocp/ff_costs.py`'s. In the JAX package this is XLA,
+not a Pallas kernel, so it stays plain PyTorch here.
 """
 
 from __future__ import annotations
@@ -39,16 +43,17 @@ import torch
 from ..models.model import ModelParams, RobotModel
 from ..ops import activations as act
 from ..ops import integrator, residuals
+from ..ops.soft_contact import soft_contact_step
 from .spec import ConstraintItem, CostItem, ProblemSpec, slice_refs
 
-_SOFT_CONTACT = ("soft contact is not ported yet (ROADMAP queue 1, "
-                 "slice 12)")
 # refs that hold one value for the whole horizon (`slice_refs`)
 _GLOBAL_PREFIXES = ("wMo_", "geom_")
-# residual kinds a constraint may take here; force_box is soft contact's
+# residual kinds a constraint may take; force_box bounds the force part of
+# a soft-contact state
 CONSTRAINT_KINDS = ("control_limit", "state", "control", "control_grav",
                     "frame_placement", "frame_translation", "frame_rotation",
-                    "frame_velocity", "visual_servoing", "collision_distance")
+                    "frame_velocity", "visual_servoing", "collision_distance",
+                    "force_box")
 
 
 def _is_global(key: str) -> bool:
@@ -65,7 +70,8 @@ def _item_keys(item) -> Tuple[str, ...]:
             "frame_rotation": (f"ee_rot:{f}", f"w_ee:{f}"),
             "frame_velocity": (f"ee_vel:{f}", f"w_ee_vel:{f}"),
             "visual_servoing": (f"ee_rot:{f}", f"ee_trans:{f}", f"w_ee:{f}"),
-            "collision_distance": ("w_coll",)}
+            "collision_distance": ("w_coll",),
+            "force_tracking": ("f_des", "w_force")}
     return keys.get(item.kind, ())
 
 
@@ -101,6 +107,10 @@ def _item_residual(item, model: RobotModel, params: ModelParams, x, u,
     if kind == "collision_distance":
         return residuals.collision_distance_residual(model, params, x,
                                                      item.pair_id)
+    if kind == "force_tracking":
+        # the force part of a soft-contact state against f_des (reference
+        # `dam.f_des/f_weight`)
+        return x[model.nx:] - rt["f_des"]
     fid = model.frame_id(item.frame)
     f = item.frame
     if kind == "frame_placement":
@@ -122,16 +132,20 @@ def _item_residual(item, model: RobotModel, params: ModelParams, x, u,
         return residuals.visual_servoing_residual(
             model, params, x, fid, rt[f"wMo_rot:{obj}"],
             rt[f"wMo_trans:{obj}"], rt[f"ee_rot:{f}"], rt[f"ee_trans:{f}"])
-    raise NotImplementedError(f"residual kind {kind!r}: {_SOFT_CONTACT}")
+    raise ValueError(kind)
 
 
-def _item_act_weights(item: CostItem, model: RobotModel, rt: Dict, x):
-    """Activation weight vector of an item at one node."""
-    nr = item.residual_dim(model)
+def _item_act_weights(item: CostItem, model: RobotModel, rt: Dict, x,
+                      nc: int = 0):
+    """Activation weight vector of an item at one node (nc: the contact
+    force's dimension of a soft-contact state)."""
+    nr = item.residual_dim(model, nc)
     if item.update:
         kind, f = item.kind, item.frame
         if kind == "state":
             return rt["w_x"]
+        if kind == "force_tracking":
+            return rt["w_force"]
         if kind in ("control", "control_grav"):
             return rt["w_u"]
         if kind in ("frame_placement", "visual_servoing"):
@@ -198,19 +212,18 @@ class ConstraintFunctions:
 
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec):
-        if spec.soft_contact is not None:
-            raise NotImplementedError(_SOFT_CONTACT)
         for c in spec.constraints:
             if c.kind not in CONSTRAINT_KINDS:
-                raise NotImplementedError(
-                    f"constraint kind {c.kind!r}: {_SOFT_CONTACT}")
+                raise ValueError(f"constraint kind {c.kind!r}")
         self.model, self.params = model, params
+        self.sc, self.nc = spec.soft_contact, spec.nc
         self.items: Tuple[ConstraintItem, ...] = tuple(spec.constraints)
-        self.n_constraints = sum(c.residual_dim(model) for c in self.items)
+        self.n_constraints = sum(c.residual_dim(model, self.nc)
+                                 for c in self.items)
         self.terminal_constraint_mask = tuple(c.terminal for c in self.items)
         self.terminal_constraint_row_mask = tuple(
             flag for c in self.items
-            for flag in [c.terminal] * c.residual_dim(model))
+            for flag in [c.terminal] * c.residual_dim(model, self.nc))
         # per-node refs the residuals read (the weights are costs' only)
         self._node_keys = tuple(dict.fromkeys(
             k for c in self.items for k in _item_keys(c)
@@ -218,7 +231,7 @@ class ConstraintFunctions:
 
     # ------------------------------------------------------------------
     def _bounds(self, c: ConstraintItem, dtype, device):
-        nr = c.residual_dim(self.model)
+        nr = c.residual_dim(self.model, self.nc)
         kw = dict(dtype=dtype, device=device)
         if c.kind == "control_limit":
             # default +-effortLimit (ConstraintModelControlLimit); explicit
@@ -228,6 +241,16 @@ class ConstraintFunctions:
                   else -lim)
             hi = torch.as_tensor(c.upper, **kw).expand(nr) if c.upper else lim
             return lo, hi
+        sc = self.sc
+        if c.kind == "force_box" and not c.lower and not c.upper and \
+                sc is not None:
+            # the IAMSoftContactAugmented force bounds
+            # (`ocp_croco_generic_force_feedback.py:191-215`)
+            lo = (torch.as_tensor(sc.force_lb, **kw) if sc.force_lb
+                  else torch.full((nr,), float("-inf"), **kw))
+            hi = (torch.as_tensor(sc.force_ub, **kw) if sc.force_ub
+                  else torch.full((nr,), float("inf"), **kw))
+            return lo.expand(nr), hi.expand(nr)
         lo = (torch.as_tensor(c.lower, **kw) if c.lower
               else torch.full((nr,), float("-inf"), **kw))
         hi = (torch.as_tensor(c.upper, **kw) if c.upper
@@ -244,6 +267,8 @@ class ConstraintFunctions:
         """One item's rows at one node (single-sample)."""
         if c.kind == "control_limit":
             return u
+        if c.kind == "force_box":
+            return x[self.model.nx:]
         return _item_residual(c, self.model, params, x, u, rt)
 
     def _g_fn(self, refs: Dict):
@@ -289,23 +314,19 @@ class CostFunctions:
     Port of the JAX package's `build_cost_functions` (`ocp/costs.py:157-
     373`). ``dtype`` is the dtype of the timestep table, as in the JAX
     package (float32 by default): the running costs and the step take dt
-    from it, converted to the state's dtype. Soft contact (a soft-contact
-    spec, `force_tracking` items, `force_box` constraints) raises
-    NotImplementedError (ROADMAP queue 1, slice 12)."""
+    from it, converted to the state's dtype. A soft-contact spec steps the
+    force-augmented state with the node's `contact_active` from the refs."""
 
-    ntan = None  # vector state: no Lie-group tangent (slice 12)
+    ntan = None  # vector state: no Lie-group tangent (`ocp/ff_costs.py`)
     state_diff = None
     state_integrate = None
 
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, dtype: torch.dtype = torch.float32):
-        if spec.soft_contact is not None:
-            raise NotImplementedError(_SOFT_CONTACT)
-        for item in spec.all_costs():
-            if item.kind == "force_tracking":
-                raise NotImplementedError(
-                    f"cost kind 'force_tracking': {_SOFT_CONTACT}")
         self.model, self.params, self.spec = model, params, spec
+        self.sc, self.nc = spec.soft_contact, spec.nc
+        # refs the step reads at a node: the contact activation
+        self._step_keys = ("contact_active",) if self.sc is not None else ()
         self.running = tuple(i for i in spec.running_costs if i.active)
         self.terminal = tuple(i for i in spec.terminal_costs if i.active)
         # dt per node time, the terminal node's 0 last
@@ -319,7 +340,8 @@ class CostFunctions:
             self._con.terminal_constraint_row_mask)
         keys = lambda items: tuple(dict.fromkeys(
             k for i in items for k in _item_keys(i)))
-        self._run_keys, self._term_keys = keys(self.running), keys(self.terminal)
+        self._run_keys = keys(self.running) + self._step_keys
+        self._term_keys = keys(self.terminal)
 
     # -- per-node bodies (refs already sliced at the node) -------------------
     def _dt(self, t, x):
@@ -328,7 +350,10 @@ class CostFunctions:
             self._ts[key] = self._timesteps.to(device=x.device, dtype=x.dtype)
         return self._ts[key][t]
 
-    def _step(self, x, u, dt):
+    def _step(self, x, u, dt, rt):
+        if self.sc is not None:
+            return soft_contact_step(self.model, self.params, self.sc, x, u,
+                                     dt, rt["contact_active"])
         return integrator.euler_step(self.model, self.params, x, u, dt)
 
     def _item_values(self, items, x, u, rt):
@@ -337,7 +362,7 @@ class CostFunctions:
         for item in items:
             value, _, _ = _item_activation(item)
             r = _item_residual(item, self.model, params, x, u, rt)
-            w = _item_act_weights(item, self.model, rt, x)
+            w = _item_act_weights(item, self.model, rt, x, self.nc)
             yield item, _item_weight(item, rt) * value(r, w), r
 
     def _cost_sum(self, items, x, u, rt):
@@ -350,14 +375,14 @@ class CostFunctions:
         """Gauss-Newton pack of `items` at one node (JAX `_gn_derivs`)."""
         model = self.model
         params = _override_geoms(self.params, rt)
-        nx, nu = model.nx, model.nv
+        nx, nu = model.nx + self.nc, model.nv
         l = x.new_zeros(())
         lx, lu = x.new_zeros(nx), x.new_zeros(nu)
         lxx, lxu, luu = (x.new_zeros((nx, nx)), x.new_zeros((nx, nu)),
                          x.new_zeros((nu, nu)))
         for item in items:
             value, dr, drr = _item_activation(item)
-            w_act = _item_act_weights(item, model, rt, x)
+            w_act = _item_act_weights(item, model, rt, x, self.nc)
             w_cost = _item_weight(item, rt)
             if item.kind == "control":
                 r = _item_residual(item, model, params, x, u, rt)
@@ -387,8 +412,15 @@ class CostFunctions:
         return dt * l, dt * lx, dt * lu, dt * lxx, dt * lxu, dt * luu
 
     def _stage_derivs(self, x, u, rt, dt):
-        xnext, Fx, Fu = integrator.euler_step_with_derivatives(
-            self.model, self.params, x, u, dt)
+        if self.sc is None:
+            xnext, Fx, Fu = integrator.euler_step_with_derivatives(
+                self.model, self.params, x, u, dt)
+        else:
+            def step(xx, uu):
+                xn = self._step(xx, uu, dt, rt)
+                return xn, xn
+            (Fx, Fu), xnext = torch.func.jacrev(step, argnums=(0, 1),
+                                                has_aux=True)(x, u)
         return StageDerivs(*self._cost_derivs(x, u, rt, dt), xnext, Fx, Fu)
 
     def _terminal_derivs(self, x, rt):
@@ -399,7 +431,8 @@ class CostFunctions:
     # -- single node (the JAX package's functions) ---------------------------
     def step(self, x, u, t, refs):
         """x_next of the semi-implicit Euler step at node t."""
-        return self._step(x, u, self._dt(t, x))
+        return self._step(x, u, self._dt(t, x),
+                          {k: refs[k][t] for k in self._step_keys})
 
     def stage_cost(self, x, u, t, refs):
         """dt_t * l(x, u) of the running model at node t."""
@@ -471,8 +504,8 @@ class CostFunctions:
 
     def step_b(self, x, u, t, refs):
         """x_next [N, nx] of N nodes."""
-        return self._map(lambda x1, u1, rt, dt: self._step(x1, u1, dt), (),
-                         x, u, t, refs)
+        return self._map(lambda x1, u1, rt, dt: self._step(x1, u1, dt, rt),
+                         self._step_keys, x, u, t, refs)
 
     def stage_derivs_b(self, x, u, t, refs) -> StageDerivs:
         """`stage_derivs` of N nodes, every field with a leading [N]."""

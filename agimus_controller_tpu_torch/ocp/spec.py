@@ -123,7 +123,8 @@ class ProblemSpec:
     horizon: int = 20  # number of controls T (nodes = T + 1)
     dt: float = 0.01
     dt_factor_n_seq: Tuple[Tuple[int, int], ...] = ()
-    # force-feedback tier: soft-contact augmented dynamics (not ported yet)
+    # force-feedback tier: soft-contact augmented dynamics
+    # (`ops.soft_contact.SoftContactConfig`)
     soft_contact: Optional[object] = None
 
     def __post_init__(self):

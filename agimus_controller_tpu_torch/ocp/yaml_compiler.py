@@ -7,8 +7,12 @@ schema the reference deserializes into its OCP dataclasses
 compiles to a static `ProblemSpec`.
 
 PyYAML is imported only to parse text or a file; an already-parsed dict
-needs nothing beyond this package. The soft-contact (force-feedback) schema
-is not ported yet.
+needs nothing beyond this package. The force-feedback schema
+(`DAMSoftContactAugmentedFwdDynamics`, the reference's
+`ocp_croco_generic_force_feedback.py`) compiles to a spec with a
+`SoftContactConfig`, a `force_tracking` item in the running and terminal
+models, a gravity-torque item with `with_gravity_torque_reg`, and a
+`force_box` constraint where the running model has force bounds.
 """
 
 from __future__ import annotations
@@ -16,7 +20,10 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Optional, Tuple, Union
 
+import numpy as np
+
 from ..models.model import RobotModel
+from ..ops.soft_contact import SoftContactConfig
 from .spec import ConstraintItem, CostItem, ProblemSpec
 
 _RESIDUAL_KINDS = {
@@ -172,13 +179,22 @@ def load_ocp_spec(
                      for e in diff.get("constraints", []))
         return costs, cons
 
-    if tree["running_model"].get("differential", {}).get("class") == \
-            "DAMSoftContactAugmentedFwdDynamics":
-        raise NotImplementedError(
-            "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
     running, r_cons = model_costs(tree["running_model"])
     terminal, t_cons = model_costs(tree.get("terminal_model",
                                             {"differential": {}}))
+    soft_contact = _soft_contact(tree["running_model"], model)
+    if soft_contact is not None:
+        force = CostItem(name="force_tracking", kind="force_tracking",
+                         weight=1.0, update=True)
+        running = running + (force,)
+        if soft_contact.with_gravity_torque_reg:
+            running = running + (CostItem(name="grav_torque_reg",
+                                          kind="control_grav", weight=1.0,
+                                          update=True),)
+        terminal = terminal + (force,)
+        if soft_contact.force_lb or soft_contact.force_ub:
+            r_cons = r_cons + (ConstraintItem(name="force_box",
+                                              kind="force_box"),)
     # terminal-model constraint entries are flagged terminal
     t_cons = tuple(ConstraintItem(**{**c.__dict__, "terminal": True})
                    for c in t_cons)
@@ -189,4 +205,35 @@ def load_ocp_spec(
     return ProblemSpec(
         running_costs=running, terminal_costs=terminal,
         constraints=tuple(dict.fromkeys(r_cons + t_cons)), horizon=horizon,
-        dt=dt, dt_factor_n_seq=tuple(dt_factor_n_seq))
+        dt=dt, dt_factor_n_seq=tuple(dt_factor_n_seq),
+        soft_contact=soft_contact)
+
+
+def _soft_contact(run_node: dict, model: RobotModel):
+    """The running model's `DAMSoftContactAugmentedFwdDynamics` as a
+    `SoftContactConfig` (Kp/Kv broadcast to 3, the IAM's force bounds), or
+    None for any other differential model."""
+    diff = run_node.get("differential", {})
+    if diff.get("class") != "DAMSoftContactAugmentedFwdDynamics":
+        return None
+
+    def vec3(val, default):
+        a = np.broadcast_to(np.atleast_1d(np.asarray(
+            val if val is not None else default, dtype=float)), (3,))
+        return tuple(float(v) for v in a)
+
+    sc = SoftContactConfig(
+        frame=diff["frame_id"],
+        Kp=vec3(diff.get("Kp"), 100.0),
+        Kv=vec3(diff.get("Kv"), 10.0),
+        oPc=tuple(float(v) for v in diff.get("oPc", (0.0, 0.0, 0.0))),
+        enabled_directions=tuple(bool(b) for b in diff.get(
+            "enabled_directions", (True, True, True))),
+        ref=diff.get("ref", "LOCAL").lower(),
+        with_gravity_torque_reg=bool(diff.get("with_gravity_torque_reg",
+                                              False)),
+        force_lb=tuple(float(v) for v in run_node.get("force_lb", ())),
+        force_ub=tuple(float(v) for v in run_node.get("force_ub", ())),
+    )
+    model.frame_id(sc.frame)  # validate
+    return sc

@@ -240,6 +240,15 @@ def _geom_placement_c(model: RobotModel, params: ModelParams, oR, op,
 # floats for state-independent entries such as activation weights) and
 # written into dense [N, ...] tensors once per pack, as in the JAX package.
 
+def _zero(c) -> bool:
+    """A structural zero: a Python float 0.0. A nonzero float is a constant
+    entry (e.g. the world axis of a prismatic root joint in a translation
+    Jacobian) and takes part in the sums; the JAX pack drops every float
+    entry there, so its translation and placement Gauss-Newton blocks miss
+    such a joint's column (ROADMAP queue 3)."""
+    return isinstance(c, float) and c == 0.0
+
+
 def _cadd(a, b):
     if isinstance(a, float) and a == 0.0:
         return b
@@ -456,7 +465,7 @@ class BatchedCostPack:
             for k in range(nj):
                 s = 0.0
                 for s_ in range(ndelta):
-                    if not isinstance(rows[s_][k], float):
+                    if not _zero(rows[s_][k]):
                         s = _cadd(s, Jl[o][s_] * rows[s_][k])
                 Jc[o][k] = s
         return r, Jc
@@ -547,7 +556,7 @@ class BatchedCostPack:
             for i in range(nj):
                 s = 0.0
                 for r in range(nj):
-                    if not isinstance(Dg[r][i], float):
+                    if not _zero(Dg[r][i]):
                         s = _cadd(s, Dg[r][i] * wr_c[r])
                         lxu_c[i][r] = -(w[r] * Dg[r][i])
                 lx_c[i] = _cscale(-1.0, s)
@@ -555,8 +564,7 @@ class BatchedCostPack:
                 for j in range(i, nj):
                     s = 0.0
                     for r in range(nj):
-                        if not (isinstance(Dg[r][i], float)
-                                or isinstance(Dg[r][j], float)):
+                        if not (_zero(Dg[r][i]) or _zero(Dg[r][j])):
                             s = _cadd(s, w[r] * Dg[r][i] * Dg[r][j])
                     lxx_c[i][j] = s
                     lxx_c[j][i] = s
@@ -593,15 +601,14 @@ class BatchedCostPack:
         for i in range(nx):
             s = 0.0
             for o in range(nr):
-                if not isinstance(Jc[o][i], float):
+                if not _zero(Jc[o][i]):
                     s = _cadd(s, Jc[o][i] * adr_c[o])
             lx_c[i] = s
         for i in range(nx):
             for j in range(i, nx):
                 s = 0.0
                 for o in range(nr):
-                    if not (isinstance(JW[o][i], float)
-                            or isinstance(Jc[o][j], float)):
+                    if not (_zero(JW[o][i]) or _zero(Jc[o][j])):
                         s = _cadd(s, JW[o][i] * Jc[o][j])
                 lxx_c[i][j] = s
                 lxx_c[j][i] = s

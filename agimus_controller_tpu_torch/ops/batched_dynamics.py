@@ -236,3 +236,33 @@ def _mass_matrix_cols(sm: _StaticModel, Xs) -> List[List]:
                 M[i][j] = 0.0  # non-interacting pair (branching trees)
         M[i][i] = M[i][i] + sm.armature[i]
     return M
+
+
+def make_batched_soft_step(model: RobotModel, params: ModelParams, sc):
+    """`step(x [B, nx+nc], u [B, nu], dt [B], active [B]) -> x_next` on the
+    force-augmented state x = [q; v; f] (force_feedback_mpc
+    `IAMSoftContactAugmented`; JAX `make_batched_soft_step`): the
+    single-sample `soft_contact_step` under `torch.func.vmap`."""
+    from .soft_contact import soft_contact_step
+
+    return torch.func.vmap(
+        lambda x, u, d, a: soft_contact_step(model, params, sc, x, u, d, a))
+
+
+def make_batched_soft_step_with_derivs(model: RobotModel,
+                                       params: ModelParams, sc):
+    """`f(x, u, dt, active) -> (x_next, Fx, Fu)` on the augmented state
+    (JAX `make_batched_soft_step_with_derivs`). The Jacobians come from
+    `torch.func.jacrev` under `vmap`, where the JAX package takes
+    `jax.jacfwd` (the module docstring of `ocp/costs.py` says why)."""
+    from .soft_contact import soft_contact_step
+
+    def f1(x, u, d, a):
+        def step(xx, uu):
+            xn = soft_contact_step(model, params, sc, xx, uu, d, a)
+            return xn, xn
+        (Fx, Fu), xn = torch.func.jacrev(step, argnums=(0, 1),
+                                         has_aux=True)(x, u)
+        return xn, Fx, Fu
+
+    return torch.func.vmap(f1)

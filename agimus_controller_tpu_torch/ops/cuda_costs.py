@@ -600,8 +600,11 @@ def check_supported(spec: ProblemSpec, model: RobotModel,
     (`pallas_costs._supported`), a frame fixed to the root, and on the card
     joint counts without a kernel instance."""
     if spec.soft_contact is not None:
+        # as the Pallas kernels (`pallas_costs.py:424-426`): soft contact
+        # runs on the "xla" backend
         raise NotImplementedError(
-            "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
+            "soft contact: the stage kernels are rigid-body (the "
+            "force-augmented step runs on the 'xla' backend)")
     for item in spec.all_costs():
         if item.kind not in COVERED_KINDS:
             raise NotImplementedError(
@@ -619,7 +622,7 @@ def check_supported(spec: ProblemSpec, model: RobotModel,
     if device.type == "cuda" and model.nj not in KERNEL_NJ:
         raise NotImplementedError(
             f"the stage kernels are instantiated for nj in {KERNEL_NJ}, "
-            f"not {model.nj} (ROADMAP queue 2, item 4)")
+            f"not {model.nj} (other joint counts: ROADMAP queue 2, item 4)")
 
 
 def _pack_constants(model: RobotModel, params: ModelParams, items,

@@ -156,7 +156,7 @@ def euler_step(sm: _StaticModel, x, u, dt):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-KERNEL_NJ = (2, 7)  # joint counts the kernels are instantiated for
+KERNEL_NJ = (2, 7, 8)  # joint counts the kernels are instantiated for
 # packed model constants; must match `csrc/stage_kernels.cuh` (J_*): per
 # joint rot 9, trans 3, axis 3, type, parent, mass, com 3, inertia 9,
 # armature; then gravity 3
@@ -225,7 +225,8 @@ class StepKernel:
         if self.device.type == "cuda" and model.nj not in KERNEL_NJ:
             raise NotImplementedError(
                 f"the step kernels are instantiated for nj in {KERNEL_NJ}, "
-                f"not {model.nj} (ROADMAP queue 2, item 4)")
+                f"not {model.nj} (other joint counts: ROADMAP queue 2, "
+                "item 4)")
         self.nj, self.derivs = model.nj, derivs
         self.sm = _StaticModel(model, params)
         self.launches = 0  # kernel launches (CUDA path only)

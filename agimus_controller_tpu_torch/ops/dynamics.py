@@ -137,10 +137,14 @@ def mass_matrix(model: RobotModel, params: ModelParams, q):
 def forward_dynamics(model: RobotModel, params: ModelParams, q, v, tau,
                      fext=None):
     """Forward dynamics a(q, v, tau) with armature: the Cholesky factor of
-    M + diag(armature) and two triangular solves against tau - b(q, v)."""
+    M + diag(armature) and two triangular solves against tau - b(q, v).
+    Where M is not positive definite (a non-finite state) the result is NaN,
+    as the JAX package's factor gives, so a line search can reject the
+    trial instead of the call raising."""
     M = mass_matrix(model, params, q)
     b = rnea(model, params, q, v, torch.zeros_like(v), fext=fext)
-    L = torch.linalg.cholesky(M)
+    L, info = torch.linalg.cholesky_ex(M)
+    L = torch.where(info == 0, L, float("nan"))
     y = torch.linalg.solve_triangular(L, (tau - b)[:, None], upper=False)
     return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
 

@@ -14,6 +14,13 @@ single-scenario solver `solve_fddp` over the generic `CostFunctions`
   acceptable step taken,
 - Levenberg-Marquardt regularisation of Quu.
 
+Cost functions with a Lie-group state (`ocp.ff_costs.FFCostFunctions`,
+`cf.state_diff`/`cf.state_integrate` set; the reference's
+`StateMultibody.diff/integrate`) put the solver in their tangent space: the
+defects come from `state_diff`, the rollout's feedback reads
+`state_diff(x, xs[t])` and its gap contraction retracts through
+`state_integrate` (JAX `fddp.py:72-85,232-234`).
+
 The JAX solver runs `max_iters` iterations with a convergence mask that
 makes converged iterations no-ops; this one reads the flag on the host once
 per iteration (`Solution.host_syncs`) and stops there, which changes no
@@ -85,8 +92,21 @@ def total_cost(cf, xs, us, refs):
                                                                     refs)
 
 
-def _gaps(x0, xs, xnext):
-    return torch.cat([(x0 - xs[0])[None], xnext - xs[1:]], 0)  # [T+1, nx]
+def over_leading(fn, x):
+    """`fn` of single states, vmapped over the leading dimensions of x
+    (the batch solvers' state differences and retractions on a
+    manifold)."""
+    for _ in range(x.ndim - 1):
+        fn = torch.func.vmap(fn)
+    return fn
+
+
+def _gaps(x0, xs, xnext, sdiff=None):
+    """Dynamics defects [T+1, ntan]: vector differences, or `sdiff`."""
+    if sdiff is None:
+        return torch.cat([(x0 - xs[0])[None], xnext - xs[1:]], 0)
+    return torch.cat([sdiff(x0, xs[0])[None],
+                      torch.func.vmap(sdiff)(xnext, xs[1:])], 0)
 
 
 def _backward(d, term, fs, reg):
@@ -125,11 +145,21 @@ def _forward(cf, x0, xs, us, ks, Ks, fs, alphas, refs):
     (xs [A,T+1,nx], us [A,T,nu], cost [A])."""
     A, T = alphas.shape[0], us.shape[0]
     one_m_a = (1.0 - alphas)[:, None]
-    x = x0 - one_m_a * fs[0]
+    manifold = getattr(cf, "state_diff", None) is not None
+    if not manifold:
+        x = x0 - one_m_a * fs[0]
+    else:
+        sdiff = torch.func.vmap(cf.state_diff, in_dims=(0, None))
+        sint = torch.func.vmap(cf.state_integrate)
+        x = sint(x0.expand(A, -1), -one_m_a * fs[0])
     xs_new, us_new = [x], []
     for t in range(T):
-        u = us[t] - alphas[:, None] * ks[t] - (x - xs[t]) @ Ks[t].T
-        x = cf.step_b(x, u, t, refs) - one_m_a * fs[t + 1]
+        if not manifold:
+            u = us[t] - alphas[:, None] * ks[t] - (x - xs[t]) @ Ks[t].T
+            x = cf.step_b(x, u, t, refs) - one_m_a * fs[t + 1]
+        else:
+            u = us[t] - alphas[:, None] * ks[t] - sdiff(x, xs[t]) @ Ks[t].T
+            x = sint(cf.step_b(x, u, t, refs), -one_m_a * fs[t + 1])
         xs_new.append(x)
         us_new.append(u)
     xs_a, us_a = torch.stack(xs_new, 1), torch.stack(us_new, 1)
@@ -161,15 +191,17 @@ def solve_fddp(cf, x0, refs, xs_init, us_init,
     kkt = torch.as_tensor(float("inf"), **kw)
     converged = torch.zeros((), dtype=torch.bool, device=xs.device)
     iters = 0
+    sdiff = getattr(cf, "state_diff", None)  # a Lie-group state's
+    ntan = cf.ntan if sdiff is not None else xs_init.shape[1]
     ks = torch.zeros((T, us.shape[1]), **kw)
-    Ks = torch.zeros((T, us.shape[1], xs.shape[1]), **kw)
+    Ks = torch.zeros((T, us.shape[1], ntan), **kw)
     host_syncs = 0
     for _ in range(s.max_iters):
         host_syncs += 1
         if bool(converged):
             break  # the JAX scan's remaining iterations are no-ops
         d, term = derivs_of(xs, us)
-        fs = _gaps(x0, xs, d.xnext)
+        fs = _gaps(x0, xs, d.xnext, sdiff)
         gap_norm = fs.abs().max()
         ks_new, Ks_new, Qus, d1, d2, diverged = _backward(d, term, fs, reg)
         kkt_new = torch.maximum(Qus.abs().max(), gap_norm)
@@ -205,7 +237,7 @@ def solve_fddp(cf, x0, refs, xs_init, us_init,
 
     # final KKT and gains at the solution (the published Riccati gains)
     d, term = derivs_of(xs, us)
-    fs = _gaps(x0, xs, d.xnext)
+    fs = _gaps(x0, xs, d.xnext, sdiff)
     ks_f, Ks_f, Qus, _, _, diverged = _backward(
         d, term, fs, torch.as_tensor(s.reg_min, **kw))
     gap_norm = fs.abs().max()

@@ -30,9 +30,19 @@ result. A trial's running cost at node t depends only on that node's
 after the rollout's T steps and sums them over t in the order of the JAX
 scan, so the numbers are those of one call per step.
 
-Not ported (each raises NotImplementedError): `riccati="pscan"` (ROADMAP
-queue 1, slice 16) and soft contact (slice 12; the port's models have no
-manifold state yet either).
+Soft contact (`spec.soft_contact`, JAX `fddp_batch.py:80-124`): the
+force-augmented state [q; v; f] is stepped by `ops.batched_dynamics.
+make_batched_soft_step(_with_derivs)` with each node's `contact_active`
+from the refs (no kernel: the step kernels are rigid-body), the costs by
+the generic `CostFunctions`. Given cost functions with a Lie-group state
+(`ocp.ff_costs.FFCostFunctions`), the solver runs in their tangent space:
+defects through `cf.state_diff`, the rollout's feedback and gap contraction
+through `cf.state_diff`/`cf.state_integrate`, dynamics and costs from `cf`
+(JAX `fddp_batch.py:72-79,93-125`). As in the JAX package, manifold and
+soft contact together are refused.
+
+Not ported (raises NotImplementedError): `riccati="pscan"` (ROADMAP queue
+1, slice 16).
 """
 
 from __future__ import annotations
@@ -44,8 +54,18 @@ from ..models.model import ModelParams, RobotModel
 from ..ocp.costs import build_cost_functions
 from ..ocp.spec import ProblemSpec
 from ..ops.batched_costs import make_batched_cost_pack
+from ..ops.batched_dynamics import (
+    make_batched_soft_step,
+    make_batched_soft_step_with_derivs,
+)
 from ..ops.cuda_dynamics import make_cuda_step, make_cuda_step_derivs
-from .fddp import Solution, SolverSettings, cho_solve, cholesky
+from .fddp import (
+    Solution,
+    SolverSettings,
+    cho_solve,
+    cholesky,
+    over_leading,
+)
 from .riccati_components import backward_components
 
 _RICCATI = ("component", "pscan", "dense")
@@ -99,27 +119,39 @@ class BatchFDDP:
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, settings: SolverSettings = SolverSettings(),
                  riccati: str = "component",
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE, cf=None):
         if riccati not in _RICCATI:
             raise ValueError(riccati)
         if riccati == "pscan":
             raise NotImplementedError(
                 "riccati='pscan' is not ported yet (ROADMAP queue 1, slice 16)")
-        if spec.soft_contact is not None:
+        self.soft = spec.soft_contact is not None
+        self.manifold = getattr(cf, "ntan", None) is not None
+        if self.manifold and self.soft:
+            # the JAX package's batch FDDP asserts the same
             raise NotImplementedError(
-                "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
+                "manifold + soft contact not supported yet")
         self.device = resolve_device(device)
-        # the batched cost pack, or the generic CostFunctions where it
-        # declines the spec (same batched interface)
-        self.pack = make_batched_cost_pack(model, params, spec,
-                                           device=self.device)
-        if self.pack is None:
-            self.pack = build_cost_functions(model, params, spec,
-                                             torch.float64)
+        if self.manifold:
+            self.pack = cf  # dynamics and costs together
+        else:
+            # the batched cost pack, or the generic CostFunctions where it
+            # declines the spec (same batched interface)
+            self.pack = make_batched_cost_pack(model, params, spec,
+                                               device=self.device)
+            if self.pack is None:
+                self.pack = build_cost_functions(model, params, spec,
+                                                 torch.float64)
         self.T = spec.horizon
         self.settings, self.riccati = settings, riccati
-        self.step_k = make_cuda_step(model, params, self.device)
-        self.step_dk = make_cuda_step_derivs(model, params, self.device)
+        if self.soft:
+            self.soft_b = make_batched_soft_step(model, params,
+                                                 spec.soft_contact)
+            self.soft_db = make_batched_soft_step_with_derivs(
+                model, params, spec.soft_contact)
+        elif not self.manifold:
+            self.step_k = make_cuda_step(model, params, self.device)
+            self.step_dk = make_cuda_step_derivs(model, params, self.device)
         self._ts = torch.as_tensor(spec.timesteps(), dtype=torch.float64)
         self._alphas = [0.5 ** i for i in range(settings.n_alphas)]
         self._nodes = {}  # (B, dtype, device) -> per-node dt and times
@@ -127,7 +159,10 @@ class BatchFDDP:
 
     @property
     def kernels(self):
-        """The two step-kernel wrappers, K5a and K5b."""
+        """The two step-kernel wrappers, K5a and K5b (none for soft contact
+        or a manifold state)."""
+        if self.soft or self.manifold:
+            return ()
         return (self.step_k, self.step_dk)
 
     def _all(self, mask: torch.Tensor) -> bool:
@@ -162,21 +197,58 @@ class BatchFDDP:
             acc = acc + c[t]
         return acc + self.pack.term_value(xs[-1], refs)
 
+    def _step(self, x, u, dts, t_idx, refs):
+        """x+ of the nodes: K5a, or the soft step with the nodes' contact
+        activation (`t_idx` an [N] tensor or an int)."""
+        if self.manifold:
+            return self.pack.step_b(x, u, t_idx, refs)
+        if not self.soft:
+            return self.step_k(x, u, dts)
+        act = refs["contact_active"].to(x.dtype)[t_idx]
+        return self.soft_b(x, u, dts, act.expand(x.shape[0]))
+
     def derivs_of(self, xs, us, refs):
         T, B, nx, nu = self.T, xs.shape[1], xs.shape[2], us.shape[2]
         _, dts_flat, t_flat = self._node_data(xs)
         x_flat = xs[:-1].reshape(T * B, nx)
         u_flat = us.reshape(T * B, nu)
-        xnext, Fx, Fu = self.step_dk(x_flat, u_flat, dts_flat)
+        if self.manifold:
+            # tangent-space blocks, dynamics and costs in one evaluation
+            d = self.pack.stage_derivs_b(x_flat, u_flat, t_flat, refs)
+            nt = self.pack.ntan
+            dyn = (d.xnext.reshape(T, B, nx), d.Fx.reshape(T, B, nt, nt),
+                   d.Fu.reshape(T, B, nt, nu))
+            costs = tuple(c.reshape((T, B) + c.shape[1:]) for c in d[:6])
+            return dyn, costs, self.pack.term_pack(xs[-1], refs)
+        if self.soft:
+            act = refs["contact_active"].to(xs.dtype).index_select(0, t_flat)
+            xnext, Fx, Fu = self.soft_db(x_flat, u_flat, dts_flat, act)
+        else:
+            xnext, Fx, Fu = self.step_dk(x_flat, u_flat, dts_flat)
         dyn = (xnext.reshape(T, B, nx), Fx.reshape(T, B, nx, nx),
                Fu.reshape(T, B, nx, nu))
         costs = tuple(c.reshape((T, B) + c.shape[1:]) for c in
                       self.pack.pack(x_flat, u_flat, t_flat, refs))
         return dyn, costs, self.pack.term_pack(xs[-1], refs)
 
-    @staticmethod
-    def _gaps_of(x0s, xs, xnext):
-        """Dynamics defects, [T+1, B, nx]."""
+    def _sdiff(self, x1, x0):
+        """x1 (-) x0 over leading batch dimensions: the tangent difference
+        of the manifold, else the vector difference."""
+        if not self.manifold:
+            return x1 - x0
+        return over_leading(self.pack.state_diff, x1)(x1, x0)
+
+    def _sint(self, x, dx):
+        """x (+) dx over leading batch dimensions (the retraction)."""
+        if not self.manifold:
+            return x + dx
+        return over_leading(self.pack.state_integrate, x)(x, dx)
+
+    def _gaps_of(self, x0s, xs, xnext):
+        """Dynamics defects, [T+1, B, ntan]."""
+        if self.manifold:
+            return torch.cat([self._sdiff(x0s, xs[0])[None],
+                              self._sdiff(xnext, xs[1:])], 0)
         return torch.cat([(x0s - xs[0])[None], xnext - xs[1:]], 0)
 
     # ------------------------------------------------------------------
@@ -201,12 +273,20 @@ class BatchFDDP:
         cost [B])."""
         one_m_a = 1.0 - alpha
         dts, _, _ = self._node_data(xs)
-        x = x0s - one_m_a * fs[0]
+        if self.manifold:
+            x = self._sint(x0s, -one_m_a * fs[0])
+        else:
+            x = x0s - one_m_a * fs[0]
         xs_new, us_new = [x], []
         for t in range(self.T):
-            du = -alpha * ks[t] - (Ks[t] * (x - xs[t])[:, None, :]).sum(-1)
+            dx = self._sdiff(x, xs[t])
+            du = -alpha * ks[t] - (Ks[t] * dx[:, None, :]).sum(-1)
             u = us[t] + du
-            x = self.step_k(x, u, dts[t]) - one_m_a * fs[t + 1]
+            if self.manifold:
+                x = self._sint(self._step(x, u, dts[t], t, refs),
+                               -one_m_a * fs[t + 1])
+            else:
+                x = self._step(x, u, dts[t], t, refs) - one_m_a * fs[t + 1]
             xs_new.append(x)
             us_new.append(u)
         xs_try, us_try = torch.stack(xs_new), torch.stack(us_new)
@@ -256,7 +336,8 @@ class BatchFDDP:
         T = self.T
         xs = xs_in.transpose(0, 1).contiguous()  # [T+1, B, nx] time-major
         us = us_in.transpose(0, 1).contiguous()
-        B, nx, nu = xs.shape[1], xs.shape[2], us.shape[2]
+        B, nu = xs.shape[1], us.shape[2]
+        nx = self.pack.ntan if self.manifold else xs.shape[2]  # tangent
         kw = dict(dtype=xs.dtype, device=xs.device)
 
         cost = self.total_cost(xs, us, refs)
@@ -315,9 +396,11 @@ class BatchFDDP:
 def make_batch_fddp(model: RobotModel, params: ModelParams, spec: ProblemSpec,
                     settings: SolverSettings = SolverSettings(),
                     riccati: str = "component",
-                    device: torch.device | str = DEFAULT_DEVICE) -> BatchFDDP:
-    """Build the batch FDDP solver for `device` (see `BatchFDDP`). Unlike the
-    JAX factory it takes no `CostFunctions`: the costs come from `spec`
-    through the batched cost pack, or the generic `CostFunctions` where the
-    pack declines the spec."""
-    return BatchFDDP(model, params, spec, settings, riccati, device)
+                    device: torch.device | str = DEFAULT_DEVICE,
+                    cf=None) -> BatchFDDP:
+    """Build the batch FDDP solver for `device` (see `BatchFDDP`). The costs
+    come from `spec` through the batched cost pack, or the generic
+    `CostFunctions` where the pack declines the spec; `cf`, cost functions
+    with a Lie-group state (`ocp.ff_costs.build_ff_cost_functions`), puts
+    the solver in their tangent space."""
+    return BatchFDDP(model, params, spec, settings, riccati, device, cf)

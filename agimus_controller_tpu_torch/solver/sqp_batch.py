@@ -32,8 +32,23 @@ and the line-search ladder) and `lax.scan`s over T (the Riccati sweeps), the
 port runs Python loops: the loop conditions read an "all done" flag on the
 host once per SQP iteration, once per ADMM iteration and once per
 line-search trial (counted in `BatchSQP.host_syncs`). The sweeps run in the
-trajectory dtype (no `sweep_f64`). Soft contact and manifold states are not
-ported yet.
+trajectory dtype (no `sweep_f64`).
+
+Soft contact (`spec.soft_contact`, JAX `sqp_batch.py:186-203`): the state
+is the force-augmented [q; v; f] throughout (the Riccati sweep, the line
+search and the dual carry), stepped by `ops.batched_dynamics.
+make_batched_soft_step(_with_derivs)` with each node's `contact_active`
+from the refs, on the "xla" backend (the stage and step kernels are
+rigid-body, as the Pallas kernels are) with the generic `CostFunctions`.
+
+The manifold backend (JAX `sqp_batch.py:124-134,177-185,208-215,252-320`):
+given cost functions with a Lie-group state (`ocp.ff_costs.
+FFCostFunctions`, `cf.ntan` set), the gains, steps and defects live in the
+tangent space ([T+1, B, ntan]), the defects come from `cf.state_diff`, the
+line search and the second-order correction retract through
+`cf.state_integrate`, and the dynamics, costs and constraint rows are the
+cost functions' (plain PyTorch, as the JAX package's XLA). Manifold and
+soft contact compose there.
 
 The backend (JAX `sqp_batch.py:135-170`, where "pallas" is this port's
 "kernels"): "kernels" runs the stage kernels K1-K4; "xla" runs the
@@ -60,6 +75,10 @@ from ..models.model import ModelParams, RobotModel
 from ..ocp.costs import build_constraint_functions, build_cost_functions
 from ..ocp.spec import ProblemSpec
 from ..ops.batched_costs import make_batched_cost_pack
+from ..ops.batched_dynamics import (
+    make_batched_soft_step,
+    make_batched_soft_step_with_derivs,
+)
 from ..ops.cuda_costs import (
     check_supported,
     make_cuda_stage,
@@ -67,6 +86,7 @@ from ..ops.cuda_costs import (
 )
 from ..ops.cuda_dynamics import make_cuda_step, make_cuda_step_derivs
 from .csqp import CSQPSettings
+from .fddp import over_leading
 from .riccati_components import (
     _chol_lanes,
     _chol_solve_lanes,
@@ -99,12 +119,16 @@ BACKENDS = ("auto", "xla")
 
 
 def select_backend(model: RobotModel, spec: ProblemSpec,
-                   device: torch.device | str, backend: str = "auto"):
+                   device: torch.device | str, backend: str = "auto",
+                   cf=None):
     """(backend, reason): the backend "auto" resolves to for the spec, the
     model and the device, with the stage kernels' refusal as the reason
-    (None when they take the spec); "xla" passes through."""
+    (None when they take the spec); "xla" passes through. Cost functions
+    with a Lie-group state (`cf.ntan` set) take "manifold"."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    if getattr(cf, "ntan", None) is not None:
+        return "manifold", None
     if backend != "auto":
         return backend, None
     try:
@@ -144,15 +168,14 @@ class BatchSQP:
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, settings: CSQPSettings = CSQPSettings(),
                  device: torch.device | str = DEFAULT_DEVICE,
-                 backend: str = "auto"):
-        if spec.soft_contact is not None:
-            raise NotImplementedError(
-                "soft contact is not ported yet (ROADMAP queue 1, slice 12)")
+                 backend: str = "auto", cf=None):
         self.T = spec.horizon
         self.settings = settings
         self.device = resolve_device(device)
+        self.soft = spec.soft_contact is not None
         self.backend, self.backend_reason = select_backend(
-            model, spec, self.device, backend)
+            model, spec, self.device, backend, cf)
+        self.manifold = self.backend == "manifold"
         if self.backend_reason is not None:
             logging.getLogger(__name__).info(
                 "BatchSQP backend='auto': the stage kernels decline this "
@@ -166,9 +189,19 @@ class BatchSQP:
                                               self.device)
             self.term_vk = make_cuda_terminal(model, params, spec, False,
                                               self.device)
+        elif self.manifold:
+            # dynamics and costs together from the Lie-group cost functions
+            self.costs = cf
         else:
-            self.step_k = make_cuda_step(model, params, self.device)
-            self.step_dk = make_cuda_step_derivs(model, params, self.device)
+            if self.soft:
+                self.soft_b = make_batched_soft_step(model, params,
+                                                     spec.soft_contact)
+                self.soft_db = make_batched_soft_step_with_derivs(
+                    model, params, spec.soft_contact)
+            else:
+                self.step_k = make_cuda_step(model, params, self.device)
+                self.step_dk = make_cuda_step_derivs(model, params,
+                                                     self.device)
             # the costs: the batched pack where it takes the spec, else the
             # generic CostFunctions (same batched interface)
             self.costs = make_batched_cost_pack(model, params, spec,
@@ -176,7 +209,8 @@ class BatchSQP:
             if self.costs is None:
                 self.costs = build_cost_functions(model, params, spec,
                                                   torch.float64)
-        self.cf = build_constraint_functions(model, params, spec)
+        self.cf = (cf.constraint_functions if self.manifold
+                   else build_constraint_functions(model, params, spec))
         self.nc = self.cf.n_constraints
         self._ts = torch.as_tensor(spec.timesteps(), dtype=torch.float64)
         self._alphas = [0.5 ** i for i in range(settings.n_alphas)]
@@ -187,10 +221,12 @@ class BatchSQP:
 
     @property
     def kernels(self):
-        """The kernel wrappers of the backend: K1-K4 ("kernels"), or K5a
-        and K5b ("xla")."""
+        """The kernel wrappers of the backend: K1-K4 ("kernels"), K5a and
+        K5b ("xla"), none for soft contact or "manifold"."""
         if self.backend == "kernels":
             return (self.stage_dk, self.stage_vk, self.term_dk, self.term_vk)
+        if self.manifold or self.soft:
+            return ()
         return (self.step_k, self.step_dk)
 
     def _all(self, mask: torch.Tensor) -> bool:
@@ -211,9 +247,39 @@ class BatchSQP:
         return (xs[:-1].reshape(T * B, xs.shape[2]),
                 us.reshape(T * B, us.shape[2]), dts_flat, t_idx)
 
-    @staticmethod
-    def _gaps_of(x0s, xs, xnext):
-        """Dynamics defects, [T+1, B, nx]."""
+    def _active(self, refs, t_idx, x):
+        """The nodes' contact activation, [N] in x's dtype."""
+        return refs["contact_active"].to(x.dtype).index_select(0, t_idx)
+
+    def _step(self, x, u, dts, t_idx, refs):
+        """x+ of the nodes on the "xla" backend: K5a, or the soft step."""
+        if self.soft:
+            return self.soft_b(x, u, dts, self._active(refs, t_idx, x))
+        return self.step_k(x, u, dts)
+
+    def _step_derivs(self, x, u, dts, t_idx, refs):
+        if self.soft:
+            return self.soft_db(x, u, dts, self._active(refs, t_idx, x))
+        return self.step_dk(x, u, dts)
+
+    def _sdiff(self, x1, x0):
+        """x1 (-) x0 over leading batch dimensions: the tangent difference
+        of the manifold, else the vector difference."""
+        if not self.manifold:
+            return x1 - x0
+        return over_leading(self.costs.state_diff, x1)(x1, x0)
+
+    def _sint(self, x, dx):
+        """x (+) dx over leading batch dimensions (the retraction)."""
+        if not self.manifold:
+            return x + dx
+        return over_leading(self.costs.state_integrate, x)(x, dx)
+
+    def _gaps_of(self, x0s, xs, xnext):
+        """Dynamics defects, [T+1, B, ntan]."""
+        if self.manifold:
+            return torch.cat([self._sdiff(x0s, xs[0])[None],
+                              self._sdiff(xnext, xs[1:])], 0)
         return torch.cat([(x0s - xs[0])[None], xnext - xs[1:]], 0)
 
     def cost_and_gaps(self, x0s, xs, us, refs):
@@ -227,7 +293,9 @@ class BatchSQP:
                                          refs)
             (lT,) = self.term_vk(xs[-1], refs)
         else:
-            xnext_f = self.step_k(x_flat, u_flat, dts_flat)
+            xnext_f = (self.costs.step_b(x_flat, u_flat, t_idx, refs)
+                       if self.manifold else
+                       self._step(x_flat, u_flat, dts_flat, t_idx, refs))
             l_f = self.costs.value(x_flat, u_flat, t_idx, refs)
             lT = self.costs.term_value(xs[-1], refs)
         cost = l_f.reshape(T, B).sum(0) + lT
@@ -236,19 +304,27 @@ class BatchSQP:
     def derivs_of(self, xs, us, refs):
         T, B, nx, nu = self.T, xs.shape[1], xs.shape[2], us.shape[2]
         x_flat, u_flat, dts_flat, t_idx = self._flatten_nodes(xs, us)
+        nt = nx  # the tangent dimension
         if self.backend == "kernels":
             (xn, Fx, Fu, l, lx, lu, lxx, lxu, luu) = self.stage_dk(
                 x_flat, u_flat, dts_flat, t_idx, refs)
             term = self.term_dk(xs[-1], refs)
+        elif self.manifold:
+            # tangent-space blocks, dynamics and costs in one evaluation
+            (l, lx, lu, lxx, lxu, luu, xn, Fx, Fu) = self.costs.stage_derivs_b(
+                x_flat, u_flat, t_idx, refs)
+            term = self.costs.term_pack(xs[-1], refs)
+            nt = self.costs.ntan
         else:
-            xn, Fx, Fu = self.step_dk(x_flat, u_flat, dts_flat)
+            xn, Fx, Fu = self._step_derivs(x_flat, u_flat, dts_flat, t_idx,
+                                           refs)
             l, lx, lu, lxx, lxu, luu = self.costs.pack(x_flat, u_flat, t_idx,
                                                        refs)
             term = self.costs.term_pack(xs[-1], refs)
-        dyn = (xn.reshape(T, B, nx), Fx.reshape(T, B, nx, nx),
-               Fu.reshape(T, B, nx, nu))
-        costs = (l.reshape(T, B), lx.reshape(T, B, nx), lu.reshape(T, B, nu),
-                 lxx.reshape(T, B, nx, nx), lxu.reshape(T, B, nx, nu),
+        dyn = (xn.reshape(T, B, nx), Fx.reshape(T, B, nt, nt),
+               Fu.reshape(T, B, nt, nu))
+        costs = (l.reshape(T, B), lx.reshape(T, B, nt), lu.reshape(T, B, nu),
+                 lxx.reshape(T, B, nt, nt), lxu.reshape(T, B, nt, nu),
                  luu.reshape(T, B, nu, nu))
         return dyn, costs, term
 
@@ -297,7 +373,7 @@ class BatchSQP:
         Gu = Gu.reshape(T + 1, B, nc, us.shape[2])
         Gu = torch.cat([Gu[:-1], torch.zeros_like(Gu[-1:])], 0)
         return (g.reshape(T + 1, B, nc), lb, ub,
-                Gx.reshape(T + 1, B, nc, xs.shape[2]), Gu)
+                Gx.reshape(T + 1, B, nc, Gx.shape[-1]), Gu)
 
     # ------------------------------------------------------------------
     # Riccati: factor once, then cheap vector sweeps (mim_solvers trick)
@@ -382,7 +458,7 @@ class BatchSQP:
         for alpha in self._alphas:
             if self._all(done):
                 break
-            xs_t = xs + alpha * dxs
+            xs_t = self._sint(xs, alpha * dxs)  # the retraction
             us_t = us + alpha * dus
             cost_t, infeas_t, viol_t = self.trial_infeas(x0s, xs_t, us_t, refs)
             admissible = torch.isfinite(cost_t) & torch.isfinite(infeas_t)
@@ -412,7 +488,8 @@ class BatchSQP:
         T, nc = self.T, self.nc
         xs = xs_in.transpose(0, 1).contiguous()  # [T+1, B, nx] time-major
         us = us_in.transpose(0, 1).contiguous()
-        B, nx, nu = xs.shape[1], xs.shape[2], us.shape[2]
+        B, nu = xs.shape[1], us.shape[2]
+        nx = self.costs.ntan if self.manifold else xs.shape[2]  # tangent
         kw = dict(dtype=xs.dtype, device=xs.device)
         tol = s.termination_tolerance
 
@@ -668,8 +745,8 @@ class _ADMM:
         worse (JAX :698-756)."""
         solver = self.solver
         step = lambda d_t: d_t.permute(0, 2, 1)
-        g_try, _, _ = solver.constraint_vals(xs + step(dxs_t), us + step(dus_t),
-                                             refs)
+        g_try, _, _ = solver.constraint_vals(solver._sint(xs, step(dxs_t)),
+                                             us + step(dus_t), refs)
         d_t = (g_try.permute(0, 2, 1) - g.permute(0, 2, 1)
                - self.cvals_t(dxs_t, dus_t))
         lo_soc, hi_soc = self.lo_t - d_t, self.hi_t - d_t
@@ -681,7 +758,8 @@ class _ADMM:
             z2 = torch.clamp(c + y_s, lo_soc, hi_soc)
             soc = (z2, y_s + c - z2, dxs2, dus2, ks2, Qus2)
         v_soc = _violation(*solver.constraint_vals(
-            xs + step(soc[2]), us + step(soc[3]), refs)).amax((0, 2))
+            solver._sint(xs, step(soc[2])), us + step(soc[3]),
+            refs)).amax((0, 2))
         v_try = _violation(g_try, lb, ub).amax((0, 2))
         take = (v_soc <= v_try)[None, None, :]
         return tuple(torch.where(take, a, b) for a, b in zip(
@@ -690,8 +768,10 @@ class _ADMM:
 def make_batch_sqp(model: RobotModel, params: ModelParams, spec: ProblemSpec,
                    settings: CSQPSettings = CSQPSettings(),
                    device: torch.device | str = DEFAULT_DEVICE,
-                   backend: str = "auto") -> BatchSQP:
+                   backend: str = "auto", cf=None) -> BatchSQP:
     """Build the batch SQP solver for `device` (see `BatchSQP`; `backend`
-    "auto" or "xla"). Unlike the JAX factory it takes no
-    `CostFunctions`: the costs and constraint rows come from `spec`."""
-    return BatchSQP(model, params, spec, settings, device, backend)
+    "auto" or "xla"). The costs and constraint rows come from `spec`,
+    unless `cf` is cost functions with a Lie-group state
+    (`ocp.ff_costs.build_ff_cost_functions`): then the backend is
+    "manifold" and everything comes from `cf`."""
+    return BatchSQP(model, params, spec, settings, device, backend, cf)

@@ -12,8 +12,11 @@ more ref keys than the kernels' by-value table holds) with every term live,
 K1/K2 at N = 19, 20, 100 and 102 400 (`cap_spec` at 100), also with one
 dt for every node (a float, a 0-d tensor), K1-K4 also on the tick's
 ring-row views of the refs, and K5a/K5b at every shape the paths launch
-them at, with per-node and scalar dt; times each call and its bare launch
-and computes its bound.
+them at, with per-node and scalar dt; and the nj = 8 instances of all six
+on the 8-joint Tiago-Pro arm (`tiago_spec`) at the sizes phase 7 launches
+them at (K1/K2 at N = 20 and 21 and K3/K4 at 1, also on the ring-row
+views; K5a/K5b with per-node and scalar dt); times each call and its bare
+launch and computes its bound.
 Then drives the port's four main paths, every entry point on the card, the
 first three through `FusedTickRunner`:
 
@@ -43,7 +46,16 @@ f32: (a) the pick-and-place loop, held against the JAX package's joint
 tracking error; (b) the same in ring mode with the debug streams, one solve
 held against host packing; (c) the sine loop at the reference's default
 `max_solve_time`; (d) the collision-avoidance OCP through the facade, T=19,
-checked to hold the band.
+checked to hold the band. Phase 7 drives slice 12: (a) the Tiago-Pro arm
+(nj = 8) through `FusedTickRunner` on the stage kernels, T=20, checked to
+converge with the tool error under a quarter of the start's, and
+`make_batch_fddp` at B=1024 on the step kernels, rows 0-7 against a B=8
+solve; (b) soft contact on the Panda: the batch SQP on the soft step
+against `solve_fddp` on the terminal force, an inactive contact freezing
+the force state, and an `MPC` loop with the force-feedback warm start;
+(c) the quaternion free-flyer at the euler chart's singular pitch:
+`solve_fddp` and the manifold batch SQP reaching the hand's goal and
+agreeing on it.
 
 The tick paths must have launched every stage kernel, the batch path both
 step kernels and no stage kernel. Exits non-zero without a result when
@@ -613,7 +625,7 @@ def check_kernels(model, params, device, sizes=STAGE_CHECK_SIZES):
                     views = f"  tick views {'equal' if same else 'differ'}"
                 if kind == "stage" and with_views:
                     views += check_scalar_dt(k, name, spec_name, args, labels,
-                                             errs)
+                                             errs, want)
                 ms = cuda_time_ms(run, reps=50)
                 prepared, _ = k.prepare(*args)
                 kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=50)
@@ -639,42 +651,48 @@ def check_kernels(model, params, device, sizes=STAGE_CHECK_SIZES):
     return report
 
 
-def check_scalar_dt(k, name, spec_name, args, labels, errs):
+def check_scalar_dt(k, name, spec_name, args, labels, errs, want):
     """K1/K2 with the first node's dt for every node, as a Python float and
     as a 0-d tensor: each equal bit for bit to the [N] form, which is held
     against the plain version (one plain call; a form that differs is held
-    against the plain version itself). The errors go into errs; returns the
-    line's note."""
+    against the plain version itself). Where the inputs' dt already is that
+    value at every node (a uniform horizon), the [N] form's inputs are the
+    check's and its plain result `want` is reused. The errors go into errs;
+    returns the line's note."""
     x, u, dt, t_idx, refs = args
     h = float(dt[0])
     per_node = torch.full_like(dt, h)
     got_n = k(x, u, per_node, t_idx, refs)
+    same_inputs = torch.equal(per_node, dt)
     checks = [("[N]", got_n, h)]
     for form, d in (("float", h), ("0-d", dt[0].clone())):
         got = k(x, u, d, t_idx, refs)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, got_n)):
             checks.append((form, got, d))
-    for form, got, d in checks:
+    for i, (form, got, d) in enumerate(checks):
+        plain = (want if i == 0 and same_inputs
+                 else k.plain(x, u, d, t_idx, refs))
         for lab, e in check_outputs(f"{name} {spec_name} {form} dt", got,
-                                    k.plain(x, u, d, t_idx, refs),
-                                    labels).items():
+                                    plain, labels).items():
             errs[lab] = max(errs[lab], e)
     return f"  scalar dt {'equal' if len(checks) == 1 else 'differs'} to [N]"
 
 
-def step_inputs(N, seed, device, dt_kind):
-    """Random Panda nodes around the ready pose with v and u live:
-    q ~ ready + 0.1 N(0, 1), v ~ 0.5 N(0, 1), u ~ 2 N(0, 1); dt per node
-    uniform in [0.005, 0.03], or the scalar 0.01."""
+def step_inputs(N, seed, device, dt_kind, q_ready=None):
+    """Random nodes around a ready pose (the Panda's unless `q_ready` is
+    given) with v and u live: q ~ ready + 0.1 N(0, 1), v ~ 0.5 N(0, 1),
+    u ~ 2 N(0, 1); dt per node uniform in [0.005, 0.03], or the scalar
+    0.01."""
     from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
 
+    q_ready = np.asarray(PANDA_Q_READY if q_ready is None else q_ready)
+    nj = q_ready.shape[0]
     rng = np.random.default_rng(seed)
     f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    x = f(np.concatenate([np.asarray(PANDA_Q_READY)[None]
-                          + rng.normal(size=(N, 7)) * 0.1,
-                          rng.normal(size=(N, 7)) * 0.5], 1))
-    u = f(rng.normal(size=(N, 7)) * 2.0)
+    x = f(np.concatenate([q_ready[None] + rng.normal(size=(N, nj)) * 0.1,
+                          rng.normal(size=(N, nj)) * 0.5], 1))
+    u = f(rng.normal(size=(N, nj)) * 2.0)
     dt = f(rng.uniform(0.005, 0.03, N)) if dt_kind == "per_node" else 0.01
     return x, u, dt
 
@@ -698,19 +716,19 @@ def check_step_kernels(model, params, device):
             for dt_kind in ("scalar", "per_node"):
                 x, u, dt = step_inputs(N, N + derivs, device, dt_kind)
                 run = lambda: k(x, u, dt)
-                plain = lambda: k.plain(x, u, dt)
                 as_tuple = lambda o: o if derivs else (o,)
                 got = as_tuple(run())
                 torch.cuda.synchronize()
+                # the check's plain call is the one timed (per-node dt last)
+                want, plain_ms = cuda_timed_call(lambda: k.plain(x, u, dt))
                 for lab, e in check_outputs(
-                        f"{name} N={N} {dt_kind} dt", got, as_tuple(plain()),
+                        f"{name} N={N} {dt_kind} dt", got, as_tuple(want),
                         labels).items():
                     errs[lab] = max(errs.get(lab, 0.0), e)
             reps = 50 if N <= 6400 else 20
             ms = cuda_time_ms(run, reps=reps)
             prepared, _ = k.prepare(x, u, dt)
             kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=reps)
-            plain_ms = cuda_time_ms(plain, reps=1, warmup=0)
             if ops_node is None:  # per node: the same at every size
                 ops_node = ops_per_node(model_cpu, params_cpu, None, kind,
                                         derivs, None, x, u, dt, None)
@@ -724,6 +742,163 @@ def check_step_kernels(model, params, device):
                 ms=ms, kernel_only_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs.values()))
     return report
+
+
+# -- the 8-joint Tiago-Pro arm: K1-K5b at nj = 8 -----------------------------
+TIAGO_FRAME = "left_arm_tool_link"
+TIAGO_GOAL = (0.10, -0.05, 0.10)  # from the tool at the ready pose
+TIAGO_T = 20
+# the node counts K1/K2 are checked at: phase 7 (a)'s tick (T x B = 20) and
+# one more, ragged against K1's 8 nodes per block
+TIAGO_STAGE_SIZES = (20, 21)
+# every shape phase 7 (a)'s batch FDDP launches the step kernels at: K5a
+# rolls out B = 8 and 1 024 scenarios a step, K5b linearises T x B = 160
+# and 20 480 nodes
+TIAGO_B = 1024
+TIAGO_STEP_SIZES = (8, 160, 1024, 20_480)
+
+
+def tiago_spec(T: int):
+    """The Tiago-Pro OCP of the JAX package's second-robot test: state and
+    gravity-compensation regularisation and the tool's translation."""
+    from agimus_controller_tpu_torch.ocp.spec import CostItem, ProblemSpec
+
+    goal = dict(kind="frame_translation", update=True, frame=TIAGO_FRAME)
+    return ProblemSpec(
+        running_costs=(
+            CostItem(name="state_reg", kind="state", weight=0.1, update=True),
+            CostItem(name="ctrl", kind="control_grav", weight=1e-3),
+            CostItem(name="goal", weight=10.0, **goal)),
+        terminal_costs=(CostItem(name="goal", weight=100.0, **goal),),
+        horizon=T, dt=0.02)
+
+
+def tiago_inputs(spec, model, N, seed, device):
+    """`randomized_inputs` for the Tiago-Pro arm: every ref of the spec
+    drawn from the seed (the tool targets around the tool at the ready
+    pose), x ~ (ready + 0.1 N(0, 1), 0.5 N(0, 1)), u ~ 2 N(0, 1), node
+    times uniform over the horizon."""
+    from agimus_controller_tpu_torch.models.tiago_pro import TIAGO_PRO_Q_READY
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+
+    rng = np.random.default_rng(seed)
+    Tn, nj = spec.horizon + 1, model.nj
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=device)
+    refs = default_references(spec, model, dtype=torch.float32, device=device)
+    refs["xref"] = f(np.concatenate([TIAGO_PRO_Q_READY[None] + rng.normal(
+        size=(Tn, nj)) * 0.2, rng.normal(size=(Tn, nj)) * 0.2], 1))
+    refs["w_x"] = f(rng.uniform(0.1, 2.0, (Tn, 2 * nj)))
+    refs["w_u"] = f(rng.uniform(0.1, 2.0, (Tn, nj)))
+    refs[f"ee_trans:{TIAGO_FRAME}"] = f(
+        rng.normal(size=(Tn, 3)) * 0.2 + np.asarray([0.3, 0.3, 0.9]))
+    refs[f"w_ee:{TIAGO_FRAME}"] = f(rng.uniform(0.1, 2.0, (Tn, 6)))
+    x, u, _ = step_inputs(N, seed, device, "scalar", TIAGO_PRO_Q_READY)
+    t_idx = torch.as_tensor(rng.integers(0, spec.horizon, size=(N,)),
+                            device=device)
+    dt = f(spec.timesteps())[t_idx]
+    return refs, x, u, dt, t_idx
+
+
+def check_tiago_kernels(device):
+    """K1-K5b's nj = 8 instances vs their plain versions on the same CUDA
+    inputs, f32, on the Tiago-Pro arm (`tiago_spec`): K1/K2 at
+    `TIAGO_STAGE_SIZES` and K3/K4 at N = 1, each on the plain refs and on
+    the tick's ring-row views (one plain call per size, held against both);
+    K5a/K5b at `TIAGO_STEP_SIZES` with per-node and scalar dt. Each size
+    with its wrapper and bare-launch times and its bound. Returns
+    {kernel: {("tiago", N): numbers}}."""
+    from agimus_controller_tpu_torch.models.tiago_pro import (
+        TIAGO_PRO_Q_READY,
+        load_tiago_pro,
+    )
+    from agimus_controller_tpu_torch.ops.cuda_costs import (
+        make_cuda_stage,
+        make_cuda_terminal,
+    )
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
+
+    model, params = load_tiago_pro(dtype=torch.float32, device=device)
+    model_cpu, params_cpu = load_tiago_pro(dtype=torch.float32, device="cpu")
+    spec = tiago_spec(TIAGO_T)
+    report = {}
+    for name, kind, derivs, _ in KERNELS:
+        ops_node = None
+        if kind == "step":
+            k = StepKernel(model, params, derivs, device)
+            labels = ("xnext", "Fx", "Fu") if derivs else ("xnext",)
+            as_tuple = lambda o: o if derivs else (o,)
+            for N in TIAGO_STEP_SIZES:
+                errs = {}
+                for dt_kind in ("scalar", "per_node"):
+                    x, u, dt = step_inputs(N, N + derivs, device, dt_kind,
+                                           TIAGO_PRO_Q_READY)
+                    args = (x, u, dt)
+                    got = as_tuple(k(*args))
+                    torch.cuda.synchronize()
+                    want, plain_ms = cuda_timed_call(lambda: k.plain(*args))
+                    for lab, e in check_outputs(
+                            f"{name} tiago N={N} {dt_kind} dt", got,
+                            as_tuple(want), labels).items():
+                        errs[lab] = max(errs.get(lab, 0.0), e)
+                report.setdefault(name, {})[("tiago", N)] = _measure(
+                    k, kind, args, name, N, plain_ms, errs, model_cpu,
+                    params_cpu, None, None, None, ops_node)
+                ops_node = report[name][("tiago", N)]["ops_node"]
+            continue
+        if kind == "stage":
+            k = make_cuda_stage(model, params, spec, derivs, device)
+            labels = STAGE_OUT if derivs else ("xnext", "l")
+            sizes = TIAGO_STAGE_SIZES
+        else:
+            k = make_cuda_terminal(model, params, spec, derivs, device)
+            labels = ("l", "lx", "lxx") if derivs else ("l",)
+            sizes = (1,)
+        for N in sizes:
+            refs, x, u, dt, t_idx = tiago_inputs(spec, model, N, N + derivs,
+                                                 device)
+            args = (x, u, dt, t_idx, refs) if kind == "stage" else (x, refs)
+            got = k(*args)
+            torch.cuda.synchronize()
+            want, plain_ms = cuda_timed_call(lambda: k.plain(*args))
+            errs = check_outputs(f"{name} tiago N={N}", got, want, labels)
+            got_v = k(*args[:-1], tick_views(spec, model, refs))
+            torch.cuda.synchronize()
+            for lab, e in check_outputs(f"{name} tiago N={N} tick views",
+                                        got_v, want, labels).items():
+                errs[lab] = max(errs[lab], e)
+            report.setdefault(name, {})[("tiago", N)] = _measure(
+                k, kind, args, name, N, plain_ms, errs, model_cpu, params_cpu,
+                spec, refs, t_idx, ops_node)
+            ops_node = report[name][("tiago", N)]["ops_node"]
+    return report
+
+
+def _measure(k, kind, args, name, N, plain_ms, errs, model_cpu, params_cpu,
+             spec, refs, t_idx, ops_node):
+    """A checked call's numbers (`check_tiago_kernels`): the wrapper's and
+    the bare launch's CUDA-event medians, the bound (ops per node counted
+    once a kernel) and its line."""
+    ms = cuda_time_ms(lambda: k(*args), reps=50)
+    prepared, _ = k.prepare(*args)
+    kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=50)
+    if ops_node is None:
+        if kind == "step":
+            x, u, dt = args
+        elif kind == "stage":
+            x, u, dt = args[:3]
+        else:
+            x, u, dt = args[0], None, None
+        ops_node = ops_per_node(model_cpu, params_cpu, spec, kind, k.derivs,
+                                refs, x, u, dt, t_idx)
+    b_ms, b_by = bound_ms(k, kind, N, ops_node)
+    print(f"{name:20s} {'tiago':8s} N={N:6d}  wrapper {ms:9.4f} ms (kernel "
+          f"only {kernel_ms:9.4f} ms)  plain {plain_ms:9.3f} ms  bound "
+          f"{b_ms:.6f} ms ({b_by}, {ops_node} ops/node)  max abs err "
+          + " ".join(f"{lab}={e:.2e}" for lab, e in errs.items()))
+    return dict(ms=ms, kernel_only_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs.values()),
+                ops_node=ops_node)
 
 
 def build_slice(device, n_ticks: int = 80, spec=None, keep_away=False):
@@ -2271,6 +2446,528 @@ def run_control_loop_phase(device):
     return launches, lines
 
 
+# -- phase 7: slice 12 (the Tiago-Pro arm, soft contact, the free-flyer) ----
+TIAGO_TICKS = 20
+FORCE_T = 10
+FORCE_DES = (0.0, 0.0, -10.0)  # N, the commanded contact force
+FORCE_F0 = (0.0, 0.0, 5.0)  # N, the force state of the inactive-contact check
+FORCE_MPC_TICKS = 10
+FF_T = 30
+FF_GOAL = (0.05, 0.03, -0.04)  # m, from the hand at the start
+FF_PITCH = np.pi / 2  # base pitch: the euler chart's singularity
+FF_ROWS = 4
+
+
+def _tool_position(model, params64, fid):
+    """q -> the frame's world position (f64, CPU)."""
+    from agimus_controller_tpu_torch.ops.kinematics import frame_placement
+
+    return lambda q: frame_placement(model, params64, torch.as_tensor(
+        np.asarray(q, dtype=float)), fid)[1].numpy()
+
+
+def tiago_problem(device):
+    """Phase 7 (a)'s problem: the Tiago-Pro arm (f32 on `device`, an f64
+    host copy), `tiago_spec(TIAGO_T)`, x0 at the ready pose, the tool
+    target FK(ready) + `TIAGO_GOAL`, the gravity torque at the ready pose."""
+    from agimus_controller_tpu_torch.models.tiago_pro import (
+        TIAGO_PRO_Q_READY,
+        load_tiago_pro,
+    )
+    from agimus_controller_tpu_torch.ops.dynamics import generalized_gravity
+
+    model, params = load_tiago_pro(dtype=torch.float32, device=device)
+    _, params64 = load_tiago_pro(dtype=torch.float64, device="cpu")
+    tool = _tool_position(model, params64, model.frame_id(TIAGO_FRAME))
+    q0 = np.asarray(TIAGO_PRO_Q_READY, dtype=float)
+    p0 = tool(q0)
+    return SimpleNamespace(
+        model=model, params=params, spec=tiago_spec(TIAGO_T), tool=tool,
+        q0=q0, x0=np.concatenate([q0, np.zeros(8)]), p0=p0,
+        target=p0 + np.asarray(TIAGO_GOAL),
+        tau_g=generalized_gravity(model, params64,
+                                  torch.as_tensor(q0)).numpy())
+
+
+def run_tiago_tick(device):
+    """Phase 7 (a), the tick: the Tiago-Pro OCP through a
+    `PackedTrajectoryBuffer` and `FusedTickRunner` on backend "auto",
+    which must take the stage kernels' nj = 8 instances: the first solve
+    at limit 300, `TIAGO_TICKS` ticks at limit 2, one at limit 10. Returns
+    (launches of K1-K4 over the ticks, line)."""
+    from agimus_controller_tpu_torch.mpc.buffer import (
+        DTFactorsNSeq,
+        TrajectoryPoint,
+        TrajectoryPointWeights,
+        WeightedTrajectoryPoint,
+    )
+    from agimus_controller_tpu_torch.mpc.ring import (
+        PackedTrajectoryBuffer,
+        RowLayout,
+    )
+    from agimus_controller_tpu_torch.mpc.tick import FusedTickRunner
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+
+    tp = tiago_problem(device)
+    T, nj = TIAGO_T, tp.model.nj
+    refs = default_references(tp.spec, tp.model, dtype=torch.float32,
+                              device=device)
+
+    def point(i):
+        return WeightedTrajectoryPoint(
+            point=TrajectoryPoint(
+                id=i, time_ns=int(i * 2e7), robot_configuration=tp.q0,
+                robot_velocity=np.zeros(nj), robot_acceleration=np.zeros(nj),
+                robot_effort=tp.tau_g,
+                end_effector_poses={TIAGO_FRAME: (np.eye(3), tp.target)}),
+            weights=TrajectoryPointWeights(
+                w_robot_configuration=np.ones(nj),
+                w_robot_velocity=np.ones(nj), w_robot_effort=np.ones(nj),
+                w_end_effector_poses={TIAGO_FRAME: np.ones(6)}))
+
+    buf = PackedTrajectoryBuffer(DTFactorsNSeq(factors=[1], n_steps=[T]),
+                                 RowLayout(tp.spec, tp.model),
+                                 dtype=torch.float32, device=device)
+    for i in range(2 * T + TIAGO_TICKS + 10):
+        buf.append(point(i))
+    runner = FusedTickRunner(
+        tp.model, tp.params, tp.spec, buf.ring, refs,
+        CSQPSettings(max_iters=10, reg_init=1e-7, termination_tolerance=1e-4),
+        dtype=torch.float32, device=device)
+    solver = runner.solver
+    if solver.backend != "kernels":
+        raise AssertionError(
+            f"phase 7 (a): backend {solver.backend!r} "
+            f"({solver.backend_reason}), expected 'kernels'")
+    for k in solver.kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    runner.initialize(tp.x0, np.tile(tp.x0[None], (T + 1, 1)),
+                      np.tile(tp.tau_g[None], (T, 1)), limit=300)
+    _, _, kkt0, it0, _ = runner.fetch()
+    first_s = time.perf_counter() - t0
+    x0 = torch.as_tensor(tp.x0, dtype=torch.float32, device=device)
+    syncs0 = solver.host_syncs
+    times = []
+    for _ in range(TIAGO_TICKS):
+        t0 = time.perf_counter()
+        runner.step(x0, limit=2)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    syncs = (solver.host_syncs - syncs0) / TIAGO_TICKS
+    runner.step(x0, limit=10)
+    K0, u0, kkt, iters, conv = runner.fetch()
+    launches = dict(zip([k[0] for k in STAGE_KERNELS],
+                        (k.launches for k in solver.kernels)))
+    if not (np.all(np.isfinite(u0)) and np.all(np.isfinite(K0))):
+        raise AssertionError("phase 7 (a): non-finite control message")
+    if not (conv and kkt < 1e-4):
+        raise AssertionError(
+            f"phase 7 (a): final tick did not converge (kkt={kkt:.2e})")
+    e0 = float(np.linalg.norm(tp.p0 - tp.target))
+    eT = float(np.linalg.norm(tp.tool(
+        runner._xs[-1, :nj].double().cpu().numpy()) - tp.target))
+    if not eT < 0.25 * e0:
+        raise AssertionError(
+            f"phase 7 (a): tool error {eT:.4f} m not under 0.25 x the start "
+            f"error {e0:.4f} m")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"phase 7 (a): {missing} never launched")
+    return launches, (
+        f"phase 7 (a) Tiago-Pro tick (nj=8, T={T}, backend "
+        f"{solver.backend}): first solve {first_s:.2f} s, iters={it0} "
+        f"kkt={kkt0:.2e}; tick median {_median_ms(times):.3f} ms over "
+        f"{TIAGO_TICKS} ticks at limit 2 (host clock, synchronized); "
+        f"{syncs:.2f} host syncs per tick; final tick iters={iters} "
+        f"kkt={kkt:.2e} conv={conv}; planned tool error {eT * 1e3:.2f} mm "
+        f"(start {e0 * 1e3:.2f} mm); launches {launches}")
+
+
+def run_tiago_batch(device):
+    """Phase 7 (a), the batch: `make_batch_fddp` on the Tiago-Pro OCP,
+    T = `TIAGO_T`, B = `TIAGO_B`, f32, 10 iterations, x0 = ready +
+    N(0, 0.02^2) on q; rows 0-7 must equal a B = 8 solve (iterations and
+    convergence equal, us within the batch path's 1e-3). Returns (launches
+    of K5a/K5b, line)."""
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+    from agimus_controller_tpu_torch.solver.fddp import SolverSettings
+    from agimus_controller_tpu_torch.solver.fddp_batch import make_batch_fddp
+
+    tp = tiago_problem(device)
+    T, B, nj = TIAGO_T, TIAGO_B, tp.model.nj
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=device)
+    refs = default_references(tp.spec, tp.model, dtype=torch.float32,
+                              device=device)
+    refs["xref"] = f(np.tile(tp.x0[None], (T + 1, 1)))
+    refs[f"ee_trans:{TIAGO_FRAME}"] = f(np.tile(tp.target[None], (T + 1, 1)))
+    rng = np.random.default_rng(0)
+    x0s = f(tp.x0[None] + np.concatenate(
+        [rng.normal(size=(B, nj)) * BATCH_X0_NOISE, np.zeros((B, nj))], 1))
+    xs0 = f(np.tile(tp.x0[None, None], (B, T + 1, 1)))
+    us0 = f(np.tile(tp.tau_g[None, None], (B, T, 1)))
+    solver = make_batch_fddp(tp.model, tp.params, tp.spec,
+                             SolverSettings(max_iters=10), device=device)
+    for k in solver.kernels:
+        k.launches = 0
+    small = solver(x0s[:BATCH_ROWS], refs, xs0[:BATCH_ROWS],
+                   us0[:BATCH_ROWS])
+    s0 = solver.host_syncs
+    t0 = time.perf_counter()
+    big = solver(x0s, refs, xs0, us0)
+    _sync(device)
+    big_s = time.perf_counter() - t0
+    launches = {name: k.launches for (name, *_), k in
+                zip(STEP_KERNELS, solver.kernels)}
+    for field in ("xs", "us", "K", "k", "cost", "kkt", "gap_norm"):
+        if not bool(torch.isfinite(getattr(big, field)).all()):
+            raise AssertionError(f"phase 7 (a) batch: non-finite {field}")
+    rows = slice(0, BATCH_ROWS)
+    du = float((big.us[rows] - small.us).abs().max())
+    if not (torch.equal(big.iters[rows], small.iters)
+            and torch.equal(big.converged[rows], small.converged)
+            and du < 1e-3):
+        raise AssertionError(
+            f"phase 7 (a) batch: rows 0-{BATCH_ROWS - 1} differ from the "
+            f"B={BATCH_ROWS} solve (iters {big.iters[rows].tolist()} vs "
+            f"{small.iters.tolist()}, us max abs diff {du:.3e})")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"phase 7 (a) batch: {missing} never launched")
+    c = lambda a: a.double().cpu().numpy()
+    dist = np.linalg.norm(np.stack([tp.tool(q) for q in c(
+        big.xs[:, -1, :nj])]) - tp.target, axis=1)
+    return launches, (
+        f"phase 7 (a) Tiago-Pro batch FDDP (B={B}, T={T}, f32, 10 "
+        f"iterations): solve {big_s:.3f} s = {B / big_s:.1f} solves/s (host "
+        f"clock, synchronized), {solver.host_syncs - s0} host syncs; mean "
+        f"iterations {float(c(big.iters).mean()):.2f}; converged share "
+        f"{float(c(big.converged).mean()):.4f}; median planned tool error "
+        f"{float(np.median(dist)) * 1e3:.3f} mm (start "
+        f"{np.linalg.norm(TIAGO_GOAL) * 1e3:.1f} mm); rows 0-"
+        f"{BATCH_ROWS - 1} match the B={BATCH_ROWS} solve (us max abs diff "
+        f"{du:.3e}); launches {launches}")
+
+
+def soft_contact_config():
+    """The JAX package's force-feedback tests' 3-D contact (`SC3`)."""
+    from agimus_controller_tpu_torch.ops.soft_contact import SoftContactConfig
+
+    return SoftContactConfig(frame="panda_hand_tcp", Kp=(200.0,) * 3,
+                             Kv=(20.0,) * 3, ref="local_world_aligned")
+
+
+def force_spec(T: int):
+    """The force-tracking OCP of the JAX package's force-feedback tests:
+    state and gravity-torque regularisation and force tracking, on
+    `soft_contact_config()`, dt 0.02."""
+    from agimus_controller_tpu_torch.ocp.spec import CostItem, ProblemSpec
+
+    state = CostItem(name="state_reg", kind="state", weight=0.1, update=True)
+    force = CostItem(name="force_tracking", kind="force_tracking", weight=1.0,
+                     update=True)
+    return ProblemSpec(
+        running_costs=(state, CostItem(name="grav_reg", kind="control_grav",
+                                       weight=5e-3), force),
+        terminal_costs=(state, force), horizon=T, dt=0.02,
+        soft_contact=soft_contact_config())
+
+
+def force_problem(device, dtype=torch.float32, f0=(0.0, 0.0, 0.0)):
+    """`force_spec(FORCE_T)` on the Panda with the JAX test's refs: x0 the
+    ready pose at rest with force f0, w_x 0.05 on q, 0.5 on v, 0 on f,
+    f_des `FORCE_DES` weighted 2; the gravity torque as us."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+    from agimus_controller_tpu_torch.ops.dynamics import generalized_gravity
+
+    model, params = load_panda(dtype=dtype, device=device)
+    spec = force_spec(FORCE_T)
+    T1 = FORCE_T + 1
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    x0 = np.concatenate([PANDA_Q_READY, np.zeros(7), f0])
+    refs = default_references(spec, model, dtype=dtype, device=device)
+    refs["xref"] = f(np.tile(x0[None], (T1, 1)))
+    refs["w_x"] = f(np.tile(np.concatenate(
+        [np.full(7, 0.05), np.full(7, 0.5), np.zeros(3)])[None], (T1, 1)))
+    refs["f_des"] = f(np.tile(np.asarray(FORCE_DES)[None], (T1, 1)))
+    refs["w_force"] = f(np.full((T1, 3), 2.0))
+    tau_g = generalized_gravity(model, params, f(PANDA_Q_READY))
+    return SimpleNamespace(
+        model=model, params=params, spec=spec, refs=refs, x0=f(x0),
+        xs0=f(np.tile(x0[None], (T1, 1))),
+        us0=tau_g[None].expand(FORCE_T, 7).contiguous())
+
+
+def run_soft_contact(device):
+    """Phase 7 (b): soft contact on the Panda, f32 on the card. The batch
+    SQP (B = 1, "xla", the soft step) against `solve_fddp` on the force
+    OCP: terminal force within 0.3 N of each other (the JAX test's bound),
+    both gaps under 1e-4; with `contact_active` zero on every node the
+    force state stays at `FORCE_F0` within 1e-5; then `FORCE_MPC_TICKS`
+    ticks of `MPC` over `OCPTorch` with the force-feedback warm start, the
+    state closed through `OCPTorch.integrate` (the soft step), the last
+    tick converged. Returns lines."""
+    from agimus_controller_tpu_torch.ocp.costs import build_cost_functions
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+    from agimus_controller_tpu_torch.solver.fddp import (
+        SolverSettings,
+        solve_fddp,
+    )
+    from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
+
+    fp = force_problem(device)
+    t0 = time.perf_counter()
+    sol_f = solve_fddp(build_cost_functions(fp.model, fp.params, fp.spec),
+                       fp.x0, fp.refs, fp.xs0, fp.us0,
+                       SolverSettings(max_iters=60))
+    _sync(device)
+    fddp_s = time.perf_counter() - t0
+    sqp = make_batch_sqp(fp.model, fp.params, fp.spec, CSQPSettings(
+        max_iters=60, termination_tolerance=1e-4), device=device)
+    if sqp.backend != "xla":
+        raise AssertionError(f"phase 7 (b): backend {sqp.backend!r}")
+    t0 = time.perf_counter()
+    sol_s = sqp(fp.x0[None], fp.refs, fp.xs0[None], fp.us0[None])
+    _sync(device)
+    sqp_s = time.perf_counter() - t0
+    f_sqp = sol_s.xs[0, -1, 14:].double().cpu().numpy()
+    f_fddp = sol_f.xs[-1, 14:].double().cpu().numpy()
+    df = float(np.abs(f_sqp - f_fddp).max())
+    gap = max(float(sol_s.gap_norm.max()), float(sol_f.gap_norm))
+    if not (np.all(np.isfinite(f_sqp)) and df < 0.3 and gap < 1e-4):
+        raise AssertionError(
+            f"phase 7 (b): terminal force {f_sqp} vs solve_fddp's {f_fddp} "
+            f"(max diff {df:.3f} N, bound 0.3), largest gap {gap:.2e}")
+    # the contact inactive on every node: the force state rides along
+    fi = force_problem(device, f0=FORCE_F0)
+    fi.refs["contact_active"] = torch.zeros_like(fi.refs["contact_active"])
+    fi.refs["w_force"] = torch.zeros_like(fi.refs["w_force"])
+    sol_i = make_batch_sqp(fi.model, fi.params, fi.spec,
+                           CSQPSettings(max_iters=10), device=device)(
+        fi.x0[None], fi.refs, fi.xs0[None], fi.us0[None])
+    drift = float((sol_i.xs[0, :, 14:] - torch.as_tensor(
+        FORCE_F0, device=device)).abs().max())
+    if not drift < 1e-5:
+        raise AssertionError(
+            f"phase 7 (b): inactive contact, force state moved {drift:.2e}")
+    mpc = run_force_mpc(device)
+    return [
+        f"phase 7 (b) soft contact (Panda, T={FORCE_T}, f32): solve_fddp "
+        f"{fddp_s:.2f} s, {int(sol_f.iters)} iterations, {sol_f.host_syncs} "
+        f"host syncs, terminal force {np.round(f_fddp, 3).tolist()} N; "
+        f"batch SQP ({sqp.backend}, soft step) {sqp_s:.2f} s, "
+        f"{int(sol_s.iters[0])} iterations, {sqp.host_syncs} host syncs, "
+        f"kkt {float(sol_s.kkt[0]):.2e}, terminal force "
+        f"{np.round(f_sqp, 3).tolist()} N (max diff {df:.4f} N); largest gap "
+        f"{gap:.2e}; inactive contact: force state held within {drift:.2e}",
+        mpc]
+
+
+def run_force_mpc(device):
+    """Phase 7 (b)'s loop: `OCPTorch` on `force_spec` ("sqp", the batch
+    SQP at B = 1), `MPC` with the `shift_previous_solution_force_feedback`
+    warm start from the registry, a `TrajectoryBuffer` of points streaming
+    f_des with its weight; the measured force comes from the closed-loop
+    state. Returns the line."""
+    from agimus_controller_tpu_torch.factory import create_warm_start
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+    from agimus_controller_tpu_torch.mpc.buffer import (
+        DTFactorsNSeq,
+        TrajectoryBuffer,
+        TrajectoryPoint,
+        TrajectoryPointWeights,
+        WeightedTrajectoryPoint,
+    )
+    from agimus_controller_tpu_torch.mpc.mpc import MPC
+    from agimus_controller_tpu_torch.mpc.ocp_base import OCPParams, OCPTorch
+
+    fp = force_problem(device)
+    T, frame = FORCE_T, soft_contact_config().frame
+    dt = fp.spec.dt
+    tau_g = fp.us0[0].double().cpu().numpy()
+    ocp = OCPTorch(fp.model, fp.params, fp.spec, OCPParams(
+        dt=dt, horizon_size=T, solver_iters=10, termination_tolerance=1e-4,
+        max_solve_time=10.0), dtype=torch.float32, device=device)
+    ws = create_warm_start(
+        "shift_previous_solution_force_feedback", fp.model, fp.params,
+        timesteps=fp.spec.timesteps(), soft_contact=fp.spec.soft_contact,
+        device=device)
+    buf = TrajectoryBuffer(DTFactorsNSeq(factors=[1], n_steps=[T]))
+
+    def point(i, q, v, f):
+        return TrajectoryPoint(
+            id=i, time_ns=int(i * dt * 1e9), robot_configuration=q,
+            robot_velocity=v, robot_acceleration=np.zeros(7),
+            robot_effort=tau_g,
+            forces={frame: np.concatenate([np.zeros(3), f])})
+
+    ref_w = TrajectoryPointWeights(
+        w_robot_configuration=np.full(7, 0.05),
+        w_robot_velocity=np.full(7, 0.5), w_robot_effort=np.ones(7),
+        w_forces={frame: np.concatenate([np.full(3, 2.0), np.zeros(3)])})
+    q, v, f = np.asarray(PANDA_Q_READY, float), np.zeros(7), np.zeros(3)
+    for i in range(2 * T + FORCE_MPC_TICKS + 2):
+        buf.append(WeightedTrajectoryPoint(
+            point=point(i, q, v, np.asarray(FORCE_DES)), weights=ref_w))
+    mpc = MPC()
+    mpc.setup(ocp, ws, buf)
+    ocp.set_reference_weighted_trajectory(buf.horizon)
+    ocp.solve(np.concatenate([q, v, f]), list(fp.xs0.double().cpu().numpy()),
+              list(fp.us0.double().cpu().numpy()),
+              use_iteration_limits_and_timeout=False)
+    ws.update_previous_solution(ocp.ocp_results)
+    times, f_hist = [], []
+    for it in range(FORCE_MPC_TICKS):
+        t0 = time.perf_counter()
+        res = mpc.run(point(it, q, v, f), int(it * dt * 1e9))
+        times.append(time.perf_counter() - t0)
+        if res is None:
+            raise AssertionError(f"phase 7 (b) MPC tick {it}: no result")
+        x = ocp.integrate(np.concatenate([q, v, f]),
+                          res.feed_forward_terms[0])
+        q, v, f = (x[:7].astype(float), x[7:14].astype(float),
+                   x[14:].astype(float))
+        f_hist.append(f)
+    dbg = mpc.mpc_debug_data.ocp
+    if not (dbg.problem_solved and np.all(np.isfinite(x))):
+        raise AssertionError(
+            f"phase 7 (b) MPC: last tick not converged (kkt "
+            f"{dbg.kkt_norm:.2e}, {dbg.nb_iter} iterations)")
+    return (
+        f"phase 7 (b) MPC ({FORCE_MPC_TICKS} ticks, force-feedback warm "
+        f"start, {ocp.solver_kind}): tick mean "
+        f"{float(np.mean(times[1:])) * 1e3:.3f} ms (host clock); last tick "
+        f"iters={dbg.nb_iter} kkt={dbg.kkt_norm:.2e} converged; measured "
+        f"force {np.round(f_hist[-1], 3).tolist()} N after "
+        f"{FORCE_MPC_TICKS} ticks")
+
+
+def ff_problem(device, dtype=torch.float32):
+    """Phase 7 (c)'s problem: the JAX package's free-flyer goal solve, the
+    Panda on a quaternion free-flyer base at pitch `FF_PITCH`, T = `FF_T`,
+    full actuation, the hand's goal `FF_GOAL` from its start."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.ocp.ff_costs import build_ff_cost_functions
+    from agimus_controller_tpu_torch.ocp.spec import CostItem, ProblemSpec
+    from agimus_controller_tpu_torch.ops import lie
+
+    model, params = load_panda(dtype=dtype, device=device, free_flyer=True)
+    T, nv, frame = FF_T, model.nj, "panda_hand_tcp"
+    spec = ProblemSpec(
+        running_costs=(
+            CostItem(name="state_reg", kind="state", weight=0.05,
+                     update=True),
+            CostItem(name="ctrl", kind="control", weight=1e-4, update=True)),
+        terminal_costs=(CostItem(name="goal", kind="frame_placement",
+                                 weight=100.0, update=True, frame=frame),),
+        horizon=T, dt=0.02)
+    cf = build_ff_cost_functions(model, params, spec, dtype=dtype,
+                                 actuation="full")
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    th = FF_PITCH
+    x0 = lie.join_state(f(np.zeros(3)),
+                        f([0.0, np.sin(th / 2), 0.0, np.cos(th / 2)]),
+                        f(PANDA_Q_READY), f(np.zeros(nv)))
+    fid = model.frame_id(frame)
+    R0, p0 = lie.ff_frame_placement(model, params, x0, fid)
+    goal = p0 + f(FF_GOAL)
+    T1 = T + 1
+    refs = {"xref": x0[None].expand(T1, -1).contiguous(),
+            "w_x": f(np.tile(np.concatenate(
+                [np.full(nv, 0.1), np.full(nv, 1.0)])[None], (T1, 1))),
+            "w_u": f(np.ones((T1, nv))), "uref": f(np.zeros((T1, nv))),
+            f"ee_rot:{frame}": R0[None].expand(T1, 3, 3).contiguous(),
+            f"ee_trans:{frame}": goal[None].expand(T1, 3).contiguous(),
+            f"w_ee:{frame}": f(np.ones((T1, 6)))}
+    end_error = lambda x: float(torch.linalg.vector_norm(
+        lie.ff_frame_placement(model, params, x, fid)[1] - goal))
+    return SimpleNamespace(
+        model=model, params=params, spec=spec, cf=cf, refs=refs, x0=x0,
+        xs0=x0[None].expand(T1, -1).contiguous(),
+        us0=f(np.zeros((T, nv))), end_error=end_error,
+        hand=lambda x: lie.ff_frame_placement(model, params, x, fid)[1])
+
+
+def run_freeflyer(device):
+    """Phase 7 (c): the quaternion free-flyer on the card: the manifold
+    `BatchSQP` at B = `FF_ROWS` in f32 and `solve_fddp` in f64 on
+    `ff_problem`; each ends with the hand under 2 cm from its goal, and the
+    two agree on the terminal hand position within 1 mm. `solve_fddp` runs
+    in f64 as the JAX package's free-flyer tests do: in f32 the state's
+    retraction round trip leaves defects of ~1e-7, above its filter's 1e-9
+    feasibility gate, so its line search takes cost-increasing steps and
+    the solve diverges (PERF.md, ROADMAP queue 3). Returns the line."""
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+    from agimus_controller_tpu_torch.solver.fddp import (
+        SolverSettings,
+        solve_fddp,
+    )
+    from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
+
+    fp = ff_problem(device)
+    f64 = ff_problem(device, torch.float64)
+    t0 = time.perf_counter()
+    sol_f = solve_fddp(f64.cf, f64.x0, f64.refs, f64.xs0, f64.us0,
+                       SolverSettings(max_iters=60,
+                                      termination_tolerance=1e-4))
+    _sync(device)
+    fddp_s = time.perf_counter() - t0
+    sqp = make_batch_sqp(fp.model, fp.params, fp.spec, CSQPSettings(
+        max_iters=60, termination_tolerance=1e-4), device=device, cf=fp.cf)
+    if sqp.backend != "manifold":
+        raise AssertionError(f"phase 7 (c): backend {sqp.backend!r}")
+    B = FF_ROWS
+    t0 = time.perf_counter()
+    sol_s = sqp(fp.x0[None].expand(B, -1), fp.refs,
+                fp.xs0[None].expand(B, -1, -1), fp.us0[None].expand(B, -1, -1))
+    _sync(device)
+    sqp_s = time.perf_counter() - t0
+    err_f = f64.end_error(sol_f.xs[-1])
+    err_s = max(fp.end_error(sol_s.xs[b, -1]) for b in range(B))
+    gap = max(float(torch.linalg.vector_norm(
+        fp.hand(sol_s.xs[b, -1]).double() - f64.hand(sol_f.xs[-1])))
+        for b in range(B))
+    finite = bool(torch.isfinite(sol_f.us).all() & torch.isfinite(
+        sol_s.us).all())
+    if not (finite and err_f < 0.02 and err_s < 0.02 and gap < 1e-3):
+        raise AssertionError(
+            f"phase 7 (c): hand errors solve_fddp {err_f:.4f} m, BatchSQP "
+            f"{err_s:.4f} m (bound 0.02), apart by {gap * 1e3:.3f} mm "
+            "(bound 1)")
+    return (
+        f"phase 7 (c) quaternion free-flyer (Panda, pitch pi/2, T={FF_T}, "
+        f"full actuation): solve_fddp (f64) {fddp_s:.2f} s, "
+        f"{int(sol_f.iters)} iterations, {sol_f.host_syncs} host syncs, hand "
+        f"error {err_f * 1e3:.3f} mm; manifold BatchSQP (f32, B={B}) "
+        f"{sqp_s:.2f} "
+        f"s, iterations {sol_s.iters.tolist()}, {sqp.host_syncs} host "
+        f"syncs, hand error max {err_s * 1e3:.3f} mm; the two {gap * 1e3:.4f}"
+        " mm apart")
+
+
+def run_slice12_phase(device):
+    """Phase 7: (a) the Tiago-Pro arm on K1-K5b's nj = 8 instances, (b)
+    soft contact, (c) the quaternion free-flyer. Returns (launches per
+    kernel, lines)."""
+    launches = {name: 0 for name, *_ in KERNELS}
+    lines = []
+    for part in (run_tiago_tick, run_tiago_batch):
+        t0 = time.perf_counter()
+        got, line = part(device)
+        lines.append(f"{line} [{time.perf_counter() - t0:.1f} s]")
+        for name, n in got.items():
+            launches[name] += n
+    t0 = time.perf_counter()
+    soft = run_soft_contact(device)
+    lines += soft[:-1] + [f"{soft[-1]} [{time.perf_counter() - t0:.1f} s]"]
+    t0 = time.perf_counter()
+    lines.append(f"{run_freeflyer(device)} [{time.perf_counter() - t0:.1f} s]")
+    return launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -2304,6 +3001,14 @@ def main():
                                dtype=torch.float32, device=device)
     report = check_kernels(model, params, device)
     step_report = check_step_kernels(model, params, device)
+    # the nj = 8 instances on the Tiago-Pro arm (phase 7 (a)'s sizes); their
+    # errors join each kernel's max_abs_err
+    tiago = check_tiago_kernels(device)
+    for name, kind, *_ in KERNELS:
+        if kind == "step":
+            step_report[name].update(tiago[name])
+        else:
+            report[name]["tiago"] = {n: v for (_, n), v in tiago[name].items()}
 
     # -- 4. the main paths: the flagship chain, the collision path, the
     # visual-servoing path and the batch path
@@ -2316,15 +3021,18 @@ def main():
             launches[name] += n
 
     # -- 5. the fallback backend and the single-scenario solvers, then
-    # -- 6. the reference-shaped control loop
-    for phase in (run_fallback_phase, run_control_loop_phase):
+    # -- 6. the reference-shaped control loop, then
+    # -- 7. slice 12: the Tiago-Pro arm on the nj = 8 kernels, soft contact
+    # and the quaternion free-flyer
+    for phase in (run_fallback_phase, run_control_loop_phase,
+                  run_slice12_phase):
         path_launches, lines = phase(device)
         for line in lines:
             print(line)
         for name, n in path_launches.items():
             launches[name] += n
 
-    # -- 7. result: launches over the paths of phases 4-6, the max error over
+    # -- result: launches over the paths of phases 4-7, the max error over
     # every checked spec and size; times (wrapper and bare launch) and bounds at
     # the flagship tick shape for K1-K4 and at the batch path's shapes for
     # K5a/K5b (no single PyTorch call computes a fused stage or a dynamics

@@ -3,13 +3,17 @@ them without the whole script.
 
     python3 examples/chip_phase.py 6      # the reference-shaped control loop
     python3 examples/chip_phase.py 3 5    # kernels vs plain, then phase 5
+    python3 examples/chip_phase.py 7      # slice 12 (Tiago-Pro, soft contact,
+                                          # the quaternion free-flyer)
 
 Builds the kernels as `chip_smoke.py` does, prints the card's name and
 power limit, then for each phase asked for its lines, its launches per
-kernel (phases 4-6) and its time on the host clock. Phases: 3 (K1-K4 and
-K5a/K5b against their plain versions), 4 (the flagship, collision,
-visual-servoing and batch paths), 5 (the "xla" backend and the
-single-scenario solvers), 6 (the control loop). Needs a CUDA device.
+kernel (phases 4-7) and its time on the host clock. Phases: 3 (K1-K4 and
+K5a/K5b against their plain versions, also their nj = 8 instances on the
+Tiago-Pro arm), 4 (the flagship, collision, visual-servoing and batch
+paths), 5 (the "xla" backend and the single-scenario solvers), 6 (the
+control loop), 7 (the Tiago-Pro arm on the nj = 8 kernels, soft contact,
+the quaternion free-flyer). Needs a CUDA device.
 """
 
 import subprocess
@@ -49,6 +53,7 @@ def main(phases):
                                    dtype=torch.float32, device=device)
         cs.check_kernels(model, params, device)
         cs.check_step_kernels(model, params, device)
+        cs.check_tiago_kernels(device)
         return {}, []
 
     def paths():
@@ -63,7 +68,8 @@ def main(phases):
 
     run = {3: kernels, 4: paths,
            5: lambda: cs.run_fallback_phase(device),
-           6: lambda: cs.run_control_loop_phase(device)}
+           6: lambda: cs.run_control_loop_phase(device),
+           7: lambda: cs.run_slice12_phase(device)}
     for phase in phases:
         t0 = time.perf_counter()
         launches, lines = run[phase]()

@@ -209,6 +209,7 @@ extern "C" int ag_terminal_host(int nj, int derivs, int N, const float* x,
   else                                                                     \
     k4<NJ>(N, x, *tab, t, W, C, n_items, l);                               \
   return 0
+  if (nj == 8) { AG_HOST(8); }
   if (nj == 7) { AG_HOST(7); }
   if (nj == 2) { AG_HOST(2); }
 #undef AG_HOST
@@ -222,6 +223,10 @@ extern "C" int ag_terminal_node_host(int nj, int N, const float* x,
                                      const float* C, int n_items, float* l,
                                      float* lx, float* lxx) {
   if (tab->n < 0 || tab->n > ag::kMaxRefs) return 1;
+  if (nj == 8) {
+    terminal_one_thread<8>(N, x, *tab, t, W, C, n_items, l, lx, lxx);
+    return 0;
+  }
   if (nj == 7) {
     terminal_one_thread<7>(N, x, *tab, t, W, C, n_items, l, lx, lxx);
     return 0;
@@ -245,6 +250,7 @@ extern "C" int ag_step_host(int nj, int derivs, int lanes, int N,
   else                                                              \
     step<NJ>(lanes, N, x, u, dt, C, xnext);                         \
   return 0
+  if (nj == 8) { AG_HOST(8); }
   if (nj == 7) { AG_HOST(7); }
   if (nj == 2) { AG_HOST(2); }
 #undef AG_HOST
@@ -267,6 +273,7 @@ extern "C" int ag_stage_host(int nj, int derivs, int N, const float* x,
   else                                                                      \
     k2<NJ>(N, x, u, dt, t_idx, *tab, W, C, n_items, xnext, l);              \
   return 0
+  if (nj == 8) { AG_HOST(8); }
   if (nj == 7) { AG_HOST(7); }
   if (nj == 2) { AG_HOST(2); }
 #undef AG_HOST

@@ -332,8 +332,38 @@ def test_constraint_counts_match_jax(constraint_case):
 
 
 def test_unported_constraint_kind_raises(panda):
-    jm, _, p = panda
-    spec = dataclasses.replace(to_port_spec(_box_band_spec()), constraints=(
-        tspec.ConstraintItem(name="f", kind="force_box"),))
-    with pytest.raises(NotImplementedError, match="force_box.*slice 12"):
-        build_constraint_functions(jm, p, spec)
+    """The force_box constraint now evaluates: on a soft-contact spec its
+    rows are the force part of the augmented state, its bounds the
+    contact's force_lb/force_ub; values and bounds equal the JAX
+    package's at every node, and an unknown kind still raises."""
+    from agimus_controller_tpu.ops.soft_contact import SoftContactConfig as JSC
+    from agimus_controller_tpu_torch.ops.soft_contact import SoftContactConfig
+
+    jm, jp, p = panda
+    sc = dict(frame="panda_hand_tcp", force_lb=(-5.0, -5.0, -20.0),
+              force_ub=(5.0, 5.0, 1.0))
+    base = _box_band_spec()
+    js = dataclasses.replace(base, soft_contact=JSC(**sc), constraints=(
+        jspec.ConstraintItem(name="f", kind="force_box"),))
+    ps = dataclasses.replace(to_port_spec(base), soft_contact=SoftContactConfig(
+        **sc), constraints=(tspec.ConstraintItem(name="f", kind="force_box"),))
+    jcf = build_cost_functions(jm, jp, js, dtype=jnp.float64)
+    pcf = build_constraint_functions(jm, p, ps)
+    assert pcf.n_constraints == jcf.n_constraints == 3
+    rng = np.random.default_rng(5)
+    x = np.concatenate([_qs(N, 5), rng.normal(size=(N, 7)),
+                        rng.normal(size=(N, 3)) * 10.0], 1)
+    u = rng.normal(size=(N, 7))
+    t_idx = rng.integers(0, T, N)
+    refs = jspec.default_references(js, jm, dtype=jnp.float64)
+    got = pcf.constraints(t(x), t(u), t(t_idx), refs_from_numpy(
+        refs, device="cpu"))
+    for n in range(N):
+        want = jcf.constraints(jnp.asarray(x[n]), jnp.asarray(u[n]),
+                               int(t_idx[n]), refs)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g[n].numpy(), np.asarray(w), rtol=0,
+                                       atol=1e-12)
+    with pytest.raises(ValueError, match="constraint kind"):
+        build_constraint_functions(jm, p, dataclasses.replace(
+            ps, constraints=(tspec.ConstraintItem(name="f", kind="nope"),)))

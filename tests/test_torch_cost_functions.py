@@ -21,7 +21,6 @@ blocks (lx ... luu, Fx, Fu, Gx, Gu) to atol 1e-9. Each spec is one JAX
 compile of every field (~15 s).
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -341,19 +340,48 @@ def test_constraint_metadata_match_jax(case):
 
 
 def test_soft_contact_is_refused(arm_model):
+    """Soft contact is now taken: on the 2-DoF arm with a 3-D contact at
+    the tip, the force-augmented step, the force_tracking cost (running and
+    terminal) and the force_box rows build and equal the JAX package's at a
+    node (values at 1e-10, derivative blocks at 1e-9)."""
+    from agimus_controller_tpu.ops.soft_contact import SoftContactConfig as JSC
+    from agimus_controller_tpu_torch.ops.soft_contact import SoftContactConfig
+    from tests.test_torch_soft_contact import port_spec
+
     jm, jp = arm_model
     p = params_from_numpy(jp, dtype=torch.float64, **CPU)
-    ps = to_port_spec(arm_spec("weighted_quad"))
-    bad = {
-        "soft_contact": dataclasses.replace(ps, soft_contact=object()),
-        "force_tracking": dataclasses.replace(ps, running_costs=(
-            to_port_spec(jspec.ProblemSpec(
-                running_costs=(C(name="f", kind="force_tracking"),),
-                terminal_costs=())).running_costs)),
-        "force_box": to_port_spec(dataclasses.replace(
-            arm_spec("weighted_quad"),
-            constraints=(K(name="fb", kind="force_box"),))),
-    }
-    for what, spec in bad.items():
-        with pytest.raises(NotImplementedError, match="slice 12"):
-            build_cost_functions(jm, p, spec)
+    sc = dict(frame="tip", Kp=(50.0,) * 3, Kv=(5.0,) * 3,
+              force_lb=(-3.0,) * 3, force_ub=(3.0,) * 3)
+    js = jspec.ProblemSpec(
+        running_costs=(C(name="x", kind="state", weight=0.1, update=True),
+                       C(name="f", kind="force_tracking", weight=2.0,
+                         update=True)),
+        terminal_costs=(C(name="f", kind="force_tracking", weight=5.0,
+                          update=True),),
+        constraints=(K(name="fb", kind="force_box"),), horizon=T,
+        dt=2.0 ** -6, soft_contact=JSC(**sc))
+    ps = port_spec(js, SoftContactConfig(**sc))
+    jcf = jax_build_cf(jm, jp, js, dtype=jnp.float64)
+    pcf = build_cost_functions(jm, p, ps, torch.float64)
+    rng = np.random.default_rng(2)
+    refs = jspec.default_references(js, jm, dtype=jnp.float64)
+    refs = {k: jnp.asarray(rng.uniform(0.2, 1.5, np.shape(v)))
+            for k, v in refs.items()}
+    prefs = refs_from_numpy(refs, **CPU)
+    x = rng.normal(size=7) * 0.4
+    u = rng.normal(size=2)
+    jx, ju, tx, tu = jnp.asarray(x), jnp.asarray(u), torch.as_tensor(x), \
+        torch.as_tensor(u)
+    pairs = [(jcf.step(jx, ju, 2, refs), pcf.step(tx, tu, 2, prefs)),
+             (jcf.stage_cost(jx, ju, 2, refs), pcf.stage_cost(tx, tu, 2, prefs)),
+             (jcf.terminal_cost(jx, refs), pcf.terminal_cost(tx, prefs))]
+    pairs += list(zip(jcf.constraints(jx, ju, 2, refs),
+                      pcf.constraints(tx, tu, 2, prefs)))
+    for w, g in pairs:
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=ATOL)
+    for w, g in list(zip(jcf.stage_derivs(jx, ju, 2, refs),
+                         pcf.stage_derivs(tx, tu, 2, prefs))) + list(zip(
+            jcf.terminal_derivs(jx, refs), pcf.terminal_derivs(tx, prefs))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=ATOL_D)

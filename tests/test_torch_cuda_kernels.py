@@ -12,8 +12,10 @@ collision, visual-servoing and frame-velocity terms live. K1/K2 also take
 one dt for every node (a float, a 0-d tensor), K1-K4 the tick's ring-row
 views of the refs. The step kernels K5a/K5b take random Panda nodes with v
 and u live, with per-node and scalar dt. The nj = 2 instances run on a
-planar 2-DoF arm (K3/K4 with every kind in the terminal model). On a GPU
-machine:
+planar 2-DoF arm (K3/K4 with every kind in the terminal model), the nj = 8
+instances on the Tiago-Pro arm (`chip_smoke.tiago_spec`, K1-K4 on the
+plain refs and the tick's ring-row views; K5a/K5b at phase 7's sizes). On
+a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
@@ -332,3 +334,63 @@ def test_auto_keeps_checked_specs_on_the_kernels(device, panda):
                                 device=device)
         assert solver.backend == "kernels", (name, solver.backend_reason)
         assert len(solver.kernels) == 4
+
+
+@pytest.fixture(scope="module")
+def tiago(device):
+    from agimus_controller_tpu_torch.models.tiago_pro import load_tiago_pro
+
+    return load_tiago_pro(dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("view", ["refs", "tick"])
+@pytest.mark.parametrize("kernel", [k[0] for k in smoke.STAGE_KERNELS])
+def test_kernel_matches_plain_tiago(device, tiago, kernel, view):
+    """K1-K4's nj = 8 instances on the Tiago-Pro arm (K1/K2 at N = 20 and
+    21, K3/K4 at N = 1)."""
+    from agimus_controller_tpu_torch.ops.cuda_costs import (
+        make_cuda_stage,
+        make_cuda_terminal,
+    )
+
+    model, params = tiago
+    _, kind, derivs, _ = next(k for k in smoke.KERNELS if k[0] == kernel)
+    spec = smoke.tiago_spec(smoke.TIAGO_T)
+    for N in smoke.TIAGO_STAGE_SIZES if kind == "stage" else (1,):
+        refs, x, u, dt, t_idx = smoke.tiago_inputs(spec, model, N, N, device)
+        if kind == "stage":
+            k = make_cuda_stage(model, params, spec, derivs, device)
+            args, labels = (x, u, dt, t_idx), (
+                smoke.STAGE_OUT if derivs else ("xnext", "l"))
+        else:
+            k = make_cuda_terminal(model, params, spec, derivs, device)
+            args, labels = (x,), ("l", "lx", "lxx")
+        want = k.plain(*args, refs)
+        if view == "tick":
+            refs = smoke.tick_views(spec, model, refs)
+        got = k(*args, refs)
+        torch.cuda.synchronize()
+        assert k.launches == 1
+        smoke.check_outputs(f"{kernel} tiago N={N} {view}", got, want,
+                            labels)
+
+
+@pytest.mark.parametrize("dt_kind", ["per_node", "scalar"])
+@pytest.mark.parametrize("N", smoke.TIAGO_STEP_SIZES)
+@pytest.mark.parametrize("kernel", [k[0] for k in smoke.STEP_KERNELS])
+def test_step_kernel_matches_plain_tiago(device, tiago, kernel, N, dt_kind):
+    """K5a/K5b's nj = 8 instances at phase 7's sizes."""
+    from agimus_controller_tpu_torch.models.tiago_pro import TIAGO_PRO_Q_READY
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
+
+    model, params = tiago
+    derivs = kernel == "K5b_step_derivs"
+    x, u, dt = smoke.step_inputs(N, N, device, dt_kind, TIAGO_PRO_Q_READY)
+    k = StepKernel(model, params, derivs, device)
+    got, want = k(x, u, dt), k.plain(x, u, dt)
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    if not derivs:
+        got, want = (got,), (want,)
+    smoke.check_outputs(f"{kernel} tiago N={N} {dt_kind} dt", got, want,
+                        ("xnext", "Fx", "Fu")[:len(got)])

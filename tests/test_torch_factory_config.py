@@ -5,7 +5,7 @@ vs the JAX package.
   constraints, horizon, timesteps), on the Panda with an obstacle pair;
   "goal_reaching_yaml" and "traj_tracking_collision_avoidance" from
   `ocp/definitions.py`'s trees, "yaml" from a file and from text;
-- every warm-start entry (the force-feedback one raises: slice 12);
+- every warm-start entry (the force-feedback one on a soft contact);
 - `ocp/definitions.py` equals `yaml.safe_load` of the JAX package's two
   shipped files;
 - `load_engine_config` on an inline generate_parameter_library schema, a
@@ -111,10 +111,18 @@ def test_warm_start_entries(panda):
     ws = create_warm_start("shift_previous_solution", pm, pp,
                            timesteps=np.full(5, 0.01), device="cpu")
     assert isinstance(ws, WarmStartShiftPreviousSolution)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        create_warm_start("shift_previous_solution_force_feedback", pm, pp,
-                          timesteps=np.full(5, 0.01), soft_contact=None,
-                          device="cpu")
+    # the force-feedback warm start sets up on a soft contact and shifts
+    # the force-augmented state
+    from agimus_controller_tpu_torch.mpc.warm_start import (
+        WarmStartShiftPreviousSolutionForceFeedback,
+    )
+    from agimus_controller_tpu_torch.ops.soft_contact import SoftContactConfig
+
+    ws_ff = create_warm_start(
+        "shift_previous_solution_force_feedback", pm, pp,
+        timesteps=np.full(5, 0.01), soft_contact=SoftContactConfig(
+            frame="panda_hand_tcp"), device="cpu")
+    assert isinstance(ws_ff, WarmStartShiftPreviousSolutionForceFeedback)
     with pytest.raises(KeyError, match="unknown"):
         create_warm_start("nope", pm, pp)
 

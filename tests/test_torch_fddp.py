@@ -481,19 +481,39 @@ def test_batch_fddp_matches_jax(fddp_case, field):
 
 
 def test_batch_fddp_refuses_what_is_not_ported(arm):
+    """What the batch FDDP still refuses: riccati="pscan" (not ported) and,
+    as the JAX package's batch FDDP does, a manifold state with soft
+    contact. A soft-contact spec now builds (the soft step, no kernel) and
+    its force_tracking cost runs on the generic CostFunctions."""
+    from agimus_controller_tpu_torch.ocp import spec as tspec
+    from agimus_controller_tpu_torch.ocp.costs import CostFunctions
+    from agimus_controller_tpu_torch.ops.soft_contact import SoftContactConfig
+
     jm, _, p = arm
     ps = to_port_spec(arm_spec(4))
     with pytest.raises(NotImplementedError, match="slice 16"):
         make_batch_fddp(jm, p, ps, riccati="pscan", **CPU)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        make_batch_fddp(jm, p, dataclasses.replace(ps, soft_contact=object()),
-                        **CPU)
-    # the pack declines a soft-contact cost; its fallback, CostFunctions,
-    # refuses it too
-    C = jspec.CostItem
-    declined = to_port_spec(dataclasses.replace(
-        arm_spec(4), running_costs=(C(name="f", kind="force_tracking"),)))
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        make_batch_fddp(jm, p, declined, **CPU)
+    soft = dataclasses.replace(ps, running_costs=ps.running_costs + (
+        tspec.CostItem(name="f", kind="force_tracking", update=True),),
+        soft_contact=SoftContactConfig(frame="tip"))
+    solver = make_batch_fddp(jm, p, soft, SolverSettings(max_iters=3), **CPU)
+    assert isinstance(solver.pack, CostFunctions) and solver.kernels == ()
+    refs = tspec.default_references(soft, jm, dtype=torch.float64, **CPU)
+    refs["f_des"][:] = torch.as_tensor([0.0, 0.0, -1.0])
+    refs["w_force"][:] = 1.0
+    x0 = torch.cat([torch.as_tensor(Q0), torch.zeros(5, dtype=torch.float64)])
+    sol = solver(x0[None], refs, x0.expand(1, 5, 7).contiguous(),
+                 torch.zeros((1, 4, 2), dtype=torch.float64))
+    assert bool(torch.isfinite(sol.us).all()) and bool(sol.converged[0])
+    assert float(sol.cost[0]) < float(solver.total_cost(
+        x0.expand(5, 1, 7), torch.zeros((4, 1, 2), dtype=torch.float64),
+        refs)[0])
+
+    class _Manifold:
+        ntan = 8
+
+    with pytest.raises(NotImplementedError,
+                       match="manifold \\+ soft contact not supported yet"):
+        make_batch_fddp(jm, p, soft, cf=_Manifold(), **CPU)
     with pytest.raises(ValueError):
         make_batch_fddp(jm, p, ps, riccati="nope", **CPU)

@@ -102,3 +102,28 @@ def test_control_loop_module_is_probed(module):
     config, the controller runtime and the sine generators) are among the
     modules probed above."""
     assert f"{PKG}.{module}" in MODULES
+
+
+@pytest.mark.parametrize("module", [
+    "models.tiago_pro", "ocp.ff_costs", "ops.lie", "ops.soft_contact"])
+def test_slice12_module_is_probed(module):
+    """The modules of soft contact, the quaternion free-flyer and the
+    Tiago-Pro robot are among the modules probed above."""
+    assert f"{PKG}.{module}" in MODULES
+
+
+@pytest.mark.parametrize("package, name", [
+    ("models", "load_tiago_pro"), ("models", "TIAGO_PRO_Q_READY"),
+    ("models", "TIAGO_PRO_LEFT_ARM_JOINTS"),
+    ("ops", "SoftContactConfig"), ("ops", "soft_contact_step"),
+    ("ocp", "build_ff_cost_functions"), ("ocp", "FF_COST_KINDS"),
+    ("ocp", "build_cost_functions"), ("solver", "solve_fddp"),
+    ("solver", "SolverSettings"), ("solver", "CSQPSettings"),
+    ("solver", "solve_csqp")])
+def test_public_names_are_exported(import_results, package, name):
+    """The sub-packages export the slice's public names, as the JAX
+    package's `__init__`s do; the import probe above covers them."""
+    import importlib
+
+    assert import_results[f"{PKG}.{package}"] == "ok"
+    assert hasattr(importlib.import_module(f"{PKG}.{package}"), name)

@@ -14,8 +14,11 @@ at `chip_smoke.TOL`, on chip_smoke's flagship, `full`, `yaml`, `vs`, `fv`
 and `cap25` (more ref keys than the by-value table holds) specs at N = 19
 (ragged against the kernels' 8 and 32 nodes per block), with the refs as
 `default_references` holds them and as the tick's ring-row views; K1/K2
-with one dt for every node, as a float and as a 0-d tensor; and on the
-2-DoF arm (4 lanes per node). Skips only without g++.
+with one dt for every node, as a float and as a 0-d tensor; on the 2-DoF
+arm (4 lanes per node); and on the 8-joint Tiago-Pro arm (`chip_smoke.
+tiago_spec`, 16 lanes per node and none spare, a prismatic root joint) at
+the node counts phase 7 launches K1/K2 at, K3/K4 at one node. Skips only
+without g++.
 """
 
 import ctypes
@@ -29,6 +32,7 @@ import torch
 
 import chip_smoke as smoke
 from agimus_controller_tpu_torch.models.panda import load_panda
+from agimus_controller_tpu_torch.models.tiago_pro import load_tiago_pro
 from agimus_controller_tpu_torch.models.urdf import build_model_from_urdf
 from agimus_controller_tpu_torch.ocp.spec import (
     CostItem,
@@ -265,3 +269,61 @@ def test_terminal_lanes_2dof(host_lib, derivs):
         smoke.check_outputs("K3 2-DoF vs one-thread body", got,
                             run_terminal_host(host_lib, k, x, refs,
                                               one_thread=True), labels)
+
+
+@pytest.fixture(scope="module")
+def tiago():
+    return load_tiago_pro(dtype=torch.float32, device=CPU)
+
+
+@pytest.mark.parametrize("view", ["refs", "tick"])
+@pytest.mark.parametrize("derivs", [True, False], ids=["K1", "K2"])
+@pytest.mark.parametrize("n", smoke.TIAGO_STAGE_SIZES)
+def test_lanes_match_plain_tiago(host_lib, tiago, n, derivs, view):
+    """The 8-joint Tiago-Pro arm: 16 lanes per node, every lane a tangent."""
+    model, params = tiago
+    spec = smoke.tiago_spec(smoke.TIAGO_T)
+    refs, x, u, dt, t_idx = smoke.tiago_inputs(spec, model, n, n + derivs,
+                                               CPU)
+    if view == "tick":
+        refs = smoke.tick_views(spec, model, refs)
+    k = cuda_costs.make_cuda_stage(model, params, spec, derivs, CPU)
+    got = run_host(host_lib, k, x, u, dt, t_idx, refs)
+    check(f"{'K1' if derivs else 'K2'} tiago N={n} {view}", got,
+          k.plain(x, u, dt, t_idx, refs), derivs)
+
+
+@pytest.mark.parametrize("dt_kind", ["float", "0-d"])
+@pytest.mark.parametrize("derivs", [True, False], ids=["K1", "K2"])
+def test_lanes_scalar_dt_tiago(host_lib, tiago, derivs, dt_kind):
+    """The Tiago-Pro arm with one dt for every node."""
+    model, params = tiago
+    spec = smoke.tiago_spec(smoke.TIAGO_T)
+    refs, x, u, _, t_idx = smoke.tiago_inputs(spec, model, N, 6, CPU)
+    dt = 0.02 if dt_kind == "float" else torch.tensor(0.02)
+    k = cuda_costs.make_cuda_stage(model, params, spec, derivs, CPU)
+    got = run_host(host_lib, k, x, u, dt, t_idx, refs)
+    check(f"{'K1' if derivs else 'K2'} tiago {dt_kind} dt", got,
+          k.plain(x, u, dt, t_idx, refs), derivs)
+
+
+@pytest.mark.parametrize("view", ["refs", "tick"])
+@pytest.mark.parametrize("derivs", [True, False], ids=["K3", "K4"])
+def test_terminal_lanes_tiago(host_lib, tiago, derivs, view):
+    """K3/K4 on the Tiago-Pro arm at phase 7's one terminal node (and five
+    more), K3 also against its one-thread body."""
+    model, params = tiago
+    spec = smoke.tiago_spec(smoke.TIAGO_T)
+    labels = ("l", "lx", "lxx")
+    for n in (1, 5):
+        refs, x, _, _, _ = smoke.tiago_inputs(spec, model, n, 4, CPU)
+        if view == "tick":
+            refs = smoke.tick_views(spec, model, refs)
+        k = cuda_costs.make_cuda_terminal(model, params, spec, derivs, CPU)
+        got = run_terminal_host(host_lib, k, x, refs)
+        name = f"{'K3' if derivs else 'K4'} tiago N={n} {view}"
+        smoke.check_outputs(name, got, k.plain(x, refs), labels)
+        if derivs:
+            smoke.check_outputs(f"{name} vs one-thread body", got,
+                                run_terminal_host(host_lib, k, x, refs,
+                                                  one_thread=True), labels)

@@ -10,9 +10,11 @@ packed model constants, and holds K5b's x+, Fx and Fu and K5a's x+ at
 `make_batched_step_with_derivs` / `make_batched_step` in f32 (the Pallas
 kernel body on the tree, which the batched step does not take), and against
 the one-thread body `ag::dynamics_node` that both ran before, on the Panda
-(16 lanes per K5b node, 8 per K5a node), the 2-DoF arm (4 lanes) and a
-2-DoF tree with a prismatic joint (the kernels' path for a tree that is no
-serial chain), with per-node and scalar dt, nodes drawn from a numpy seed.
+(16 lanes per K5b node, 8 per K5a node), the 8-joint Tiago-Pro arm (16
+lanes per K5b and K5a node, none spare in K5b; a prismatic root joint), the
+2-DoF arm (4 lanes) and a 2-DoF tree with a prismatic joint (the kernels'
+path for a tree that is no serial chain), with per-node and scalar dt,
+nodes drawn from a numpy seed.
 K5a's x+ also equals K5b's bit for bit (the same primal phases). Skips only
 without g++.
 """
@@ -24,6 +26,9 @@ import torch
 
 import chip_smoke as smoke
 from agimus_controller_tpu.models.panda import load_panda as jax_load_panda
+from agimus_controller_tpu.models.tiago_pro import (
+    load_tiago_pro as jax_load_tiago_pro,
+)
 from agimus_controller_tpu.models.urdf import build_model_from_urdf as jax_build
 from agimus_controller_tpu.ops.batched_dynamics import _StaticModel as JaxStaticModel
 from agimus_controller_tpu.ops.batched_dynamics import (
@@ -34,6 +39,7 @@ from agimus_controller_tpu.ops.pallas_dynamics import (
     dynamics_terms as jax_dynamics_terms,
 )
 from agimus_controller_tpu_torch.models.model import params_from_numpy
+from agimus_controller_tpu_torch.models.tiago_pro import TIAGO_PRO_Q_READY
 from agimus_controller_tpu_torch.ops.cuda_dynamics import (
     StepKernel,
     _pack_model,
@@ -54,10 +60,12 @@ URDF_FORK = URDF_2DOF.replace(
     '<origin xyz="0.2 0 0.1" rpy="0.3 0 0"/><axis xyz="0 0 1"/>')
 
 
-@pytest.fixture(scope="module", params=["panda", "arm", "fork"])
+@pytest.fixture(scope="module", params=["panda", "tiago", "arm", "fork"])
 def robot(request):
     if request.param == "panda":
         jm, jp = jax_load_panda(dtype=np.float32)
+    elif request.param == "tiago":
+        jm, jp = jax_load_tiago_pro(dtype=np.float32)
     else:
         urdf = URDF_2DOF if request.param == "arm" else URDF_FORK
         jm, jp = jax_build(urdf, armature=np.array([0.1, 0.1]),
@@ -70,6 +78,8 @@ def robot(request):
 def nodes(name, nj, dt_kind):
     if name == "panda":
         return smoke.step_inputs(N, 11, CPU, dt_kind)
+    if name == "tiago":
+        return smoke.step_inputs(N, 11, CPU, dt_kind, TIAGO_PRO_Q_READY)
     rng = np.random.default_rng(12)
     f = lambda a: torch.as_tensor(a, dtype=torch.float32)
     x = f(rng.normal(size=(N, 2 * nj)) * 0.5)
