@@ -111,17 +111,20 @@ class WarmStartShiftPreviousSolution(WarmStartBase):
         self._timesteps = np.asarray(timesteps, dtype=float)
         dt = float(self._timesteps[0])
         assert np.all(self._timesteps >= dt), "timesteps[i] must be >= timesteps[0]"
-        # cost-free Euler integrator at the base dt (the reference builds a
-        # bare IntegratedActionModelEuler for this, `:49-62`)
         p = _params_on(params, device)
         ref = p.joint_rot
 
         def step(x, u):
             t = lambda a: torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
-            return integrator.euler_step(model, p, t(x), t(u),
-                                         dt).cpu().numpy()
+            return self._node_step(model, p, t(x), t(u), dt).cpu().numpy()
 
         self._step = step
+
+    def _node_step(self, model, params, x, u, dt):
+        """One base-dt step of a coarse node: the cost-free Euler integrator
+        (the reference builds a bare IntegratedActionModelEuler for this,
+        `:49-62`)."""
+        return integrator.euler_step(model, params, x, u, dt)
 
     def shift(self):
         assert self._previous_solution is not None
@@ -166,22 +169,13 @@ class WarmStartShiftPreviousSolutionForceFeedback(WarmStartShiftPreviousSolution
     def setup(self, model: RobotModel, params: ModelParams, timesteps,
               soft_contact, device: torch.device | str = DEFAULT_DEVICE
               ) -> None:
+        self._sc = soft_contact
+        super().setup(model, params, timesteps, device)
+
+    def _node_step(self, model, params, x, u, dt):
         from ..ops.soft_contact import soft_contact_step
 
-        device = resolve_device(device)
-        self._timesteps = np.asarray(timesteps, dtype=float)
-        dt = float(self._timesteps[0])
-        assert np.all(self._timesteps >= dt), "timesteps[i] must be >= timesteps[0]"
-        self._sc = soft_contact
-        p = _params_on(params, device)
-        ref = p.joint_rot
-
-        def step(x, u):
-            t = lambda a: torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
-            return soft_contact_step(model, p, soft_contact, t(x), t(u),
-                                     dt).cpu().numpy()
-
-        self._step = step
+        return soft_contact_step(model, params, self._sc, x, u, dt)
 
     def generate(self, initial_state, reference_trajectory):
         assert self._previous_solution is not None

@@ -70,6 +70,19 @@ class Solution(NamedTuple):
     host_syncs: Optional[int] = None
 
 
+def feasibility_gate(dtype):
+    """Gap norm above which the filter line search counts an iterate as
+    infeasible and lets it accept a step on gap contraction alone: the JAX
+    solvers' 1e-9, raised to 100 machine epsilons of `dtype`. A float32
+    trajectory that is feasible still shows gaps of a few epsilons (the
+    round-off of the step and, on a Lie-group state, of the retraction:
+    1.8e-7 to 3.1e-7 on the quaternion free-flyer); with the 1e-9 gate
+    such an iterate takes any full step, cost increases included, and the
+    free-flyer goal solve diverges in float32 in the JAX package as in the
+    port. In float64 the gate is 1e-9, as in JAX."""
+    return max(1e-9, 100.0 * torch.finfo(dtype).eps)
+
+
 def cholesky(A):
     """Lower Cholesky factors of the symmetrised A [..., n, n]; NaN where a
     matrix is not positive definite (as the JAX factorisation)."""
@@ -216,7 +229,7 @@ def solve_fddp(cf, x0, refs, xs_init, us_init,
             # mim_solvers filter, gated on feasibility: a feasible iterate
             # accepts on cost decrease only
             gaps_a = (1.0 - alphas) * gap_norm
-            infeasible = gap_norm > 1e-9
+            infeasible = gap_norm > feasibility_gate(gap_norm.dtype)
             accept = finite & ((reduction > 0.0) | (
                 infeasible & (gaps_a < gap_norm * (1.0 - 1e-6))))
         else:

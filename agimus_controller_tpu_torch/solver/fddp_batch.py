@@ -64,6 +64,7 @@ from .fddp import (
     SolverSettings,
     cho_solve,
     cholesky,
+    feasibility_gate,
     over_leading,
 )
 from .riccati_components import backward_components
@@ -298,9 +299,9 @@ class BatchFDDP:
         if s.use_filter_line_search:
             # feasibility-gated filter: a feasible scenario accepts on cost
             # decrease only, otherwise (1-a)*gap < gap admits
-            # cost-increasing steps
+            # cost-increasing steps (`feasibility_gate`: 1e-9 in float64)
             gaps_a = (1.0 - alpha) * gap_norm
-            infeasible = gap_norm > 1e-9
+            infeasible = gap_norm > feasibility_gate(gap_norm.dtype)
             return finite & ((reduction > 0.0) | (
                 infeasible & (gaps_a < gap_norm * (1.0 - 1e-6))))
         expected = alpha * d1 - 0.5 * (alpha ** 2) * d2

@@ -564,27 +564,40 @@ def bound_ms(k, kind, n_nodes, ops_node):
                                        else "operations")
 
 
-def check_kernels(model, params, device, sizes=STAGE_CHECK_SIZES):
-    """K1-K4 vs their plain versions on the same CUDA inputs, f32, on the
-    checked specs (`cap25` at N = 100 only), with each call's time,
+def panda_sizes(spec_name, kind):
+    """The node counts the Panda's paths launch K1/K2 (`kind` "stage") or
+    K3/K4 at: `STAGE_CHECK_SIZES` (`cap25`, whose plain version is the
+    slowest, at the flagship tick's N = 100 alone); the terminal kernels
+    one node per scenario, N // 100 for N >= 100."""
+    sizes = [N for N in STAGE_CHECK_SIZES if N == 100 or spec_name != "cap25"]
+    return sizes if kind == "stage" else [N // 100 for N in sizes if N >= 100]
+
+
+def check_kernels(model, params, device, cpu=None, specs=None,
+                  sizes=panda_sizes, inputs=randomized_inputs):
+    """K1-K4 vs their plain versions on the same CUDA inputs, f32, on
+    `specs` ({name: spec}; the Panda's checked specs by default) at the
+    node counts `sizes(spec_name, kind)`, the inputs from
+    `inputs(spec, model, N, seed, device)`, with each call's time,
     kernel-only time (CUDA events around the bare launch, inputs, source
-    table and outputs prepared) and bound; at the node counts of the
-    T = 19 and T = 20 paths, and at `cap25`'s one size, also on the tick's
-    ring-row views of the same refs and, for K1/K2, with one dt for every
-    node (a float and a 0-d tensor). The terminal kernels take N // 100
-    nodes (at least 1) and skip N < 100. Returns {kernel: {spec: {N:
-    numbers}}}."""
+    table and outputs prepared) and bound (operations counted on `cpu`,
+    the model's CPU copy; the Panda's by default); at node counts under
+    100 and each spec's first, also on the tick's ring-row views of the
+    same refs and, for K1/K2, with one dt for every node (a float and a
+    0-d tensor). Returns {kernel: {spec: {N: numbers}}}."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
         make_cuda_terminal,
     )
 
-    model_cpu, params_cpu = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
-                                       dtype=torch.float32, device="cpu")
+    model_cpu, params_cpu = cpu or load_panda(
+        env_urdf=ENV_URDF, collision_pairs=PAIR, dtype=torch.float32,
+        device="cpu")
+    if specs is None:
+        specs = {n: SPECS[n](100, model) for n in CHECKED_SPECS}
     report = {}
-    for spec_name in CHECKED_SPECS:
-        spec = SPECS[spec_name](100, model)
+    for spec_name, spec in specs.items():
         for name, kind, derivs, _ in STAGE_KERNELS:
             if kind == "stage":
                 k = make_cuda_stage(model, params, spec, derivs, device)
@@ -593,15 +606,10 @@ def check_kernels(model, params, device, sizes=STAGE_CHECK_SIZES):
                 k = make_cuda_terminal(model, params, spec, derivs, device)
                 labels = ("l", "lx", "lxx") if derivs else ("l",)
             ops_node = None
-            # cap25's plain version is the slowest: its K1/K2 run at the
-            # flagship tick's N = 100 alone
-            spec_sizes = [N for N in sizes if (N >= 100 or kind == "stage")
-                          and (N == 100 or spec_name != "cap25")]
-            for N in spec_sizes:
-                # the tick gives the terminal kernels one node per scenario
-                n_nodes = N if kind == "stage" else max(1, N // 100)
-                refs, x, u, dt, t_idx = randomized_inputs(
-                    spec, model, n_nodes, seed=N + derivs, device=device)
+            spec_sizes = sizes(spec_name, kind)
+            for n_nodes in spec_sizes:
+                refs, x, u, dt, t_idx = inputs(spec, model, n_nodes,
+                                               n_nodes + derivs, device)
                 args = (x, u, dt, t_idx, refs) if kind == "stage" else (x, refs)
                 run = lambda: k(*args)
                 plain = lambda: k.plain(*args)
@@ -613,7 +621,7 @@ def check_kernels(model, params, device, sizes=STAGE_CHECK_SIZES):
                 errs = check_outputs(f"{name} {spec_name} N={n_nodes}", got,
                                      want, labels)
                 views = ""
-                with_views = N < 100 or N == spec_sizes[0]
+                with_views = n_nodes < 100 or n_nodes == spec_sizes[0]
                 if with_views:
                     got_v = k(*args[:-1], tick_views(spec, model, refs))
                     torch.cuda.synchronize()
@@ -697,24 +705,29 @@ def step_inputs(N, seed, device, dt_kind, q_ready=None):
     return x, u, dt
 
 
-def check_step_kernels(model, params, device):
+def check_step_kernels(model, params, device, cpu=None,
+                       sizes=STEP_CHECK_SIZES, q_ready=None, tag=""):
     """K5a and K5b vs their plain versions on the same CUDA inputs, f32, at
-    every size the paths launch them at (`STEP_CHECK_SIZES`), with per-node
-    and scalar dt; each call's time and kernel-only time (per-node dt) and
-    bound. Returns {kernel: {N: numbers}}."""
+    `sizes` (by default every size the Panda's paths launch them at) with
+    per-node and scalar dt around `q_ready` (`step_inputs`); each call's
+    time and kernel-only time (per-node dt) and bound (operations counted
+    on `cpu`, the model's CPU copy; the Panda's by default), its line
+    labelled `tag`. Returns {kernel: {N: numbers}}."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
 
-    model_cpu, params_cpu = load_panda(dtype=torch.float32, device="cpu")
+    model_cpu, params_cpu = cpu or load_panda(dtype=torch.float32,
+                                              device="cpu")
     report = {}
     for name, kind, derivs, _ in STEP_KERNELS:
         k = StepKernel(model, params, derivs, device)
         labels = ("xnext", "Fx", "Fu") if derivs else ("xnext",)
         ops_node = None
-        for N in STEP_CHECK_SIZES:
+        for N in sizes:
             errs = {}
             for dt_kind in ("scalar", "per_node"):
-                x, u, dt = step_inputs(N, N + derivs, device, dt_kind)
+                x, u, dt = step_inputs(N, N + derivs, device, dt_kind,
+                                       q_ready)
                 run = lambda: k(x, u, dt)
                 as_tuple = lambda o: o if derivs else (o,)
                 got = as_tuple(run())
@@ -722,7 +735,7 @@ def check_step_kernels(model, params, device):
                 # the check's plain call is the one timed (per-node dt last)
                 want, plain_ms = cuda_timed_call(lambda: k.plain(x, u, dt))
                 for lab, e in check_outputs(
-                        f"{name} N={N} {dt_kind} dt", got, as_tuple(want),
+                        f"{name} {tag} N={N} {dt_kind} dt", got, as_tuple(want),
                         labels).items():
                     errs[lab] = max(errs.get(lab, 0.0), e)
             reps = 50 if N <= 6400 else 20
@@ -733,7 +746,7 @@ def check_step_kernels(model, params, device):
                 ops_node = ops_per_node(model_cpu, params_cpu, None, kind,
                                         derivs, None, x, u, dt, None)
             b_ms, b_by = bound_ms(k, kind, N, ops_node)
-            print(f"{name:20s} {'':8s} N={N:6d}  wrapper {ms:9.4f} ms (kernel "
+            print(f"{name:20s} {tag:8s} N={N:6d}  wrapper {ms:9.4f} ms (kernel "
                   f"only {kernel_ms:9.4f} ms)  plain {plain_ms:9.3f} ms  bound "
                   f"{b_ms:.6f} ms ({b_by}, "
                   f"{ops_node} ops/node)  max abs err "
@@ -758,12 +771,14 @@ TIAGO_B = 1024
 TIAGO_STEP_SIZES = (8, 160, 1024, 20_480)
 
 
-def tiago_spec(T: int):
+def tiago_spec(T: int, frame: str = TIAGO_FRAME):
     """The Tiago-Pro OCP of the JAX package's second-robot test: state and
-    gravity-compensation regularisation and the tool's translation."""
+    gravity-compensation regularisation and the translation of `frame`
+    (the tool; another robot's frame gives that robot the same cost
+    model)."""
     from agimus_controller_tpu_torch.ocp.spec import CostItem, ProblemSpec
 
-    goal = dict(kind="frame_translation", update=True, frame=TIAGO_FRAME)
+    goal = dict(kind="frame_translation", update=True, frame=frame)
     return ProblemSpec(
         running_costs=(
             CostItem(name="state_reg", kind="state", weight=0.1, update=True),
@@ -773,135 +788,69 @@ def tiago_spec(T: int):
         horizon=T, dt=0.02)
 
 
-def tiago_inputs(spec, model, N, seed, device):
-    """`randomized_inputs` for the Tiago-Pro arm: every ref of the spec
-    drawn from the seed (the tool targets around the tool at the ready
-    pose), x ~ (ready + 0.1 N(0, 1), 0.5 N(0, 1)), u ~ 2 N(0, 1), node
-    times uniform over the horizon."""
+def tiago_inputs(spec, model, N, seed, device, q_ready=None):
+    """`randomized_inputs` for `tiago_spec`: every ref of the spec drawn
+    from the seed (the targets of its frame around (0.3, 0.3, 0.9)), x ~
+    (q_ready + 0.1 N(0, 1), 0.5 N(0, 1)) around `q_ready` (the Tiago-Pro's
+    ready pose by default), u ~ 2 N(0, 1), node times uniform over the
+    horizon."""
     from agimus_controller_tpu_torch.models.tiago_pro import TIAGO_PRO_Q_READY
     from agimus_controller_tpu_torch.ocp.spec import default_references
 
+    q_ready = TIAGO_PRO_Q_READY if q_ready is None else q_ready
+    frame = spec.terminal_costs[0].frame
     rng = np.random.default_rng(seed)
     Tn, nj = spec.horizon + 1, model.nj
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                   device=device)
     refs = default_references(spec, model, dtype=torch.float32, device=device)
-    refs["xref"] = f(np.concatenate([TIAGO_PRO_Q_READY[None] + rng.normal(
+    refs["xref"] = f(np.concatenate([np.asarray(q_ready)[None] + rng.normal(
         size=(Tn, nj)) * 0.2, rng.normal(size=(Tn, nj)) * 0.2], 1))
     refs["w_x"] = f(rng.uniform(0.1, 2.0, (Tn, 2 * nj)))
     refs["w_u"] = f(rng.uniform(0.1, 2.0, (Tn, nj)))
-    refs[f"ee_trans:{TIAGO_FRAME}"] = f(
+    refs[f"ee_trans:{frame}"] = f(
         rng.normal(size=(Tn, 3)) * 0.2 + np.asarray([0.3, 0.3, 0.9]))
-    refs[f"w_ee:{TIAGO_FRAME}"] = f(rng.uniform(0.1, 2.0, (Tn, 6)))
-    x, u, _ = step_inputs(N, seed, device, "scalar", TIAGO_PRO_Q_READY)
+    refs[f"w_ee:{frame}"] = f(rng.uniform(0.1, 2.0, (Tn, 6)))
+    x, u, _ = step_inputs(N, seed, device, "scalar", q_ready)
     t_idx = torch.as_tensor(rng.integers(0, spec.horizon, size=(N,)),
                             device=device)
     dt = f(spec.timesteps())[t_idx]
     return refs, x, u, dt, t_idx
 
 
-def check_tiago_kernels(device):
-    """K1-K5b's nj = 8 instances vs their plain versions on the same CUDA
-    inputs, f32, on the Tiago-Pro arm (`tiago_spec`): K1/K2 at
-    `TIAGO_STAGE_SIZES` and K3/K4 at N = 1, each on the plain refs and on
-    the tick's ring-row views (one plain call per size, held against both);
-    K5a/K5b at `TIAGO_STEP_SIZES` with per-node and scalar dt. Each size
-    with its wrapper and bare-launch times and its bound. Returns
-    {kernel: {("tiago", N): numbers}}."""
+def check_all_kernels(device):
+    """Phase 3: K1-K5b vs their plain versions on the Panda, every checked
+    spec at every size its paths launch them at, and their nj = 8 instances
+    on the Tiago-Pro arm (`tiago_spec`) at phase 7 (a)'s sizes: K1/K2 at
+    `TIAGO_STAGE_SIZES`, K3/K4 at N = 1, K5a/K5b at `TIAGO_STEP_SIZES`.
+    Returns (K1-K4 {kernel: {spec: {N: numbers}}}, K5a/K5b {kernel: {N or
+    ("tiago", N): numbers}}): the Tiago-Pro sizes' errors join each
+    kernel's."""
+    from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.models.tiago_pro import (
         TIAGO_PRO_Q_READY,
         load_tiago_pro,
     )
-    from agimus_controller_tpu_torch.ops.cuda_costs import (
-        make_cuda_stage,
-        make_cuda_terminal,
-    )
-    from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
 
-    model, params = load_tiago_pro(dtype=torch.float32, device=device)
-    model_cpu, params_cpu = load_tiago_pro(dtype=torch.float32, device="cpu")
-    spec = tiago_spec(TIAGO_T)
-    report = {}
-    for name, kind, derivs, _ in KERNELS:
-        ops_node = None
-        if kind == "step":
-            k = StepKernel(model, params, derivs, device)
-            labels = ("xnext", "Fx", "Fu") if derivs else ("xnext",)
-            as_tuple = lambda o: o if derivs else (o,)
-            for N in TIAGO_STEP_SIZES:
-                errs = {}
-                for dt_kind in ("scalar", "per_node"):
-                    x, u, dt = step_inputs(N, N + derivs, device, dt_kind,
-                                           TIAGO_PRO_Q_READY)
-                    args = (x, u, dt)
-                    got = as_tuple(k(*args))
-                    torch.cuda.synchronize()
-                    want, plain_ms = cuda_timed_call(lambda: k.plain(*args))
-                    for lab, e in check_outputs(
-                            f"{name} tiago N={N} {dt_kind} dt", got,
-                            as_tuple(want), labels).items():
-                        errs[lab] = max(errs.get(lab, 0.0), e)
-                report.setdefault(name, {})[("tiago", N)] = _measure(
-                    k, kind, args, name, N, plain_ms, errs, model_cpu,
-                    params_cpu, None, None, None, ops_node)
-                ops_node = report[name][("tiago", N)]["ops_node"]
-            continue
-        if kind == "stage":
-            k = make_cuda_stage(model, params, spec, derivs, device)
-            labels = STAGE_OUT if derivs else ("xnext", "l")
-            sizes = TIAGO_STAGE_SIZES
-        else:
-            k = make_cuda_terminal(model, params, spec, derivs, device)
-            labels = ("l", "lx", "lxx") if derivs else ("l",)
-            sizes = (1,)
-        for N in sizes:
-            refs, x, u, dt, t_idx = tiago_inputs(spec, model, N, N + derivs,
-                                                 device)
-            args = (x, u, dt, t_idx, refs) if kind == "stage" else (x, refs)
-            got = k(*args)
-            torch.cuda.synchronize()
-            want, plain_ms = cuda_timed_call(lambda: k.plain(*args))
-            errs = check_outputs(f"{name} tiago N={N}", got, want, labels)
-            got_v = k(*args[:-1], tick_views(spec, model, refs))
-            torch.cuda.synchronize()
-            for lab, e in check_outputs(f"{name} tiago N={N} tick views",
-                                        got_v, want, labels).items():
-                errs[lab] = max(errs[lab], e)
-            report.setdefault(name, {})[("tiago", N)] = _measure(
-                k, kind, args, name, N, plain_ms, errs, model_cpu, params_cpu,
-                spec, refs, t_idx, ops_node)
-            ops_node = report[name][("tiago", N)]["ops_node"]
-    return report
+    model, params = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
+                               dtype=torch.float32, device=device)
+    report = check_kernels(model, params, device)
+    step_report = check_step_kernels(model, params, device)
+    tiago = load_tiago_pro(dtype=torch.float32, device=device)
+    cpu = load_tiago_pro(dtype=torch.float32, device="cpu")
+    tiago_sizes = lambda _, kind: TIAGO_STAGE_SIZES if kind == "stage" else (1,)
+    for name, per_spec in check_kernels(
+            *tiago, device, cpu, {"tiago": tiago_spec(TIAGO_T)},
+            tiago_sizes, tiago_inputs).items():
+        report[name].update(per_spec)
+    for name, per_n in check_step_kernels(
+            *tiago, device, cpu, TIAGO_STEP_SIZES, TIAGO_PRO_Q_READY,
+            "tiago").items():
+        step_report[name].update({("tiago", n): v for n, v in per_n.items()})
+    return report, step_report
 
 
-def _measure(k, kind, args, name, N, plain_ms, errs, model_cpu, params_cpu,
-             spec, refs, t_idx, ops_node):
-    """A checked call's numbers (`check_tiago_kernels`): the wrapper's and
-    the bare launch's CUDA-event medians, the bound (ops per node counted
-    once a kernel) and its line."""
-    ms = cuda_time_ms(lambda: k(*args), reps=50)
-    prepared, _ = k.prepare(*args)
-    kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=50)
-    if ops_node is None:
-        if kind == "step":
-            x, u, dt = args
-        elif kind == "stage":
-            x, u, dt = args[:3]
-        else:
-            x, u, dt = args[0], None, None
-        ops_node = ops_per_node(model_cpu, params_cpu, spec, kind, k.derivs,
-                                refs, x, u, dt, t_idx)
-    b_ms, b_by = bound_ms(k, kind, N, ops_node)
-    print(f"{name:20s} {'tiago':8s} N={N:6d}  wrapper {ms:9.4f} ms (kernel "
-          f"only {kernel_ms:9.4f} ms)  plain {plain_ms:9.3f} ms  bound "
-          f"{b_ms:.6f} ms ({b_by}, {ops_node} ops/node)  max abs err "
-          + " ".join(f"{lab}={e:.2e}" for lab, e in errs.items()))
-    return dict(ms=ms, kernel_only_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs.values()),
-                ops_node=ops_node)
-
-
-def build_slice(device, n_ticks: int = 80, spec=None, keep_away=False):
+def build_slice(device, n_ticks: int = 60, spec=None, keep_away=False):
     """The runtime bench scenario through the port: a PackedTrajectoryBuffer
     streaming a fixed end-effector goal and a FusedTickRunner over it, Panda,
     T=100, f32, plus the drifting measured states of the chain. `spec`
@@ -994,8 +943,8 @@ def build_slice(device, n_ticks: int = 80, spec=None, keep_away=False):
 
 
 def run_slice(device):
-    """Drive the main path: the first solve at limit 300, 80 ticks at
-    limit 2 with a drifting x0 (20 settling, 3 timed chunks of 20), one
+    """Drive the main path: the first solve at limit 300, 60 ticks at
+    limit 2 with a drifting x0 (20 settling, 2 timed chunks of 20), one
     final tick at limit 10. Returns (launches per kernel during the run,
     summary line)."""
     sl = build_slice(device)
@@ -1020,8 +969,8 @@ def run_slice(device):
 
     run_chunk(0, 20)  # settle into the warm-started regime
     syncs0 = solver.host_syncs
-    per_tick = [run_chunk(20 + 20 * j, 20) for j in range(3)]
-    syncs_per_tick = (solver.host_syncs - syncs0) / 60
+    per_tick = [run_chunk(20 + 20 * j, 20) for j in range(2)]
+    syncs_per_tick = (solver.host_syncs - syncs0) / 40
     tick_ms = float(np.median(per_tick)) * 1e3
     # final tick with the full iteration budget: the budget-capped chain
     # must have kept the loop converged
@@ -1042,7 +991,7 @@ def run_slice(device):
         raise AssertionError(f"terminal EE error {ee_err:.4f} m >= 0.02 m")
     return launches, (
         f"slice: first solve {first_s:.2f} s, iters={it0} kkt={kkt0:.2e} "
-        f"conv={conv0}; tick median {tick_ms:.3f} ms over 3x20 ticks at "
+        f"conv={conv0}; tick median {tick_ms:.3f} ms over 2x20 ticks at "
         f"limit 2 (host clock, synchronized); {syncs_per_tick:.2f} host "
         f"syncs per tick in the solver loops; final tick iters={iters} "
         f"kkt={kkt:.2e} conv={conv}; terminal EE error {ee_err * 1e3:.2f} mm; "
@@ -1906,7 +1855,7 @@ def run_single_fddp(device, rows: int, max_iters: int):
 
 
 def run_fallback_phase(device, n_ticks_a=10, n_ticks_b=4, csqp_rows=1,
-                       csqp_qp_iters=50, fddp_rows=4, fddp_iters=4):
+                       csqp_qp_iters=50, fddp_rows=2, fddp_iters=4):
     """Phase 5: (a), (b) and its batch FDDP, (c), (d), with the ticks and
     iterations cut to keep the phase near 2 minutes on the card (the JAX
     tests run (c) at 200 ADMM iterations and 3 rows, (d) at 12
@@ -2845,9 +2794,9 @@ def run_force_mpc(device):
         f"{FORCE_MPC_TICKS} ticks")
 
 
-def ff_problem(device, dtype=torch.float32):
+def ff_problem(device, dtype=torch.float32, T=FF_T):
     """Phase 7 (c)'s problem: the JAX package's free-flyer goal solve, the
-    Panda on a quaternion free-flyer base at pitch `FF_PITCH`, T = `FF_T`,
+    Panda on a quaternion free-flyer base at pitch `FF_PITCH`, T nodes,
     full actuation, the hand's goal `FF_GOAL` from its start."""
     from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
     from agimus_controller_tpu_torch.ocp.ff_costs import build_ff_cost_functions
@@ -2855,7 +2804,7 @@ def ff_problem(device, dtype=torch.float32):
     from agimus_controller_tpu_torch.ops import lie
 
     model, params = load_panda(dtype=dtype, device=device, free_flyer=True)
-    T, nv, frame = FF_T, model.nj, "panda_hand_tcp"
+    nv, frame = model.nj, "panda_hand_tcp"
     spec = ProblemSpec(
         running_costs=(
             CostItem(name="state_reg", kind="state", weight=0.05,
@@ -2892,14 +2841,11 @@ def ff_problem(device, dtype=torch.float32):
 
 
 def run_freeflyer(device):
-    """Phase 7 (c): the quaternion free-flyer on the card: the manifold
-    `BatchSQP` at B = `FF_ROWS` in f32 and `solve_fddp` in f64 on
+    """Phase 7 (c): the quaternion free-flyer on the card in f32:
+    `solve_fddp` and the manifold `BatchSQP` at B = `FF_ROWS` on
     `ff_problem`; each ends with the hand under 2 cm from its goal, and the
-    two agree on the terminal hand position within 1 mm. `solve_fddp` runs
-    in f64 as the JAX package's free-flyer tests do: in f32 the state's
-    retraction round trip leaves defects of ~1e-7, above its filter's 1e-9
-    feasibility gate, so its line search takes cost-increasing steps and
-    the solve diverges (PERF.md, ROADMAP queue 3). Returns the line."""
+    two agree on the terminal hand position within 1 mm. Returns the
+    line."""
     from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
     from agimus_controller_tpu_torch.solver.fddp import (
         SolverSettings,
@@ -2908,9 +2854,8 @@ def run_freeflyer(device):
     from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
 
     fp = ff_problem(device)
-    f64 = ff_problem(device, torch.float64)
     t0 = time.perf_counter()
-    sol_f = solve_fddp(f64.cf, f64.x0, f64.refs, f64.xs0, f64.us0,
+    sol_f = solve_fddp(fp.cf, fp.x0, fp.refs, fp.xs0, fp.us0,
                        SolverSettings(max_iters=60,
                                       termination_tolerance=1e-4))
     _sync(device)
@@ -2925,10 +2870,10 @@ def run_freeflyer(device):
                 fp.xs0[None].expand(B, -1, -1), fp.us0[None].expand(B, -1, -1))
     _sync(device)
     sqp_s = time.perf_counter() - t0
-    err_f = f64.end_error(sol_f.xs[-1])
+    err_f = fp.end_error(sol_f.xs[-1])
     err_s = max(fp.end_error(sol_s.xs[b, -1]) for b in range(B))
     gap = max(float(torch.linalg.vector_norm(
-        fp.hand(sol_s.xs[b, -1]).double() - f64.hand(sol_f.xs[-1])))
+        fp.hand(sol_s.xs[b, -1]) - fp.hand(sol_f.xs[-1])))
         for b in range(B))
     finite = bool(torch.isfinite(sol_f.us).all() & torch.isfinite(
         sol_s.us).all())
@@ -2939,9 +2884,9 @@ def run_freeflyer(device):
             "(bound 1)")
     return (
         f"phase 7 (c) quaternion free-flyer (Panda, pitch pi/2, T={FF_T}, "
-        f"full actuation): solve_fddp (f64) {fddp_s:.2f} s, "
+        f"full actuation, f32): solve_fddp {fddp_s:.2f} s, "
         f"{int(sol_f.iters)} iterations, {sol_f.host_syncs} host syncs, hand "
-        f"error {err_f * 1e3:.3f} mm; manifold BatchSQP (f32, B={B}) "
+        f"error {err_f * 1e3:.3f} mm; manifold BatchSQP (B={B}) "
         f"{sqp_s:.2f} "
         f"s, iterations {sol_s.iters.tolist()}, {sqp.host_syncs} host "
         f"syncs, hand error max {err_s * 1e3:.3f} mm; the two {gap * 1e3:.4f}"
@@ -2973,7 +2918,6 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs on the GPU only")
     _port()
-    from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops import _build
 
     # -- 1. environment
@@ -2996,19 +2940,8 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
 
-    # -- 3. kernels vs plain
-    model, params = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
-                               dtype=torch.float32, device=device)
-    report = check_kernels(model, params, device)
-    step_report = check_step_kernels(model, params, device)
-    # the nj = 8 instances on the Tiago-Pro arm (phase 7 (a)'s sizes); their
-    # errors join each kernel's max_abs_err
-    tiago = check_tiago_kernels(device)
-    for name, kind, *_ in KERNELS:
-        if kind == "step":
-            step_report[name].update(tiago[name])
-        else:
-            report[name]["tiago"] = {n: v for (_, n), v in tiago[name].items()}
+    # -- 3. kernels vs plain, on the Panda and at nj = 8 on the Tiago-Pro arm
+    report, step_report = check_all_kernels(device)
 
     # -- 4. the main paths: the flagship chain, the collision path, the
     # visual-servoing path and the batch path

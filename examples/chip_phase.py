@@ -32,7 +32,6 @@ def main(phases):
     if not torch.cuda.is_available():
         raise SystemExit("chip_phase: no CUDA device")
     cs._port()
-    from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.ops import _build
 
     print(subprocess.run(["nvidia-smi", "-i", "0",
@@ -48,12 +47,7 @@ def main(phases):
     torch.backends.cudnn.allow_tf32 = False
 
     def kernels():
-        model, params = load_panda(env_urdf=cs.ENV_URDF,
-                                   collision_pairs=cs.PAIR,
-                                   dtype=torch.float32, device=device)
-        cs.check_kernels(model, params, device)
-        cs.check_step_kernels(model, params, device)
-        cs.check_tiago_kernels(device)
+        cs.check_all_kernels(device)
         return {}, []
 
     def paths():

@@ -7,9 +7,13 @@ Builds the kernels as `chip_smoke.py` does, prints the card's name and
 power limit, then for each kernel and each node count phase 7 launches it
 at (`chip_smoke.TIAGO_STAGE_SIZES`, N = 1 for K3/K4,
 `chip_smoke.TIAGO_STEP_SIZES`) the CUDA-event medians of the wrapper call
-and of the bare launch for both instances, nj = 7 on `flagship_spec` and
-the Panda's inputs, nj = 8 on `tiago_spec` and the Tiago-Pro's, with the
-ratio of the bare launches; and each step kernel's resident blocks per SM.
+and of the bare launch for both instances, with the ratio of the bare
+launches; and each step kernel's resident blocks per SM. Both instances
+run one cost model, `chip_smoke.tiago_spec` (state, gravity-compensated
+control, a frame's translation, the same weights): on the Tiago-Pro's tool
+at nj = 8 and on the Panda's `panda_hand_tcp` at nj = 7, with
+`chip_smoke.tiago_inputs` around each robot's ready pose, so the ratio
+measures the joint count alone.
 Alternates the two instances per size (nj = 7, nj = 8, nj = 8, nj = 7) and
 takes the mean of each pair. Needs a CUDA device.
 """
@@ -30,7 +34,7 @@ def main(reps):
     if not torch.cuda.is_available():
         raise SystemExit("kernels_nj_ab: no CUDA device")
     cs._port()
-    from agimus_controller_tpu_torch.models.panda import load_panda
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
     from agimus_controller_tpu_torch.models.tiago_pro import (
         TIAGO_PRO_Q_READY,
         load_tiago_pro,
@@ -50,20 +54,20 @@ def main(reps):
     dev = torch.device("cuda", 0)
     robots = {7: load_panda(dtype=torch.float32, device=dev),
               8: load_tiago_pro(dtype=torch.float32, device=dev)}
-    specs = {7: cs.flagship_spec(100), 8: cs.tiago_spec(cs.TIAGO_T)}
+    specs = {7: cs.tiago_spec(cs.TIAGO_T, "panda_hand_tcp"),
+             8: cs.tiago_spec(cs.TIAGO_T)}
+    ready = {7: PANDA_Q_READY, 8: TIAGO_PRO_Q_READY}
 
     def calls(nj, name, kind, derivs, N):
         model, params = robots[nj]
         if kind == "step":
             k = StepKernel(model, params, derivs, dev)
-            args = cs.step_inputs(N, N, dev, "per_node",
-                                  None if nj == 7 else TIAGO_PRO_Q_READY)
+            args = cs.step_inputs(N, N, dev, "per_node", ready[nj])
         else:
             make = make_cuda_stage if kind == "stage" else make_cuda_terminal
             k = make(model, params, specs[nj], derivs, dev)
-            inputs = (cs.randomized_inputs if nj == 7 else cs.tiago_inputs)(
-                specs[nj], model, N, N, dev)
-            refs, x, u, dt, t_idx = inputs
+            refs, x, u, dt, t_idx = cs.tiago_inputs(specs[nj], model, N, N,
+                                                    dev, ready[nj])
             args = (x, u, dt, t_idx, refs) if kind == "stage" else (x, refs)
         prepared, _ = k.prepare(*args)
         return (cs.cuda_time_ms(lambda: k(*args), reps),
