@@ -63,7 +63,7 @@ class FusedTick:
                  spec: ProblemSpec, ring: RefRing,
                  settings: CSQPSettings = CSQPSettings(),
                  device: torch.device | str = DEFAULT_DEVICE,
-                 backend: str = "auto"):
+                 backend: str = "auto", cf=None):
         device = resolve_device(device)
         ts = np.asarray(spec.timesteps())
         self._dt = float(ts[0])
@@ -74,7 +74,7 @@ class FusedTick:
         self._layout = ring.layout
         self._sm = _StaticModel(model, params)
         self.solver = make_batch_sqp(model, params, spec, settings, device,
-                                     backend)
+                                     backend, cf=cf)
 
     def shift(self, xs, us):
         if self._all_uniform:
@@ -114,10 +114,12 @@ class FusedTick:
 def make_fused_tick(model: RobotModel, params: ModelParams, spec: ProblemSpec,
                     ring: RefRing, settings: CSQPSettings = CSQPSettings(),
                     device: torch.device | str = DEFAULT_DEVICE,
-                    backend: str = "auto") -> FusedTick:
+                    backend: str = "auto", cf=None) -> FusedTick:
     """Build the fused tick for `device` (see `FusedTick`; `backend`, "auto"
-    or "xla", is the batch SQP's, `sqp_batch.BatchSQP`)."""
-    return FusedTick(model, params, spec, ring, settings, device, backend)
+    or "xla", and `cf`, cost functions with a Lie-group state that put the
+    solve on the "manifold" backend, are the batch SQP's,
+    `sqp_batch.BatchSQP`)."""
+    return FusedTick(model, params, spec, ring, settings, device, backend, cf)
 
 
 class FusedTickRunner:
@@ -131,10 +133,10 @@ class FusedTickRunner:
                  settings: CSQPSettings = CSQPSettings(),
                  dtype: torch.dtype = torch.float32,
                  device: torch.device | str = DEFAULT_DEVICE,
-                 backend: str = "auto"):
+                 backend: str = "auto", cf=None):
         self.device = resolve_device(device)
         self._tick = make_fused_tick(model, params, spec, ring, settings,
-                                     self.device, backend)
+                                     self.device, backend, cf)
         self._ring = ring
         self._refs = base_refs
         self._dtype = dtype

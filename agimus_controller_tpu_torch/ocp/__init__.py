@@ -14,6 +14,7 @@ from .spec import (
     CostItem,
     ProblemSpec,
     default_references,
+    make_timesteps,
     refs_from_numpy,
     slice_refs,
 )

@@ -167,6 +167,14 @@ class ProblemSpec:
         return tuple(self.running_costs) + tuple(self.terminal_costs)
 
 
+def make_timesteps(spec: ProblemSpec, dtype: torch.dtype = torch.float32,
+                   device: torch.device | str = DEFAULT_DEVICE) -> torch.Tensor:
+    """The spec's per-node dt as a `[T]` tensor on `device` (JAX
+    `ocp/spec.py::make_timesteps`)."""
+    return torch.as_tensor(spec.timesteps(), dtype=dtype,
+                           device=resolve_device(device))
+
+
 def default_references(
     spec: ProblemSpec, model: RobotModel, dtype: torch.dtype = torch.float32,
     device: torch.device | str = DEFAULT_DEVICE,

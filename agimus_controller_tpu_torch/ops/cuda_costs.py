@@ -802,9 +802,14 @@ class StageKernel(_StageBase):
 
     def plain(self, x, u, dt, t_idx, refs):
         """The plain-PyTorch version, on the inputs' own device."""
+        return self.plain_rows(x, u, dt, self._rows(refs, t_idx, x.dtype))
+
+    def plain_rows(self, x, u, dt, rows):
+        """`plain` on the nodes' gathered ref rows [N, width] (`_rows`):
+        every node is computed from its own row, so the nodes of several
+        calls can be stacked into one."""
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
-        rows = self._rows(refs, t_idx, x.dtype)
         q = list(x[:, :nj].unbind(1))
         v = list(x[:, nj:].unbind(1))
         uc = list(u.unbind(1))
@@ -875,11 +880,18 @@ class TerminalKernel(_StageBase):
 
     def plain(self, x, refs):
         """The plain-PyTorch version, on the inputs' own device."""
+        return self.plain_rows(x, self.terminal_rows(x, refs))
+
+    def terminal_rows(self, x, refs):
+        """The ref rows [N, width] of N terminal nodes (t = horizon)."""
+        t_idx = torch.full((x.shape[0],), self.horizon, dtype=torch.long,
+                           device=x.device)
+        return self._rows(refs, t_idx, x.dtype)
+
+    def plain_rows(self, x, rows):
+        """`plain` on the nodes' gathered ref rows (`terminal_rows`)."""
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
-        t_idx = torch.full((N,), self.horizon, dtype=torch.long,
-                           device=x.device)
-        rows = self._rows(refs, t_idx, x.dtype)
         q = list(x[:, :nj].unbind(1))
         v = list(x[:, nj:].unbind(1))
         zero = torch.zeros_like(q[0])

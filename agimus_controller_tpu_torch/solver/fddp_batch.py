@@ -12,8 +12,9 @@ through every stage:
   forms of the generic `ocp.costs.CostFunctions` take its place, as the
   JAX solver falls back to `vmap(cf.cost_derivs)`,
 - Riccati backward: the batch-minor `riccati_components.backward_components`
-  ("component", the default) or the dense `[B, n, n]` sweep with batched
-  Cholesky factors ("dense"),
+  ("component", the default), the horizon-parallel scan of
+  `riccati_pscan.parallel_riccati` ("pscan", log2 T combines deep) or the
+  dense `[B, n, n]` sweep with batched Cholesky factors ("dense"),
 - line search: the alpha = 0.5**i ladder with per-scenario first accept
   (filter or Armijo acceptance), each trial a gap-contracting rollout of T
   sequential K5a launches over the B scenarios; it stops once every live
@@ -40,9 +41,6 @@ defects through `cf.state_diff`, the rollout's feedback and gap contraction
 through `cf.state_diff`/`cf.state_integrate`, dynamics and costs from `cf`
 (JAX `fddp_batch.py:72-79,93-125`). As in the JAX package, manifold and
 soft contact together are refused.
-
-Not ported (raises NotImplementedError): `riccati="pscan"` (ROADMAP queue
-1, slice 16).
 """
 
 from __future__ import annotations
@@ -68,6 +66,7 @@ from .fddp import (
     over_leading,
 )
 from .riccati_components import backward_components
+from .riccati_pscan import parallel_riccati
 
 _RICCATI = ("component", "pscan", "dense")
 
@@ -123,9 +122,6 @@ class BatchFDDP:
                  device: torch.device | str = DEFAULT_DEVICE, cf=None):
         if riccati not in _RICCATI:
             raise ValueError(riccati)
-        if riccati == "pscan":
-            raise NotImplementedError(
-                "riccati='pscan' is not ported yet (ROADMAP queue 1, slice 16)")
         self.soft = spec.soft_contact is not None
         self.manifold = getattr(cf, "ntan", None) is not None
         if self.manifold and self.soft:
@@ -260,6 +256,9 @@ class BatchFDDP:
         bad [B])."""
         _, Fx, Fu = dyn
         _, lx, lu, lxx, lxu, luu = costs
+        if self.riccati == "pscan":
+            return parallel_riccati(lx, lu, lxx, lxu, luu, Fx, Fu, fs,
+                                    term[1], term[2], reg)
         sweep = (backward_components if self.riccati == "component"
                  else backward_dense)
         return sweep(Fx, Fu, lx, lu, lxx, lxu, luu, fs, term[1], term[2], reg)

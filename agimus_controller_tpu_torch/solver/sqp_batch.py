@@ -113,6 +113,12 @@ class BatchSQPSolution(NamedTuple):
     # rho: the next warm-started tick's `y0` (zeros, or the given y0,
     # without constraints)
     y: Optional[torch.Tensor] = None
+    # per-iteration telemetry (JAX `BatchSQPSolution.trace_*`), with
+    # `trace=True`: row i holds iteration i's cost after its step, its KKT
+    # and its gap; NaN past each scenario's last iteration
+    trace_cost: Optional[torch.Tensor] = None  # [max_iters, B]
+    trace_kkt: Optional[torch.Tensor] = None  # [max_iters, B]
+    trace_gap: Optional[torch.Tensor] = None  # [max_iters, B]
 
 
 BACKENDS = ("auto", "xla")
@@ -168,9 +174,10 @@ class BatchSQP:
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, settings: CSQPSettings = CSQPSettings(),
                  device: torch.device | str = DEFAULT_DEVICE,
-                 backend: str = "auto", cf=None):
+                 backend: str = "auto", cf=None, trace: bool = False):
         self.T = spec.horizon
         self.settings = settings
+        self.trace = trace
         self.device = resolve_device(device)
         self.soft = spec.soft_contact is not None
         self.backend, self.backend_reason = select_backend(
@@ -505,6 +512,11 @@ class BatchSQP:
         # ADMM dual carry [T+1, max(nc, 1), B], warm-startable across solves
         y_carry = (torch.zeros((T + 1, max(nc, 1), B), **kw) if y0 is None
                    else torch.as_tensor(y0, **kw).permute(1, 2, 0))
+        if self.trace:
+            # one spare row past `max_iters` takes the writes of scenarios
+            # that are no longer live (the JAX scatter's dropped indices)
+            trace = torch.full((3, s.max_iters + 1, B), float("nan"), **kw)
+            b_idx = torch.arange(B, device=xs.device)
 
         # early-exit iteration loop on the KKT criterion
         # (`termination_tolerance`, ocp_param_base.py:54-57), per-scenario
@@ -613,6 +625,10 @@ class BatchSQP:
             us = torch.where(ok[None, :, None], us_best, us)
             cost = torch.where(ok, cost_best, cost)
             kkt = torch.where(live, kkt_new, kkt)
+            if self.trace:
+                row = torch.where(live & (iters < s.max_iters), iters,
+                                  s.max_iters).long()
+                trace[:, row, b_idx] = torch.stack([cost, kkt_new, gap_inf])
             ks = torch.where(live[None, :, None], ks_t.permute(0, 2, 1), ks)
             Ks_d = torch.where(live[None, :, None, None],
                                Ks.permute(0, 3, 1, 2), Ks_d)
@@ -646,7 +662,10 @@ class BatchSQP:
             iters=iters, qp_iters=qp_total, converged=converged,
             # rescaled to the NEXT solve's initial rho, so the multiplier
             # mu = rho*y is what carries across solves
-            y=(y_carry * (rho_b / float(s.rho))[None, None, :]).permute(2, 0, 1))
+            y=(y_carry * (rho_b / float(s.rho))[None, None, :]).permute(2, 0, 1),
+            **({} if not self.trace else dict(
+                trace_cost=trace[0, :-1], trace_kkt=trace[1, :-1],
+                trace_gap=trace[2, :-1])))
 
 
 class _ADMM:
@@ -768,10 +787,13 @@ class _ADMM:
 def make_batch_sqp(model: RobotModel, params: ModelParams, spec: ProblemSpec,
                    settings: CSQPSettings = CSQPSettings(),
                    device: torch.device | str = DEFAULT_DEVICE,
-                   backend: str = "auto", cf=None) -> BatchSQP:
+                   backend: str = "auto", cf=None,
+                   trace: bool = False) -> BatchSQP:
     """Build the batch SQP solver for `device` (see `BatchSQP`; `backend`
     "auto" or "xla"). The costs and constraint rows come from `spec`,
     unless `cf` is cost functions with a Lie-group state
     (`ocp.ff_costs.build_ff_cost_functions`): then the backend is
-    "manifold" and everything comes from `cf`."""
-    return BatchSQP(model, params, spec, settings, device, backend, cf)
+    "manifold" and everything comes from `cf`. `trace=True` fills the
+    solution's `trace_cost`, `trace_kkt` and `trace_gap`; the loop runs on
+    the host, so without it nothing is recorded."""
+    return BatchSQP(model, params, spec, settings, device, backend, cf, trace)

@@ -16,7 +16,9 @@ them at, with per-node and scalar dt; and the nj = 8 instances of all six
 on the 8-joint Tiago-Pro arm (`tiago_spec`) at the sizes phase 7 launches
 them at (K1/K2 at N = 20 and 21 and K3/K4 at 1, also on the ring-row
 views; K5a/K5b with per-node and scalar dt); times each call and its bare
-launch and computes its bound.
+launch and computes its bound. The plain K1-K4 results of a spec's sizes
+come from one stacked call (nodes are independent), which also counts the
+operations of the bound.
 Then drives the port's four main paths, every entry point on the card, the
 first three through `FusedTickRunner`:
 
@@ -34,7 +36,10 @@ first three through `FusedTickRunner`:
   T=100, B=4096, f32, 10 iterations, the flagship spec with a goal 12 cm
   from the ready pose and x0 perturbed per scenario, solved on three x0
   variants (solves/s), after a B=8 solve of the first variant's rows 0-7
-  that the B=4096 solve must reproduce.
+  that the B=4096 solve must reproduce, and the same B=8 solve on the
+  horizon-parallel Riccati sweep (`riccati="pscan"`), held to the
+  component solve's iterations, flags and states; the pscan sweep is timed
+  beside the component sweep on the same linearisation.
 
 Phase 5 runs the specs the stage kernels decline on the "xla" backend and
 the single-scenario solvers. Phase 6 drives the reference-shaped control
@@ -46,7 +51,12 @@ f32: (a) the pick-and-place loop, held against the JAX package's joint
 tracking error; (b) the same in ring mode with the debug streams, one solve
 held against host packing; (c) the sine loop at the reference's default
 `max_solve_time`; (d) the collision-avoidance OCP through the facade, T=19,
-checked to hold the band. Phase 7 drives slice 12: (a) the Tiago-Pro arm
+checked to hold the band; then (a)'s recording written as npz, sqlite3 and
+mcap and read back equal, (a)'s checkpoint resumed in a fresh `MPC` against
+the uninterrupted run, `MPCDebugger`'s cost breakdown against a solve's
+cost, the ROS shim's node graph over the in-process bus and the
+trajectory-publisher process with its CPU child. Phase 7 drives slice 12:
+(a) the Tiago-Pro arm
 (nj = 8) through `FusedTickRunner` on the stage kernels, T=20, checked to
 converge with the tool error under a quarter of the start's, and
 `make_batch_fddp` at B=1024 on the step kernels, rows 0-7 against a B=8
@@ -55,7 +65,9 @@ against `solve_fddp` on the terminal force, an inactive contact freezing
 the force state, and an `MPC` loop with the force-feedback warm start;
 (c) the quaternion free-flyer at the euler chart's singular pitch:
 `solve_fddp` and the manifold batch SQP reaching the hand's goal and
-agreeing on it.
+agreeing on it; (b) and (c) also through `FusedTickRunner` (the soft step;
+`cf=` on the manifold backend); and the model-parameter sensitivity sweep
+on the card against the CPU in f64. Each phase prints its seconds.
 
 The tick paths must have launched every stage kernel, the batch path both
 step kernels and no stage kernel. Exits non-zero without a result when
@@ -573,30 +585,64 @@ def panda_sizes(spec_name, kind):
     return sizes if kind == "stage" else [N // 100 for N in sizes if N >= 100]
 
 
-def check_kernels(model, params, device, cpu=None, specs=None,
-                  sizes=panda_sizes, inputs=randomized_inputs):
+def count_ops_of(fn):
+    """(fn()'s result, the element operations it ran): `count_ops` that
+    keeps the result."""
+    out = []
+    n = count_ops(lambda: out.append(fn()))
+    return out[0], n
+
+
+def stacked_plain(k, kind, per_size):
+    """One plain call over the nodes of every size's inputs (`per_size`,
+    {N: (refs, x, u, dt, t_idx)}): each node is computed from its own
+    gathered ref row, so the sizes stack into one call, whose element
+    operations are counted. Returns ({N: the plain outputs of that size's
+    nodes}, operations per node, the call's ms)."""
+    xs, us, dts, rows = [], [], [], []
+    for refs, x, u, dt, t_idx in per_size.values():
+        xs.append(x)
+        if kind == "stage":
+            us.append(u)
+            dts.append((x.new_zeros(x.shape[0]) + dt).to(x.dtype))
+            rows.append(k._rows(refs, t_idx, x.dtype))
+        else:
+            rows.append(k.terminal_rows(x, refs))
+    args = (torch.cat(xs), *([torch.cat(us), torch.cat(dts)]
+                             if kind == "stage" else ()), torch.cat(rows))
+    (out, n_ops), ms = cuda_timed_call(
+        lambda: count_ops_of(lambda: k.plain_rows(*args)))
+    total = args[0].shape[0]
+    want, off = {}, 0
+    for N in per_size:
+        want[N] = tuple(o[off:off + N] for o in out)
+        off += N
+    return want, n_ops / total, ms
+
+
+def check_kernels(model, params, device, specs=None, sizes=panda_sizes,
+                  inputs=randomized_inputs, timed=("flagship", 100, 1)):
     """K1-K4 vs their plain versions on the same CUDA inputs, f32, on
     `specs` ({name: spec}; the Panda's checked specs by default) at the
     node counts `sizes(spec_name, kind)`, the inputs from
     `inputs(spec, model, N, seed, device)`, with each call's time,
     kernel-only time (CUDA events around the bare launch, inputs, source
-    table and outputs prepared) and bound (operations counted on `cpu`,
-    the model's CPU copy; the Panda's by default); at node counts under
-    100 and each spec's first, also on the tick's ring-row views of the
-    same refs and, for K1/K2, with one dt for every node (a float and a
-    0-d tensor). Returns {kernel: {spec: {N: numbers}}}."""
-    from agimus_controller_tpu_torch.models.panda import load_panda
+    table and outputs prepared) and bound; at node counts under 100 and
+    each spec's first, also on the tick's ring-row views of the same refs
+    and, for K1/K2, with one dt for every node (a float and a 0-d tensor).
+    The plain results of a spec's sizes come from one stacked call
+    (`stacked_plain`), which also counts the operations per node of the
+    bound; `timed` = (spec, K1/K2 size, K3/K4 size) also times one plain
+    call of its own at that size (the result line's `plain_ms`). Returns
+    ({kernel: {spec: {N: numbers}}}, seconds spent in plain calls)."""
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
         make_cuda_terminal,
     )
 
-    model_cpu, params_cpu = cpu or load_panda(
-        env_urdf=ENV_URDF, collision_pairs=PAIR, dtype=torch.float32,
-        device="cpu")
     if specs is None:
         specs = {n: SPECS[n](100, model) for n in CHECKED_SPECS}
-    report = {}
+    report, plain_s = {}, 0.0
     for spec_name, spec in specs.items():
         for name, kind, derivs, _ in STAGE_KERNELS:
             if kind == "stage":
@@ -605,19 +651,18 @@ def check_kernels(model, params, device, cpu=None, specs=None,
             else:
                 k = make_cuda_terminal(model, params, spec, derivs, device)
                 labels = ("l", "lx", "lxx") if derivs else ("l",)
-            ops_node = None
             spec_sizes = sizes(spec_name, kind)
-            for n_nodes in spec_sizes:
-                refs, x, u, dt, t_idx = inputs(spec, model, n_nodes,
-                                               n_nodes + derivs, device)
+            per_size = {N: inputs(spec, model, N, N + derivs, device)
+                        for N in spec_sizes}
+            t0 = time.perf_counter()
+            wants, ops_node, stacked_ms = stacked_plain(k, kind, per_size)
+            plain_s += time.perf_counter() - t0
+            for n_nodes, (refs, x, u, dt, t_idx) in per_size.items():
+                want = wants[n_nodes]
                 args = (x, u, dt, t_idx, refs) if kind == "stage" else (x, refs)
                 run = lambda: k(*args)
-                plain = lambda: k.plain(*args)
                 got = run()
                 torch.cuda.synchronize()
-                # the plain versions take up to seconds a call: the check's
-                # call is the one timed
-                want, plain_ms = cuda_timed_call(plain)
                 errs = check_outputs(f"{name} {spec_name} N={n_nodes}", got,
                                      want, labels)
                 views = ""
@@ -632,31 +677,39 @@ def check_kernels(model, params, device, cpu=None, specs=None,
                     same = all(torch.equal(a, b) for a, b in zip(got, got_v))
                     views = f"  tick views {'equal' if same else 'differ'}"
                 if kind == "stage" and with_views:
+                    t0 = time.perf_counter()
                     views += check_scalar_dt(k, name, spec_name, args, labels,
                                              errs, want)
+                    plain_s += time.perf_counter() - t0
                 ms = cuda_time_ms(run, reps=50)
                 prepared, _ = k.prepare(*args)
                 kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=50)
-                if ops_node is None:
-                    ops_node = ops_per_node(model_cpu, params_cpu, spec, kind,
-                                            derivs, refs, x, u, dt, t_idx)
+                plain_ms = None
+                if (spec_name, n_nodes) == (timed[0], timed[1 if kind ==
+                                                             "stage" else 2]):
+                    t0 = time.perf_counter()
+                    _, plain_ms = cuda_timed_call(lambda: k.plain(*args))
+                    plain_s += time.perf_counter() - t0
                 b_ms, b_by = bound_ms(k, kind, n_nodes, ops_node)
                 live = (f"  collision term live on "
                         f"{live_share(spec, model, refs, x):.0%} of nodes"
                         if "geom_trans" in refs else "")
                 print(f"{name:20s} {spec_name:8s} N={n_nodes:6d}  wrapper "
                       f"{ms:9.4f} ms (kernel only {kernel_ms:9.4f} ms)  plain "
-                      f"{plain_ms:9.3f} ms  bound "
-                      f"{b_ms:.6f} ms ({b_by}, {ops_node} ops/node)  max abs "
-                      "err " + " ".join(f"{lab}={e:.2e}"
-                                        for lab, e in errs.items())
+                      + (f"{plain_ms:9.3f} ms" if plain_ms is not None
+                         else "  stacked")
+                      + f" (all sizes, ops counted: {stacked_ms:9.3f} ms)  "
+                      f"bound {b_ms:.6f} ms ({b_by}, {ops_node:.1f} ops/node)"
+                      "  max abs err " + " ".join(
+                          f"{lab}={e:.2e}" for lab, e in errs.items())
                       + views + live)
                 report.setdefault(name, {}).setdefault(spec_name, {})[
                     n_nodes] = dict(ms=ms, kernel_only_ms=kernel_ms,
-                                    plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by,
+                                    plain_ms=plain_ms,
+                                    stacked_plain_ms=stacked_ms,
+                                    bound_ms=b_ms, bound_by=b_by,
                                     max_abs_err=max(errs.values()))
-    return report
+    return report, plain_s
 
 
 def check_scalar_dt(k, name, spec_name, args, labels, errs, want):
@@ -834,15 +887,18 @@ def check_all_kernels(device):
 
     model, params = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
                                dtype=torch.float32, device=device)
-    report = check_kernels(model, params, device)
+    report, plain_s = check_kernels(model, params, device)
     step_report = check_step_kernels(model, params, device)
     tiago = load_tiago_pro(dtype=torch.float32, device=device)
     cpu = load_tiago_pro(dtype=torch.float32, device="cpu")
     tiago_sizes = lambda _, kind: TIAGO_STAGE_SIZES if kind == "stage" else (1,)
-    for name, per_spec in check_kernels(
-            *tiago, device, cpu, {"tiago": tiago_spec(TIAGO_T)},
-            tiago_sizes, tiago_inputs).items():
+    tiago_report, tiago_plain_s = check_kernels(
+        *tiago, device, {"tiago": tiago_spec(TIAGO_T)}, tiago_sizes,
+        tiago_inputs, timed=("tiago", TIAGO_STAGE_SIZES[0], 1))
+    for name, per_spec in tiago_report.items():
         report[name].update(per_spec)
+    print(f"phase 3: K1-K4 plain calls (stacked, checks and timed) "
+          f"{plain_s + tiago_plain_s:.1f} s")
     for name, per_n in check_step_kernels(
             *tiago, device, cpu, TIAGO_STEP_SIZES, TIAGO_PRO_Q_READY,
             "tiago").items():
@@ -1302,6 +1358,11 @@ def run_vs_path(device, n_settle: int = 20, n_timed: int = 20):
 # the batch path: the JAX bench's batch mode (`bench.py:386-438`) with the
 # goal of `examples/batch_scenarios.py:54-59`
 BATCH_T, BATCH_B, BATCH_ROWS = 100, 4096, 8
+# the horizon-parallel sweep's B = 8 solve against the component one's: xs,
+# f32. The same rows on the CPU in f32 (the plain step versions) differ by
+# 4.5e-5 with equal iterations and flags; the bound leaves ~20x that for
+# the card's different rounding.
+PSCAN_XS_TOL = 1e-3
 BATCH_GOAL = (0.1, 0.05, -0.05)  # from the end effector at the ready pose
 BATCH_X0_NOISE = 0.02  # rad on q, per scenario and variant
 BATCH_VARIANTS = 3  # x0 variants timed (the JAX bench times 5)
@@ -1311,7 +1372,8 @@ def build_batch(device, n_variants: int = BATCH_VARIANTS):
     """The batch problem: `flagship_spec(100)`, dt 0.01, f32, 10 iterations,
     the goal FK(ready) + BATCH_GOAL, xs tiled from the ready state, us zero,
     x0 variants ready + N(0, 0.02^2) on q (seed 0). Returns a namespace
-    (solver, refs, variants [B, nx] each, xs0, us0, goal, ee_dist)."""
+    (solver, the same solver on the horizon-parallel sweep `pscan`, refs,
+    variants [B, nx] each, xs0, us0, goal, ee_dist)."""
     from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
     from agimus_controller_tpu_torch.ocp.spec import default_references
     from agimus_controller_tpu_torch.ops.batched_costs import _fk_world, _frame_pose_c
@@ -1349,19 +1411,22 @@ def build_batch(device, n_variants: int = BATCH_VARIANTS):
         for _ in range(n_variants)]
     solver = make_batch_fddp(model, params, spec, SolverSettings(max_iters=10),
                              device=device)
+    pscan = make_batch_fddp(model, params, spec, SolverSettings(max_iters=10),
+                            riccati="pscan", device=device)
     ee_dist = lambda xs: np.linalg.norm(
         ee_pose(xs[:, -1, :7].double().cpu())[1] - goal, axis=1)
     return SimpleNamespace(
-        solver=solver, refs=refs, variants=variants, goal=goal,
+        solver=solver, pscan=pscan, refs=refs, variants=variants, goal=goal,
         xs0=f(np.tile(x0[None, None], (B, T + 1, 1))),
         us0=torch.zeros((B, T, 7), dtype=dtype, device=device),
         ee_dist=ee_dist)
 
 
-def solve_rows(bp, x0s):
-    """One batch solve from the first len(x0s) scenarios' starts."""
+def solve_rows(bp, x0s, solver=None):
+    """One batch solve from the first len(x0s) scenarios' starts (by
+    `bp.solver` unless `solver` is given)."""
     n = x0s.shape[0]
-    return bp.solver(x0s, bp.refs, bp.xs0[:n], bp.us0[:n])
+    return (solver or bp.solver)(x0s, bp.refs, bp.xs0[:n], bp.us0[:n])
 
 
 def batch_phases(bp, sol, device):
@@ -1369,7 +1434,13 @@ def batch_phases(bp, sol, device):
     iteration at the solution's iterate: the K5b linearisation,
     the cost pack over T*B nodes and the terminal pack, the component
     Riccati sweep, and one line-search trial (T K5a steps, then the trial
-    cost of all nodes) with its two parts."""
+    cost of all nodes) with its two parts; and the horizon-parallel sweep
+    (`riccati_pscan.parallel_riccati`) on the component sweep's inputs,
+    with its largest gain difference to that sweep."""
+    from agimus_controller_tpu_torch.solver.riccati_pscan import (
+        parallel_riccati,
+    )
+
     s = bp.solver
     x0s = bp.variants[0]
     xs = sol.xs.transpose(0, 1).contiguous()
@@ -1397,6 +1468,16 @@ def batch_phases(bp, sol, device):
     reg = torch.full((B,), 1e-9, dtype=xs.dtype, device=xs.device)
     out["Riccati sweep"], (ks, Ks, *_) = timed(
         lambda: s.backward(dyn, costs, term, fs, reg))
+    # the horizon-parallel sweep on the same linearisation
+    _, Fx, Fu = dyn
+    _, lx, lu, lxx, lxu, luu = costs
+    out["Riccati sweep (pscan)"], (ks_p, Ks_p, *_) = timed(
+        lambda: parallel_riccati(lx, lu, lxx, lxu, luu, Fx, Fu, fs, term[1],
+                                 term[2], reg))
+    out["pscan max |dks|"] = float((ks_p - ks).abs().max())
+    out["pscan max |dKs|"] = float((Ks_p - Ks).abs().max())
+    out["pscan max |dKs| / max |Ks|"] = (out["pscan max |dKs|"]
+                                         / float(Ks.abs().max()))
     out["trial (T K5a + cost)"], _ = timed(
         lambda: s.rollout_alpha(0.5, x0s, xs, us, ks, Ks, fs, bp.refs))
     out["trial cost of all nodes"], _ = timed(
@@ -1411,12 +1492,16 @@ def run_batch_path(device):
     summary lines)."""
     bp = build_batch(device)
     solver = bp.solver
-    for k in solver.kernels:
+    for k in solver.kernels + bp.pscan.kernels:
         k.launches = 0
     t0 = time.perf_counter()
     small = solve_rows(bp, bp.variants[0][:BATCH_ROWS])
     _sync(device)
     small_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small_p = solve_rows(bp, bp.variants[0][:BATCH_ROWS], bp.pscan)
+    _sync(device)
+    pscan_s = time.perf_counter() - t0
     times, sols, syncs = [], [], []
     for x0s in bp.variants:
         s0 = solver.host_syncs
@@ -1425,8 +1510,8 @@ def run_batch_path(device):
         _sync(device)
         times.append(time.perf_counter() - t0)
         syncs.append(solver.host_syncs - s0)
-    launches = {name: k.launches for (name, *_), k in
-                zip(STEP_KERNELS, solver.kernels)}
+    launches = {name: k.launches + kp.launches for (name, *_), k, kp in
+                zip(STEP_KERNELS, solver.kernels, bp.pscan.kernels)}
 
     for i, sol in enumerate(sols):
         for field in ("xs", "us", "K", "k", "cost", "kkt", "gap_norm"):
@@ -1443,6 +1528,19 @@ def run_batch_path(device):
             f"{big.converged[rows].tolist()}) differ from the B={BATCH_ROWS} "
             f"solve (iters {small.iters.tolist()}, converged "
             f"{small.converged.tolist()})")
+    if not (torch.equal(small_p.iters, small.iters)
+            and torch.equal(small_p.converged, small.converged)):
+        raise AssertionError(
+            f"batch path: the pscan B={BATCH_ROWS} solve (iters "
+            f"{small_p.iters.tolist()}, converged "
+            f"{small_p.converged.tolist()}) differs from the component one "
+            f"(iters {small.iters.tolist()}, converged "
+            f"{small.converged.tolist()})")
+    dx_p = float((small_p.xs - small.xs).abs().max())
+    if not dx_p < PSCAN_XS_TOL:
+        raise AssertionError(
+            f"batch path: the pscan B={BATCH_ROWS} solve's xs differ from "
+            f"the component one's by {dx_p:.3e} (bound {PSCAN_XS_TOL})")
     du = float((big.us[rows] - small.us).abs().max())
     if not du < 1e-3:
         raise AssertionError(
@@ -1462,6 +1560,9 @@ def run_batch_path(device):
         f"{small.iters.tolist()}, converged {small.converged.tolist()}, "
         f"terminal end-effector distance to the goal (mm) "
         + " ".join(f"{d * 1e3:.3f}" for d in dist_small),
+        f"batch path (B={BATCH_ROWS}, riccati=\"pscan\"): {pscan_s:.2f} s, "
+        f"iters and convergence flags equal to the component solve's; xs "
+        f"max abs diff {dx_p:.3e} (bound {PSCAN_XS_TOL})",
         f"batch path (B={BATCH_B}, T={BATCH_T}, f32, 10 iterations): solve "
         f"times {' '.join(f'{t:.3f}' for t in times)} s (host clock, "
         f"synchronized); median {t_med:.3f} s = {BATCH_B / t_med:.1f} "
@@ -1476,7 +1577,8 @@ def run_batch_path(device):
         f"{BATCH_ROWS - 1} match the B={BATCH_ROWS} solve (us max abs diff "
         f"{du:.3e}); launches {launches}",
         f"batch path phases at B={BATCH_B} (ms, host clock, synchronized): "
-        + "; ".join(f"{k} {v:.3f}" for k, v in phases.items())]
+        + "; ".join(f"{k} {v:.3e}" if k.startswith("pscan max")
+                    else f"{k} {v:.3f}" for k, v in phases.items())]
 
 
 # -- phase 5: the fallback backend and the single-scenario solvers ----------
@@ -2020,14 +2122,17 @@ def _timed_solves(ocp, device):
 
 
 def run_control_loop(device, robot, ocp, buffer, next_point, n_ticks: int,
-                     on_tick=None):
+                     on_tick=None, after_step=None):
     """Drive `ocp` the way the demos do: a shift warm start, a reference
     warm start for the first solve, `MPC` and `ControllerRuntime` over
     `buffer`; the buffer prefilled with 2T+2 points of `next_point()`, then
     `n_ticks` ticks from the ready pose, the measured state closed through
     `ocp.integrate` of the published control, one new point a tick. The
     launch counts of the solver's kernels are set to 0 just before the
-    first tick and read after the last. Returns a namespace of the run."""
+    first tick and read after the last. `after_step(it, now, x, mpc)` runs
+    after each tick's step (x the measured state), `on_tick(it, q, v)`
+    after the state is closed. Returns a namespace of the run, with each
+    tick's (time, q, v) and the point appended after it."""
     from agimus_controller_tpu_torch.factory import create_warm_start
     from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
     from agimus_controller_tpu_torch.mpc.mpc import MPC
@@ -2052,6 +2157,7 @@ def run_control_loop(device, robot, ocp, buffer, next_point, n_ticks: int,
         k.launches = 0
     q, v = np.asarray(PANDA_Q_READY, dtype=float).copy(), np.zeros(7)
     controls, kkts, iters, phases = [], [], [], []
+    states, appended = [], []
     syncs = None
     t_start = time.perf_counter()
     for it in range(n_ticks):
@@ -2060,9 +2166,12 @@ def run_control_loop(device, robot, ocp, buffer, next_point, n_ticks: int,
             t_start = time.perf_counter()
         now = int(it * ocp.dt * 1e9)
         rt.set_sensor(Sensor(time_ns=now, position=q, velocity=v))
+        states.append((now, q.copy(), v.copy()))
         ctrl = rt.step(now_ns=now)
         if ctrl is None:
             raise AssertionError(f"tick {it}: the runtime published nothing")
+        if after_step is not None:
+            after_step(it, now, np.concatenate([q, v]), mpc)
         x = ocp.integrate(np.concatenate([q, v]), ctrl.feedforward)
         q, v = x[:7].astype(float), x[7:].astype(float)
         dbg = mpc.mpc_debug_data
@@ -2077,13 +2186,15 @@ def run_control_loop(device, robot, ocp, buffer, next_point, n_ticks: int,
                            dbg.duration_ocp_solve_ns))
         if on_tick is not None:
             on_tick(it, q, v)
-        rt.append_reference(next_point())
+        appended.append(next_point())
+        rt.append_reference(appended[-1])
     _sync(device)
     wall = time.perf_counter() - t_start
     launches = [k.launches for k in kernels]
     n = n_ticks - 1
     return SimpleNamespace(
-        rt=rt, mpc=mpc, q=q, v=v, controls=np.stack(controls), kkts=kkts,
+        rt=rt, mpc=mpc, q=q, v=v, states=states, appended=appended,
+        controls=np.stack(controls), kkts=kkts,
         iters=iters, launches=launches, first_solve_s=solve_times[0],
         tick_ms=wall / n * 1e3,
         phases_ms=np.median(np.asarray(phases, float), 0) / 1e6,
@@ -2121,15 +2232,19 @@ def _loop_line(part, run, ocp, extra):
             f"; last tick kkt {run.kkts[-1]:.2e}; {extra}")
 
 
-def run_pick_and_place(device, robot, cfg):
+def run_pick_and_place(device, robot, cfg, io_dir):
     """Part (a): `examples/pick_and_place.py`'s loop, "goal_reaching_yaml"
     over a `TrajectoryBuffer`, fed a `GenericTrajectory` of its three
-    quintic moves. Returns (launches, summary line, the OCP)."""
+    quintic moves; every tick recorded by `MPCRecorder`, the `MPC`
+    checkpointed after tick `CHECKPOINT_TICK` (into `io_dir`). Returns
+    (launches, summary line, the OCP, the run with its recorder)."""
     from agimus_controller_tpu_torch.factory import create_ocp
     from agimus_controller_tpu_torch.mpc.buffer import (
         DTFactorsNSeq,
         TrajectoryBuffer,
     )
+    from agimus_controller_tpu_torch.runtime import MPCRecorder
+    from agimus_controller_tpu_torch.runtime.checkpoint import save_checkpoint
 
     model, params = robot.model, robot.params
     T = cfg.ocp.horizon_size
@@ -2137,14 +2252,22 @@ def run_pick_and_place(device, robot, cfg):
                      ee_frame="panda_hand_tcp", device=device)
     gen = pick_and_place_generator(model, params)  # index-stepped playback
     errs = []
+    recorder = MPCRecorder()
 
     def on_tick(it, q, v):
         ref_q = gen.trajectory[min(it, len(gen.trajectory) - 1)]
         errs.append(float(np.linalg.norm(q - ref_q.robot_configuration)))
 
+    def after_step(it, now, x, mpc):
+        recorder.record(now, x, ocp.ocp_results, mpc.mpc_debug_data)
+        if it == CHECKPOINT_TICK:
+            save_checkpoint(Path(io_dir) / "tick.npz", mpc)
+
     run = run_control_loop(
         device, robot, ocp, TrajectoryBuffer(DTFactorsNSeq([1], [T])),
-        lambda: gen.get_traj_point_at_t(0.0), PICK_PLACE_TICKS, on_tick)
+        lambda: gen.get_traj_point_at_t(0.0), PICK_PLACE_TICKS, on_tick,
+        after_step)
+    run.recorder = recorder
     launches = _check_loop("(a)", run, ocp)
     if not run.kkts[-1] < 1e-4:
         raise AssertionError(
@@ -2158,7 +2281,7 @@ def run_pick_and_place(device, robot, cfg):
     return launches, _loop_line("(a) pick and place", run, ocp, (
         f"joint tracking error max {max(errs):.4f} rad, mean "
         f"{np.mean(errs):.4f} (JAX f32 on the CPU: max "
-        f"{JAX_PICK_PLACE_MAX_ERR:.4f}); launches {launches}")), ocp
+        f"{JAX_PICK_PLACE_MAX_ERR:.4f}); launches {launches}")), ocp, run
 
 
 def run_ring_loop(device, robot, cfg):
@@ -2366,27 +2489,265 @@ def run_collision_facade(device, robot, robot64):
         f"{float(ocp._y_carry.abs().max()):.3e}; launches {launches}")), ocp
 
 
+CHECKPOINT_TICK = 30  # (a)'s checkpoint; the resumed MPC runs 31-40
+RESUME_TICKS = 10
+RESUME_TOL = 1e-5  # f32: the resumed controls against (a)'s, if not equal
+ROS_TICKS = 5
+PUBLISHER_POINTS = 20
+
+
+def publisher_trajectory():
+    """The trajectory-publisher child's generator (`examples/dummy_mpc.py`'s
+    sine waves on the Panda's joints): built in the child, on the CPU."""
+    from agimus_controller_tpu_torch.trajectories.base import SinWaveParams
+    from agimus_controller_tpu_torch.trajectories.sine_waves import (
+        SinusWaveConfigurationSpace,
+    )
+
+    return SinusWaveConfigurationSpace(
+        SinWaveParams(amplitude=[0.2] * 7, period=[2.0] * 7,
+                      scale_duration=[1.0] * 7),
+        ee_frame_name="panda_hand_tcp", w_q=np.full(7, 1.0),
+        w_qdot=np.full(7, 0.1), w_qddot=np.zeros(7),
+        w_robot_effort=np.zeros(7), w_pose=np.full(6, 1.0))
+
+
+def _same_recording(name, got, want):
+    """Two recordings (npz-schema dicts) hold the same keys and arrays."""
+    if set(got) != set(want):
+        raise AssertionError(f"phase 6 recorder: {name} keys "
+                             f"{sorted(set(got) ^ set(want))} differ")
+    for k in want:
+        if not np.array_equal(np.asarray(got[k], float),
+                              np.asarray(want[k], float)):
+            raise AssertionError(f"phase 6 recorder: {name} {k} differs")
+
+
+def run_loop_io(device, robot, cfg, ocp_a, run_a, io_dir):
+    """Phase 6's I/O and debugging, on part (a)'s run: (a)'s recording
+    written as npz, as a sqlite3 bag and as an uncompressed mcap bag, each
+    read back equal; (a)'s checkpoint after tick `CHECKPOINT_TICK` loaded
+    into a fresh `MPC` built the same way, which runs the next
+    `RESUME_TICKS` ticks on (a)'s states and points, its controls (and
+    gains) equal to (a)'s or within `RESUME_TOL`; `MPCDebugger`'s cost
+    breakdown of one solve (dt-scaled) summing to that solve's cost within
+    1e-4 relative; the ROS shim's node graph over `MessageBus` for
+    `ROS_TICKS` ticks; `TrajectoryPublisherProcess` streaming
+    `PUBLISHER_POINTS` points into a buffer from its CPU child. Kernel
+    launch counts are set to 0 before each part and read after. Returns
+    (launches, lines)."""
+    from agimus_controller_tpu_torch.factory import create_ocp, create_warm_start
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY
+    from agimus_controller_tpu_torch.mpc.buffer import (
+        DTFactorsNSeq,
+        TrajectoryBuffer,
+        TrajectoryPoint,
+    )
+    from agimus_controller_tpu_torch.mpc.mpc import MPC
+    from agimus_controller_tpu_torch.runtime import MPCRecorder
+    from agimus_controller_tpu_torch.runtime.checkpoint import load_checkpoint
+    from agimus_controller_tpu_torch.runtime.controller import (
+        ControllerRuntime,
+        RuntimeParams,
+        Sensor,
+    )
+    from agimus_controller_tpu_torch.runtime.debugger import MPCDebugger
+    from agimus_controller_tpu_torch.runtime.publisher import (
+        PublisherParams,
+        TrajectoryPublisherProcess,
+    )
+    from agimus_controller_tpu_torch.runtime.ros_shim import (
+        ControllerNodeShim,
+        DebuggerNodeShim,
+        MessageBus,
+        TrajectoryPublisherShim,
+    )
+
+    io_dir = Path(io_dir)
+    model, params = robot.model, robot.params
+    T = cfg.ocp.horizon_size
+    launches = {name: 0 for name, *_ in STAGE_KERNELS}
+
+    def fresh_ocp():
+        ocp = create_ocp("goal_reaching_yaml", model, params, cfg.ocp,
+                         ee_frame="panda_hand_tcp", device=device)
+        for k in ocp.solver.kernels:
+            k.launches = 0
+        return ocp
+
+    def count(ocp):
+        for (name, *_), k in zip(STAGE_KERNELS, ocp.solver.kernels):
+            launches[name] += k.launches
+
+    # -- the recording, in the three containers
+    rec = run_a.recorder
+    want = rec.as_mpc_data()
+    rec.save(io_dir / "run.npz")
+    _same_recording("npz", MPCRecorder.load(io_dir / "run.npz"), want)
+    for fmt in ("sqlite3", "mcap"):
+        path = io_dir / f"run.{fmt}"
+        rec.save_bag(path, fmt=fmt)
+        _same_recording(fmt, MPCRecorder.load_bag(path), want)
+
+    # -- resume from the checkpoint into a fresh MPC
+    ocp_r = fresh_ocp()
+    mpc = MPC()
+    mpc.setup(ocp_r, create_warm_start(
+        "shift_previous_solution", model, params,
+        timesteps=ocp_r.spec.timesteps(), device=device),
+        TrajectoryBuffer(DTFactorsNSeq([1], [T])))
+    if not load_checkpoint(io_dir / "tick.npz", mpc):
+        raise AssertionError("phase 6 checkpoint: no previous solution")
+    resumed = []
+    for it in range(CHECKPOINT_TICK + 1, CHECKPOINT_TICK + 1 + RESUME_TICKS):
+        mpc.append_trajectory_point(run_a.appended[it - 1])
+        now, q, v = run_a.states[it]
+        res = mpc.run(TrajectoryPoint(
+            time_ns=now, robot_configuration=q.copy(),
+            robot_velocity=v.copy(), robot_acceleration=np.zeros_like(v)),
+            now)
+        resumed.append(np.concatenate([res.feed_forward_terms[0],
+                                       res.ricatti_gains[0].reshape(-1)]))
+    count(ocp_r)
+    ref = run_a.controls[CHECKPOINT_TICK + 1:
+                         CHECKPOINT_TICK + 1 + RESUME_TICKS]
+    d_resume = float(np.abs(np.stack(resumed) - ref).max())
+    if not d_resume <= RESUME_TOL:
+        raise AssertionError(
+            f"phase 6 checkpoint: resumed controls differ from the "
+            f"uninterrupted run's by {d_resume:.3e} (bound {RESUME_TOL})")
+
+    # -- the debugger's breakdown of one solve against its cost
+    xs = torch.as_tensor(ocp_a.ocp_results.states, device=device)
+    us = torch.as_tensor(ocp_a.ocp_results.feed_forward_terms, device=device)
+    sol = ocp_a.solver(xs[:1], ocp_a.refs, xs[None], us[None])
+    dbg = MPCDebugger(ocp_a)
+    out = dbg.evaluate(sol.xs[0].cpu().numpy(), sol.us[0].cpu().numpy())
+    dts = ocp_a.spec.timesteps()
+    total = (sum(float(np.sum(np.asarray(v, float) * dts))
+                 for v in out["running_costs"].values())
+             + sum(out["terminal_costs"].values()))
+    cost = float(sol.cost[0])
+    rel = abs(total - cost) / abs(cost)
+    heat = out["grad_heatmap"]
+    if not (rel < 1e-4 and np.all(np.isfinite(heat))):
+        raise AssertionError(
+            f"phase 6 debugger: breakdown sum {total:.6e} vs the solve's cost "
+            f"{cost:.6e} (relative {rel:.2e}, bound 1e-4)")
+    ee = dbg.ee_path(sol.xs[0].cpu().numpy(), "panda_hand_tcp")
+
+    # -- the ROS shim's node graph over the in-process bus
+    ocp_s = fresh_ocp()
+    ws = create_warm_start("shift_previous_solution", model, params,
+                           timesteps=ocp_s.spec.timesteps(), device=device)
+    buf = TrajectoryBuffer(DTFactorsNSeq([1], [T]))
+    mpc_s = MPC()
+    mpc_s.setup(ocp_s, ws, buf)
+    rt = ControllerRuntime(mpc_s, buf, create_warm_start(
+        "reference", model, params, device=device), RuntimeParams())
+    bus = MessageBus()
+    node = ControllerNodeShim(rt, bus=bus)
+    viewer = DebuggerNodeShim(bus)
+    gen = pick_and_place_generator(model, params)
+    publisher = TrajectoryPublisherShim(
+        bus, lambda sensor: gen.get_traj_point_at_t(0.0))
+    q, v = np.asarray(PANDA_Q_READY, float), np.zeros(7)
+    bus.publish("sensor", Sensor(time_ns=0, position=q, velocity=v))
+    for _ in range(2 * T + 2):
+        publisher.tick()
+    for it in range(ROS_TICKS):
+        now = int(it * ocp_s.dt * 1e9)
+        bus.publish("sensor", Sensor(time_ns=now, position=q, velocity=v))
+        ctrl = node.tick(now_ns=now)
+        if ctrl is None or not np.all(np.isfinite(ctrl.feedforward)):
+            raise AssertionError(f"phase 6 ROS shim: tick {it} published "
+                                 f"{None if ctrl is None else 'non-finite'}")
+        x = ocp_s.integrate(np.concatenate([q, v]), ctrl.feedforward)
+        q, v = x[:7].astype(float), x[7:].astype(float)
+        publisher.tick()
+    count(ocp_s)
+    n_ctrl = len(bus.history("control"))
+    markers = bus.latest("mpc_states_prediction_markers")
+    if not (n_ctrl == ROS_TICKS and viewer.last_debug is not None
+            and markers is not None and markers.shape == (T + 1, 14)):
+        raise AssertionError(
+            f"phase 6 ROS shim: {n_ctrl} controls on the bus, markers "
+            f"{None if markers is None else markers.shape}")
+
+    # -- the trajectory publisher's CPU child feeding a buffer
+    pbuf = TrajectoryBuffer(DTFactorsNSeq([1], [T]))
+    t0 = time.perf_counter()
+    with TrajectoryPublisherProcess(
+            publisher_trajectory, PANDA_Q_READY,
+            PublisherParams(rate_s=0.0, max_points=PUBLISHER_POINTS)) as pub:
+        while not pub.done and time.perf_counter() - t0 < 120.0:
+            pub.pump_into(pbuf.append, timeout_s=1.0)
+    pub_s = time.perf_counter() - t0
+    ids = [pbuf[i].point.id for i in range(len(pbuf))]
+    if ids != list(range(PUBLISHER_POINTS)) or not all(
+            np.all(np.isfinite(pbuf[i].point.robot_configuration))
+            for i in range(len(pbuf))):
+        raise AssertionError(f"phase 6 publisher: ids {ids}")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"phase 6 I/O: {missing} never launched")
+    return launches, [
+        f"phase 6 recorder: (a)'s {len(rec.time_ns)} ticks written as npz, "
+        f"sqlite3 and mcap ({sum((io_dir / f).stat().st_size for f in ('run.npz', 'run.sqlite3', 'run.mcap'))} "
+        "bytes), each read back equal",
+        f"phase 6 checkpoint: resumed after tick {CHECKPOINT_TICK} in a fresh "
+        f"MPC, ticks {CHECKPOINT_TICK + 1}-{CHECKPOINT_TICK + RESUME_TICKS}: "
+        f"controls and gains "
+        + ("bit-equal to" if d_resume == 0.0 else
+           f"within {d_resume:.3e} of (bound {RESUME_TOL})")
+        + " the uninterrupted run's",
+        f"phase 6 debugger: cost breakdown of one solve (dt-scaled) "
+        f"{total:.6e} against the solve's cost {cost:.6e} (relative "
+        f"{rel:.2e}, bound 1e-4); |dL/dx| max {float(heat.max()):.3e}; EE "
+        f"path {ee.shape[0]} nodes",
+        f"phase 6 ROS shim: {ROS_TICKS} ticks over MessageBus, {n_ctrl} "
+        f"controls, markers {tuple(markers.shape)}; publisher process: "
+        f"{len(ids)} points from its CPU child in {pub_s:.1f} s; launches "
+        f"{launches}"]
+
+
 def run_control_loop_phase(device):
-    """Phase 6: the reference-shaped control loop, parts (a)-(d). Returns
+    """Phase 6: the reference-shaped control loop, parts (a)-(d), then the
+    runtime's I/O and debugging on (a)'s run (`run_loop_io`). Returns
     (launches per kernel, summary lines)."""
+    import tempfile
+
     from agimus_controller_tpu_torch.runtime.config import load_engine_config
 
     robot, robot64 = p6_robot(device)
     # (a) and (b) converge to 1e-4 (the check of (a)); (c) keeps the
     # reference's default termination tolerance, 1e-3
     cfg = load_engine_config(engine_values(P6_T, termination_tolerance=1e-4))
-    parts = {"(a)": lambda: run_pick_and_place(device, robot, cfg),
+    (ROOT / "build").mkdir(exist_ok=True)
+    io_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    parts = {"(a)": lambda: run_pick_and_place(device, robot, cfg,
+                                               io_dir.name),
              "(b)": lambda: run_ring_loop(device, robot, cfg),
              "(c)": lambda: run_sine_loop(device, robot),
              "(d)": lambda: run_collision_facade(device, robot, robot64)}
     launches = {name: 0 for name, *_ in KERNELS}
     lines, ocps = [], {}
-    for part, run in parts.items():
+    with io_dir:
+        for part, run in parts.items():
+            t0 = time.perf_counter()
+            got, line, ocps[part], *extra = run()
+            lines.append(f"{line} [{time.perf_counter() - t0:.1f} s]")
+            for name, n in got.items():
+                launches[name] += n
+            if part == "(a)":
+                run_a = extra[0]
         t0 = time.perf_counter()
-        got, line, ocps[part] = run()
-        lines.append(f"{line} [{time.perf_counter() - t0:.1f} s]")
+        got, io_lines = run_loop_io(device, robot, cfg, ocps["(a)"], run_a,
+                                    io_dir.name)
         for name, n in got.items():
             launches[name] += n
+    lines += io_lines[:-1] + [
+        f"{io_lines[-1]} [{time.perf_counter() - t0:.1f} s]"]
     lines.append(
         f"phase 6: budget_iters {ocps['(a)'].budget_iters} under "
         f"max_solve_time 10.0 s (part (a)), {ocps['(c)'].budget_iters} and "
@@ -2893,10 +3254,261 @@ def run_freeflyer(device):
         " mm apart")
 
 
+SOFT_TICKS = 3
+FF_TICKS = 2
+FF_TICK_T = 10
+
+
+def run_soft_tick(device):
+    """Phase 7 (b) through the fused tick: `force_spec(FORCE_T)` on the
+    Panda streamed through a `PackedTrajectoryBuffer` (f_des `FORCE_DES`
+    weighted 2, the contact active), `FusedTickRunner` ("xla", the soft
+    step) for an initial solve and `SOFT_TICKS` ticks, f32. Every control
+    finite, the first solve's terminal force within 0.3 N of the batch
+    SQP's on the same refs (the JAX test's bound). Returns the line."""
+    from agimus_controller_tpu_torch.mpc.buffer import (
+        DTFactorsNSeq,
+        TrajectoryPoint,
+        TrajectoryPointWeights,
+        WeightedTrajectoryPoint,
+    )
+    from agimus_controller_tpu_torch.mpc.ring import (
+        PackedTrajectoryBuffer,
+        RowLayout,
+    )
+    from agimus_controller_tpu_torch.mpc.tick import FusedTickRunner
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+    from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
+
+    fp = force_problem(device)
+    T, frame = FORCE_T, soft_contact_config().frame
+    x0 = fp.x0.double().cpu().numpy()
+    tau_g = fp.us0[0].double().cpu().numpy()
+
+    def point(i):
+        return WeightedTrajectoryPoint(
+            point=TrajectoryPoint(
+                id=i, time_ns=int(i * fp.spec.dt * 1e9),
+                robot_configuration=x0[:7], robot_velocity=x0[7:14],
+                robot_effort=tau_g, forces={frame: np.concatenate(
+                    [np.zeros(3), np.asarray(FORCE_DES)])}),
+            weights=TrajectoryPointWeights(
+                w_robot_configuration=np.full(7, 0.05),
+                w_robot_velocity=np.full(7, 0.5), w_robot_effort=np.ones(7),
+                w_forces={frame: np.concatenate([np.full(3, 2.0),
+                                                 np.zeros(3)])}))
+
+    buf = PackedTrajectoryBuffer(DTFactorsNSeq([1], [T]),
+                                 RowLayout(fp.spec, fp.model),
+                                 dtype=torch.float32, device=device)
+    for i in range(2 * T + 2):
+        buf.append(point(i))
+    settings = CSQPSettings(max_iters=60, termination_tolerance=1e-4)
+    runner = FusedTickRunner(
+        fp.model, fp.params, fp.spec, buf.ring, default_references(
+            fp.spec, fp.model, dtype=torch.float32, device=device), settings,
+        dtype=torch.float32, device=device)
+    if (runner.solver.backend, runner.solver.soft) != ("xla", True):
+        raise AssertionError(
+            f"phase 7 (b) tick: backend {runner.solver.backend!r}")
+    xs0 = fp.xs0.double().cpu().numpy()
+    us0 = fp.us0.double().cpu().numpy()
+    t0 = time.perf_counter()
+    first = runner.initialize(x0, xs0, us0, limit=60)
+    f_tick = first.xs[-1, 14:].double().cpu().numpy()
+    msgs = [runner.fetch()]
+    ticks_s = []
+    for k in range(SOFT_TICKS):
+        buf.append(point(2 * T + 2 + k))
+        t1 = time.perf_counter()
+        runner.step(x0, limit=10)
+        msgs.append(runner.fetch())
+        ticks_s.append(time.perf_counter() - t1)
+    total_s = time.perf_counter() - t0
+    sol = make_batch_sqp(fp.model, fp.params, fp.spec, settings,
+                         device=device)(fp.x0[None], fp.refs, fp.xs0[None],
+                                        fp.us0[None])
+    f_sqp = sol.xs[0, -1, 14:].double().cpu().numpy()
+    df = float(np.abs(f_tick - f_sqp).max())
+    finite = all(np.all(np.isfinite(m[0])) and np.all(np.isfinite(m[1]))
+                 for m in msgs)
+    if not (finite and df < 0.3):
+        raise AssertionError(
+            f"phase 7 (b) tick: terminal force {f_tick} vs the batch SQP's "
+            f"{f_sqp} (max diff {df:.3f} N, bound 0.3), finite {finite}")
+    return (f"phase 7 (b) soft contact through FusedTickRunner (xla, soft "
+            f"step, f32): initial solve + {SOFT_TICKS} ticks {total_s:.2f} s "
+            f"(ticks {' '.join(f'{t:.3f}' for t in ticks_s)} s), iterations "
+            f"{[m[3] for m in msgs]}, last kkt {msgs[-1][2]:.2e}; first "
+            f"solve's terminal force {np.round(f_tick, 3).tolist()} N, "
+            f"{df:.4f} N from the batch SQP's")
+
+
+def ff_tick_problem(device, dtype=torch.float32):
+    """Phase 7 (c)'s tick: `ff_problem`'s robot, start and goal at
+    T = `FF_TICK_T`, without the state cost (the ring's rows hold xref at
+    the model's nx, the tangent width, where the quaternion state is one
+    wider; ROADMAP queue 3): control regularisation and the terminal hand
+    placement, streamed through a `PackedTrajectoryBuffer`."""
+    from agimus_controller_tpu_torch.mpc.buffer import (
+        DTFactorsNSeq,
+        TrajectoryPoint,
+        TrajectoryPointWeights,
+        WeightedTrajectoryPoint,
+    )
+    from agimus_controller_tpu_torch.mpc.ring import (
+        PackedTrajectoryBuffer,
+        RowLayout,
+    )
+    from agimus_controller_tpu_torch.ocp.ff_costs import build_ff_cost_functions
+    from agimus_controller_tpu_torch.ocp.spec import (
+        CostItem,
+        ProblemSpec,
+        default_references,
+    )
+
+    fp = ff_problem(device, dtype, T=FF_TICK_T)
+    model, frame = fp.model, "panda_hand_tcp"
+    spec = ProblemSpec(
+        running_costs=(fp.spec.running_costs[1],),
+        terminal_costs=fp.spec.terminal_costs, horizon=FF_TICK_T,
+        dt=fp.spec.dt)
+    cf = build_ff_cost_functions(model, fp.params, spec, dtype=dtype,
+                                 actuation="full")
+    goal = fp.refs[f"ee_trans:{frame}"][0].double().cpu().numpy()
+    R0 = fp.refs[f"ee_rot:{frame}"][0].double().cpu().numpy()
+
+    def point(i):
+        return WeightedTrajectoryPoint(
+            point=TrajectoryPoint(
+                id=i, time_ns=int(i * spec.dt * 1e9),
+                robot_configuration=np.zeros(model.nq),
+                robot_velocity=np.zeros(model.nv),
+                robot_effort=np.zeros(model.nv),
+                end_effector_poses={frame: (R0, goal)}),
+            weights=TrajectoryPointWeights(
+                w_robot_configuration=np.zeros(model.nq),
+                w_robot_velocity=np.zeros(model.nv),
+                w_robot_effort=np.ones(model.nv),
+                w_end_effector_poses={frame: np.ones(6)}))
+
+    buf = PackedTrajectoryBuffer(DTFactorsNSeq([1], [FF_TICK_T]),
+                                 RowLayout(spec, model), dtype=dtype,
+                                 device=device)
+    for i in range(2 * FF_TICK_T + 2):
+        buf.append(point(i))
+    return SimpleNamespace(
+        fp=fp, spec=spec, cf=cf, buf=buf, point=point,
+        base=default_references(spec, model, dtype=dtype, device=device))
+
+
+def run_ff_tick(device):
+    """Phase 7 (c) through the fused tick: `FusedTickRunner(cf=...)` (the
+    "manifold" backend) on `ff_tick_problem`, f32: an initial solve from
+    the start and `FF_TICKS` ticks on the same streamed goal (each tick's
+    refs equal the first's). The manifold `BatchSQP` then solves those refs
+    to convergence from the last tick's solution; each tick's terminal hand
+    lies within 1 mm of its. Returns the line."""
+    from agimus_controller_tpu_torch.mpc.ring import gather_horizon_rows
+    from agimus_controller_tpu_torch.mpc.tick import FusedTickRunner
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+    from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
+
+    tp = ff_tick_problem(device)
+    fp, ring = tp.fp, tp.buf.ring
+    settings = CSQPSettings(max_iters=60, termination_tolerance=1e-4)
+    runner = FusedTickRunner(fp.model, fp.params, tp.spec, ring, tp.base,
+                             settings, dtype=torch.float32, device=device,
+                             cf=tp.cf)
+    if runner.solver.backend != "manifold":
+        raise AssertionError(
+            f"phase 7 (c) tick: backend {runner.solver.backend!r}")
+    hidx, mask = ring.gather_spec()
+    hidx = torch.as_tensor(hidx, device=device)
+
+    def refs_at(slot):
+        return ring.layout.unpack_refs(
+            gather_horizon_rows(ring.sync(), slot, hidx, mask), tp.base)
+
+    refs0 = refs_at(torch.as_tensor(ring.device_state()[1], device=device))
+    x0 = fp.x0.double().cpu().numpy()
+    outs, ticks_s = [], []
+    for k in range(FF_TICKS + 1):
+        t0 = time.perf_counter()
+        if k == 0:
+            out = runner.initialize(x0, fp.xs0.double().cpu().numpy(),
+                                    fp.us0.double().cpu().numpy(), limit=60)
+        else:
+            tp.buf.append(tp.point(2 * FF_TICK_T + 1 + k))
+            slot = runner._slot
+            out = runner.step(x0, limit=10)
+            refs = refs_at(slot)
+            if not all(torch.equal(refs[key], refs0[key]) for key in refs0):
+                raise AssertionError(f"phase 7 (c) tick {k}: refs changed")
+        _sync(device)
+        ticks_s.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(out.us).all()):
+            raise AssertionError(f"phase 7 (c) tick {k}: non-finite controls")
+        outs.append(out)
+    t0 = time.perf_counter()
+    sol = make_batch_sqp(fp.model, fp.params, tp.spec, settings,
+                         device=device, cf=tp.cf)(
+        fp.x0[None], refs0, outs[-1].xs[None], outs[-1].us[None])
+    _sync(device)
+    sqp_s = time.perf_counter() - t0
+    hand = fp.hand(sol.xs[0, -1])
+    gaps = [float(torch.linalg.vector_norm(fp.hand(o.xs[-1]) - hand))
+            for o in outs]
+    if not (bool(sol.converged[0]) and max(gaps) < 1e-3):
+        raise AssertionError(
+            f"phase 7 (c) tick: terminal hands {max(gaps) * 1e3:.3f} mm from "
+            f"the batch SQP's (bound 1), its convergence "
+            f"{bool(sol.converged[0])}")
+    return (f"phase 7 (c) free-flyer through FusedTickRunner(cf=...) "
+            f"(manifold, T={FF_TICK_T}, f32): initial solve + {FF_TICKS} "
+            f"ticks {' '.join(f'{t:.2f}' for t in ticks_s)} s, iterations "
+            f"{[int(o.iters) for o in outs]}; the manifold BatchSQP to "
+            f"convergence {sqp_s:.2f} s ({int(sol.iters[0])} iterations); "
+            f"terminal hands {max(gaps) * 1e3:.4f} mm from its at most")
+
+
+def run_sensitivity(device):
+    """Phase 7: `next_state_sensitivity` on the Panda in f64 on the card,
+    against the same call on the CPU (within 1e-9). Returns the line."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.parallel import (
+        next_state_sensitivity,
+        sensitivity_svd,
+    )
+
+    rng = np.random.default_rng(0)
+    x0 = np.concatenate([np.asarray(PANDA_Q_READY) + rng.normal(size=7) * 0.1,
+                         rng.normal(size=7) * 0.3])
+    u0 = rng.normal(size=7) * 2.0
+    model, params = load_panda(dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    S, labels = next_state_sensitivity(model, params, x0, u0)
+    card_s = time.perf_counter() - t0
+    S_cpu, _ = next_state_sensitivity(
+        *load_panda(dtype=torch.float64, device="cpu"), x0, u0)
+    d = float(np.abs(S - S_cpu).max())
+    if not (S.shape == (len(labels), 14) and d <= 1e-9):
+        raise AssertionError(
+            f"phase 7 sensitivity: card vs CPU {d:.3e} (bound 1e-9)")
+    s = sensitivity_svd(S)[1]
+    return (f"phase 7 sensitivity (Panda, f64): {len(labels) + 1} params "
+            f"rows in one vmapped Euler step, {card_s:.3f} s on the card; "
+            f"S {S.shape}, card vs CPU max abs diff {d:.3e} (bound 1e-9); "
+            f"singular values {s[0]:.4e} .. {s[-1]:.4e}")
+
+
 def run_slice12_phase(device):
     """Phase 7: (a) the Tiago-Pro arm on K1-K5b's nj = 8 instances, (b)
-    soft contact, (c) the quaternion free-flyer. Returns (launches per
-    kernel, lines)."""
+    soft contact (also through the fused tick), (c) the quaternion
+    free-flyer (also through the fused tick with `cf=`), and the
+    model-parameter sensitivity sweep. Returns (launches per kernel,
+    lines)."""
     launches = {name: 0 for name, *_ in KERNELS}
     lines = []
     for part in (run_tiago_tick, run_tiago_batch):
@@ -2908,8 +3520,9 @@ def run_slice12_phase(device):
     t0 = time.perf_counter()
     soft = run_soft_contact(device)
     lines += soft[:-1] + [f"{soft[-1]} [{time.perf_counter() - t0:.1f} s]"]
-    t0 = time.perf_counter()
-    lines.append(f"{run_freeflyer(device)} [{time.perf_counter() - t0:.1f} s]")
+    for part in (run_soft_tick, run_freeflyer, run_ff_tick, run_sensitivity):
+        t0 = time.perf_counter()
+        lines.append(f"{part(device)} [{time.perf_counter() - t0:.1f} s]")
     return launches, lines
 
 
@@ -2939,12 +3552,16 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
+    print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
 
     # -- 3. kernels vs plain, on the Panda and at nj = 8 on the Tiago-Pro arm
+    t0 = time.perf_counter()
     report, step_report = check_all_kernels(device)
+    print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     # -- 4. the main paths: the flagship chain, the collision path, the
     # visual-servoing path and the batch path
+    t0 = time.perf_counter()
     launches = {name: 0 for name, *_ in KERNELS}
     for run in (run_slice, run_collision_path, run_vs_path, run_batch_path):
         path_launches, stats = run(device)
@@ -2952,18 +3569,22 @@ def main():
             print(line)
         for name, n in path_launches.items():
             launches[name] += n
+    print(f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
     # -- 5. the fallback backend and the single-scenario solvers, then
-    # -- 6. the reference-shaped control loop, then
+    # -- 6. the reference-shaped control loop and the runtime's I/O, then
     # -- 7. slice 12: the Tiago-Pro arm on the nj = 8 kernels, soft contact
-    # and the quaternion free-flyer
-    for phase in (run_fallback_phase, run_control_loop_phase,
-                  run_slice12_phase):
+    # and the quaternion free-flyer (also through the fused tick), the
+    # sensitivity sweep
+    for number, phase in ((5, run_fallback_phase), (6, run_control_loop_phase),
+                          (7, run_slice12_phase)):
+        t0 = time.perf_counter()
         path_launches, lines = phase(device)
         for line in lines:
             print(line)
         for name, n in path_launches.items():
             launches[name] += n
+        print(f"phase {number} took {time.perf_counter() - t0:.1f} s")
 
     # -- result: launches over the paths of phases 4-7, the max error over
     # every checked spec and size; times (wrapper and bare launch) and bounds at

@@ -11,9 +11,12 @@ power limit, then for each phase asked for its lines, its launches per
 kernel (phases 4-7) and its time on the host clock. Phases: 3 (K1-K4 and
 K5a/K5b against their plain versions, also their nj = 8 instances on the
 Tiago-Pro arm), 4 (the flagship, collision, visual-servoing and batch
-paths), 5 (the "xla" backend and the single-scenario solvers), 6 (the
-control loop), 7 (the Tiago-Pro arm on the nj = 8 kernels, soft contact,
-the quaternion free-flyer). Needs a CUDA device.
+paths, the batch rows also on the horizon-parallel Riccati sweep), 5 (the
+"xla" backend and the single-scenario solvers), 6 (the control loop, its
+recording, checkpoint, debugger, ROS shim and publisher process), 7 (the
+Tiago-Pro arm on the nj = 8 kernels, soft contact and the quaternion
+free-flyer, also through the fused tick, the sensitivity sweep). Needs a
+CUDA device.
 """
 
 import subprocess

@@ -16,7 +16,8 @@
 - `make_batch_fddp` against JAX `make_batch_fddp` on the 2-DoF arm: B=4
   with per-scenario x0, T=8, dt 0.01 (both sides scale the running costs by
   the same float32 copy of dt), max_iters 10, tolerance 1e-8, for the
-  "component" and "dense" sweeps; the multi-resolution horizon of
+  "component", "dense" and "pscan" sweeps (the horizon-parallel scan
+  against the JAX solver's sequential sweep); the multi-resolution horizon of
   `test_fddp_batch.py` (T=6); and its per-scenario convergence case. xs,
   us, K, k, cost, kkt, gap_norm and reg agree to 1e-8; iterations and
   convergence flags are equal.
@@ -423,6 +424,7 @@ FDDP_PROBLEMS = {
 # compile of the JAX solver with its default "component" sweep, which the
 # JAX package's tests hold equal to its dense sweep.
 FDDP_CASES = {"component": ("arm", "component"), "dense": ("arm", "dense"),
+              "pscan": ("arm", "pscan"),
               "multires": ("multires", "component"),
               "per_scenario": ("per_scenario", "component")}
 
@@ -481,18 +483,21 @@ def test_batch_fddp_matches_jax(fddp_case, field):
 
 
 def test_batch_fddp_refuses_what_is_not_ported(arm):
-    """What the batch FDDP still refuses: riccati="pscan" (not ported) and,
-    as the JAX package's batch FDDP does, a manifold state with soft
-    contact. A soft-contact spec now builds (the soft step, no kernel) and
-    its force_tracking cost runs on the generic CostFunctions."""
+    """What the batch FDDP refuses: as the JAX package's batch FDDP does, a
+    manifold state with soft contact, and an unknown sweep. Every sweep the
+    JAX solver has builds, riccati="pscan" included (it is solved by
+    `FDDP_CASES`' "pscan"). A soft-contact spec builds (the soft step, no
+    kernel) and its force_tracking cost runs on the generic
+    CostFunctions."""
     from agimus_controller_tpu_torch.ocp import spec as tspec
     from agimus_controller_tpu_torch.ocp.costs import CostFunctions
     from agimus_controller_tpu_torch.ops.soft_contact import SoftContactConfig
 
     jm, _, p = arm
     ps = to_port_spec(arm_spec(4))
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        make_batch_fddp(jm, p, ps, riccati="pscan", **CPU)
+    for riccati in ("component", "pscan", "dense"):
+        assert make_batch_fddp(jm, p, ps, riccati=riccati,
+                               **CPU).riccati == riccati
     soft = dataclasses.replace(ps, running_costs=ps.running_costs + (
         tspec.CostItem(name="f", kind="force_tracking", update=True),),
         soft_contact=SoftContactConfig(frame="tip"))

@@ -127,3 +127,42 @@ def test_public_names_are_exported(import_results, package, name):
 
     assert import_results[f"{PKG}.{package}"] == "ok"
     assert hasattr(importlib.import_module(f"{PKG}.{package}"), name)
+
+
+@pytest.mark.parametrize("module", [
+    "parallel", "parallel.sensitivity", "plots", "plots.dump_utils",
+    "plots.mpc_utils", "plots.pin_utils", "plots.plots_utils",
+    "runtime.bag_readers", "runtime.checkpoint", "runtime.debugger",
+    "runtime.meshcat_viz", "runtime.publisher", "runtime.recorder",
+    "runtime.ros_shim", "solver.riccati_pscan"])
+def test_io_and_sweep_module_is_probed(module):
+    """The modules of the horizon-parallel Riccati, the runtime's I/O and
+    debugging and the sensitivity sweep are among the modules probed
+    above."""
+    assert f"{PKG}.{module}" in MODULES
+
+
+@pytest.mark.parametrize("package, name", [
+    ("runtime", "MPCRecorder"), ("ocp", "make_timesteps"),
+    ("parallel", "perturbed_params_batch"),
+    ("parallel", "next_state_sensitivity"), ("parallel", "sensitivity_svd"),
+    ("plots", "dump_plot_data"), ("plots", "get_p_"), ("plots", "get_rpy_"),
+    ("plots", "get_u_grav"), ("plots", "get_v_"), ("plots", "get_w_"),
+    ("plots", "plot_mpc_data"), ("plots", "plot_values")])
+def test_io_and_sweep_names_are_exported(import_results, package, name):
+    """The sub-packages export the JAX `__init__`s' names of these
+    modules (`parallel` only the sensitivity sweep's for now)."""
+    import importlib
+
+    assert import_results[f"{PKG}.{package}"] == "ok"
+    assert hasattr(importlib.import_module(f"{PKG}.{package}"), name)
+
+
+def test_chip_smoke_imports_none_of_them():
+    """`chip_smoke.py` imports nothing of JAX: it names neither `jax` nor
+    the JAX package in an import."""
+    import re
+
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(from|import)\s+(jax|jaxlib|"
+                         r"agimus_controller_tpu)\b", src, re.M)
