@@ -104,16 +104,17 @@ def _stage_elements(lx, lu, lxx, lxu, luu, Fx, Fu, fs_next, reg):
         J=_sym(lxx - lxu @ Kc))
 
 
-def value_scan(lx, lu, lxx, lxu, luu, Fx, Fu, fs, term_lx, term_lxx, reg):
-    """The value function of every node, (Vx [T+1, B, nx], Vxx [T+1, B,
-    nx, nx]), by the reverse Hillis-Steele scan over the T + 1 elements
-    (arguments as `parallel_riccati`)."""
-    st = _stage_elements(lx, lu, lxx, lxu, luu, Fx, Fu, fs[1:], reg)
-    zero = torch.zeros_like(term_lxx)[None]
-    term = _Elem(zero, torch.zeros_like(term_lx)[None], zero, -term_lx[None],
-                 term_lxx[None])
-    S = _Elem(*(torch.cat([a, t], 0) for a, t in zip(st, term)))
-    n = S.A.shape[0]  # T + 1
+def _terminal_element(term_lx, term_lxx):
+    """The terminal element (0, 0, 0, -lx_T, lxx_T) of every scenario,
+    leading [B] (JAX `_terminal_element`)."""
+    zero = torch.zeros_like(term_lxx)
+    return _Elem(zero, torch.zeros_like(term_lx), zero, -term_lx, term_lxx)
+
+
+def _reverse_scan(S: _Elem) -> _Elem:
+    """Inclusive reverse Hillis-Steele scan over the leading (time) axis:
+    element k of the result composes e_k .. e_last."""
+    n = S.A.shape[0]
     d = 1
     while d < n:
         # S[k] composes e_k .. e_{k+d-1}; the head takes the next d after it
@@ -121,7 +122,35 @@ def value_scan(lx, lu, lxx, lxu, luu, Fx, Fu, fs, term_lx, term_lxx, reg):
         S = _Elem(*(torch.cat([h, a[n - d:]], 0) for h, a in zip(head, S)))
         del head
         d *= 2
+    return S
+
+
+def value_scan(lx, lu, lxx, lxu, luu, Fx, Fu, fs, term_lx, term_lxx, reg):
+    """The value function of every node, (Vx [T+1, B, nx], Vxx [T+1, B,
+    nx, nx]), by the reverse Hillis-Steele scan over the T + 1 elements
+    (arguments as `parallel_riccati`)."""
+    st = _stage_elements(lx, lu, lxx, lxu, luu, Fx, Fu, fs[1:], reg)
+    term = _terminal_element(term_lx, term_lxx)
+    S = _reverse_scan(_Elem(*(torch.cat([a, t[None]], 0)
+                              for a, t in zip(st, term))))
     return -S.eta, S.J
+
+
+def _gains_at(lx, lu, lxx, lxu, luu, Fx, Fu, f_next, Vx_n, Vxx_n, reg):
+    """The one-shot gain recovery at every node given V_{t+1} (JAX
+    `_gains_at`, over leading [T, B]; reg [B]). Returns (ks, Ks, Qus, and
+    per node Qu.k and k.Quu.k, the terms of d1 and d2)."""
+    nu = lu.shape[-1]
+    eye_u = torch.eye(nu, dtype=lx.dtype, device=lx.device)
+    FuT = Fu.transpose(-1, -2)
+    Vx_plus = Vx_n + _mv(Vxx_n, f_next)
+    Qu = lu + _mv(FuT, Vx_plus)
+    Qux = lxu.transpose(-1, -2) + FuT @ Vxx_n @ Fx
+    Quu = luu + FuT @ Vxx_n @ Fu + reg[None, :, None, None] * eye_u
+    L = _cholesky(Quu)
+    ks = torch.cholesky_solve(Qu[..., None], L)[..., 0]
+    Ks = torch.cholesky_solve(Qux, L)
+    return ks, Ks, Qu, (Qu * ks).sum(-1), (ks * _mv(Quu, ks)).sum(-1)
 
 
 def parallel_riccati(lx, lu, lxx, lxu, luu, Fx, Fu, fs, term_lx, term_lxx,
@@ -139,20 +168,9 @@ def parallel_riccati(lx, lu, lxx, lxu, luu, Fx, Fu, fs, term_lx, term_lxx,
     with a non-finite gain (a failed factor gives NaN)."""
     Vx, Vxx = value_scan(lx, lu, lxx, lxu, luu, Fx, Fu, fs, term_lx,
                          term_lxx, reg)
-    Vx_n, Vxx_n = Vx[1:], Vxx[1:]
-    nu = lu.shape[-1]
-    eye_u = torch.eye(nu, dtype=lx.dtype, device=lx.device)
-    FuT = Fu.transpose(-1, -2)
-    Vx_plus = Vx_n + _mv(Vxx_n, fs[1:])
-    Qu = lu + _mv(FuT, Vx_plus)
-    Qux = lxu.transpose(-1, -2) + FuT @ Vxx_n @ Fx
-    Quu = luu + FuT @ Vxx_n @ Fu + reg[None, :, None, None] * eye_u
-    L = _cholesky(Quu)
-    ks = torch.cholesky_solve(Qu[..., None], L)[..., 0]
-    Ks = torch.cholesky_solve(Qux, L)
-    d1 = (Qu * ks).sum(-1).sum(0)
-    d2 = (ks * _mv(Quu, ks)).sum(-1).sum(0)
+    ks, Ks, Qu, d1_t, d2_t = _gains_at(lx, lu, lxx, lxu, luu, Fx, Fu, fs[1:],
+                                       Vx[1:], Vxx[1:], reg)
     T, B = ks.shape[:2]
     bad = ~(torch.isfinite(ks).reshape(T, B, -1).all(2).all(0)
             & torch.isfinite(Ks).reshape(T, B, -1).all(2).all(0))
-    return ks, Ks, Qu, d1, d2, bad
+    return ks, Ks, Qu, d1_t.sum(0), d2_t.sum(0), bad

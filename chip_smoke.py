@@ -67,7 +67,18 @@ the force state, and an `MPC` loop with the force-feedback warm start;
 `solve_fddp` and the manifold batch SQP reaching the hand's goal and
 agreeing on it; (b) and (c) also through `FusedTickRunner` (the soft step;
 `cf=` on the manifold backend); and the model-parameter sensitivity sweep
-on the card against the CPU in f64. Each phase prints its seconds.
+on the card against the CPU in f64. Phase 8 drives slice 16, the
+multi-device layer, over four slots of the one card (a mesh may name a
+device in several slots): (a) `sharded_batch_sqp` on K1-K4, the
+keep-away collision CSQP at T=24, B=16, replicated rows equal and each
+against the unsharded `make_batch_sqp`; (b) `sharded_batch_fddp` at
+B=1024 against the unsharded solve; (c) `make_batch_csqp` and
+`sharded_batch_csqp` at B=8 (ADMM counts equal), row 0 against
+`solve_csqp`; (d) the horizon-sharded Riccati in f64 against
+`parallel_riccati` (T=400) and `solve_fddp_tsharded` against `solve_fddp`
+(T=64); (e) two processes sharing the card through the `AGIMUS_*`
+environment (gloo), each one's rows against a single-process solve. Each
+phase prints its seconds.
 
 The tick paths must have launched every stage kernel, the batch path both
 step kernels and no stage kernel. Exits non-zero without a result when
@@ -585,20 +596,11 @@ def panda_sizes(spec_name, kind):
     return sizes if kind == "stage" else [N // 100 for N in sizes if N >= 100]
 
 
-def count_ops_of(fn):
-    """(fn()'s result, the element operations it ran): `count_ops` that
-    keeps the result."""
-    out = []
-    n = count_ops(lambda: out.append(fn()))
-    return out[0], n
-
-
 def stacked_plain(k, kind, per_size):
     """One plain call over the nodes of every size's inputs (`per_size`,
     {N: (refs, x, u, dt, t_idx)}): each node is computed from its own
-    gathered ref row, so the sizes stack into one call, whose element
-    operations are counted. Returns ({N: the plain outputs of that size's
-    nodes}, operations per node, the call's ms)."""
+    gathered ref row, so the sizes stack into one call. Returns ({N: the
+    plain outputs of that size's nodes}, the call's ms)."""
     xs, us, dts, rows = [], [], [], []
     for refs, x, u, dt, t_idx in per_size.values():
         xs.append(x)
@@ -610,17 +612,103 @@ def stacked_plain(k, kind, per_size):
             rows.append(k.terminal_rows(x, refs))
     args = (torch.cat(xs), *([torch.cat(us), torch.cat(dts)]
                              if kind == "stage" else ()), torch.cat(rows))
-    (out, n_ops), ms = cuda_timed_call(
-        lambda: count_ops_of(lambda: k.plain_rows(*args)))
-    total = args[0].shape[0]
+    out, ms = cuda_timed_call(lambda: k.plain_rows(*args))
     want, off = {}, 0
     for N in per_size:
         want[N] = tuple(o[off:off + N] for o in out)
         off += N
-    return want, n_ops / total, ms
+    return want, ms
 
 
-def check_kernels(model, params, device, specs=None, sizes=panda_sizes,
+# -- the operations of the bounds, counted on the host beside the card ------
+# `count_ops` runs every ATen op of a plain version through Python, about
+# twice its eager time; the count per node is the same at every node count
+# and on every device, so worker processes count on the CPU at
+# `COUNT_NODES` nodes of each spec's inputs while the card checks the
+# kernels (`start_counts`)
+COUNT_NODES = 19
+COUNT_WORKERS = 3
+_count_models = {}
+
+
+def _count_init():
+    torch.set_num_threads(1)
+
+
+def _count_robot(robot):
+    """The CPU f32 model of a count job, built once per worker process."""
+    if robot not in _count_models:
+        if robot == "panda":
+            from agimus_controller_tpu_torch.models.panda import load_panda
+
+            _count_models[robot] = load_panda(
+                env_urdf=ENV_URDF, collision_pairs=PAIR, dtype=torch.float32,
+                device="cpu")
+        else:
+            from agimus_controller_tpu_torch.models.tiago_pro import (
+                load_tiago_pro,
+            )
+
+            _count_models[robot] = load_tiago_pro(dtype=torch.float32,
+                                                  device="cpu")
+    return _count_models[robot]
+
+
+def count_job(robot, spec_name, kind, derivs):
+    """Operations per node of one kernel's plain version (a worker's job):
+    `robot` "panda" or "tiago", `spec_name` a `SPECS` key or "tiago" (None
+    for the step kernels)."""
+    from agimus_controller_tpu_torch.models.tiago_pro import TIAGO_PRO_Q_READY
+
+    model, params = _count_robot(robot)
+    N = COUNT_NODES
+    if kind == "step":
+        x, u, dt = step_inputs(N, N + derivs, "cpu", "per_node",
+                               TIAGO_PRO_Q_READY if robot == "tiago" else None)
+        return ops_per_node(model, params, None, kind, derivs, None, x, u,
+                            dt, None)
+    if robot == "tiago":
+        spec = tiago_spec(TIAGO_T)
+        refs, x, u, dt, t_idx = tiago_inputs(spec, model, N, N + derivs,
+                                             "cpu")
+    else:
+        spec = SPECS[spec_name](100, model)
+        refs, x, u, dt, t_idx = randomized_inputs(spec, model, N, N + derivs,
+                                                  "cpu")
+    from agimus_controller_tpu_torch.ops.cuda_costs import (
+        make_cuda_stage,
+        make_cuda_terminal,
+    )
+
+    if kind == "stage":
+        k = make_cuda_stage(model, params, spec, derivs, "cpu")
+        return count_ops(lambda: k.plain(x, u, dt, t_idx, refs)) / N
+    k = make_cuda_terminal(model, params, spec, derivs, "cpu")
+    return count_ops(lambda: k.plain(x, refs)) / N
+
+
+def start_counts():
+    """(the pool, {(robot, spec or None, kernel): future ops per node}) of
+    every kernel phase 3 checks, submitted in the order phase 3 reads
+    them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        COUNT_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_count_init)
+    jobs = [("panda", sp, STAGE_KERNELS) for sp in CHECKED_SPECS] + [
+        ("panda", None, STEP_KERNELS), ("tiago", "tiago", STAGE_KERNELS),
+        ("tiago", None, STEP_KERNELS)]
+    counts = {}
+    for robot, sp, kernels in jobs:
+        for name, kind, derivs, _ in kernels:
+            counts[(robot, sp, name)] = pool.submit(count_job, robot, sp,
+                                                    kind, derivs)
+    return pool, counts
+
+
+def check_kernels(model, params, device, ops, specs=None, sizes=panda_sizes,
                   inputs=randomized_inputs, timed=("flagship", 100, 1)):
     """K1-K4 vs their plain versions on the same CUDA inputs, f32, on
     `specs` ({name: spec}; the Panda's checked specs by default) at the
@@ -631,10 +719,11 @@ def check_kernels(model, params, device, specs=None, sizes=panda_sizes,
     each spec's first, also on the tick's ring-row views of the same refs
     and, for K1/K2, with one dt for every node (a float and a 0-d tensor).
     The plain results of a spec's sizes come from one stacked call
-    (`stacked_plain`), which also counts the operations per node of the
-    bound; `timed` = (spec, K1/K2 size, K3/K4 size) also times one plain
-    call of its own at that size (the result line's `plain_ms`). Returns
-    ({kernel: {spec: {N: numbers}}}, seconds spent in plain calls)."""
+    (`stacked_plain`); `ops(spec_name, kernel)` gives the operations per
+    node of the bound (`start_counts`); `timed` = (spec, K1/K2 size, K3/K4
+    size) also times one plain call of its own at that size (the result
+    line's `plain_ms`). Returns ({kernel: {spec: {N: numbers}}}, seconds
+    spent in plain calls)."""
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
         make_cuda_terminal,
@@ -655,7 +744,7 @@ def check_kernels(model, params, device, specs=None, sizes=panda_sizes,
             per_size = {N: inputs(spec, model, N, N + derivs, device)
                         for N in spec_sizes}
             t0 = time.perf_counter()
-            wants, ops_node, stacked_ms = stacked_plain(k, kind, per_size)
+            wants, stacked_ms = stacked_plain(k, kind, per_size)
             plain_s += time.perf_counter() - t0
             for n_nodes, (refs, x, u, dt, t_idx) in per_size.items():
                 want = wants[n_nodes]
@@ -690,6 +779,7 @@ def check_kernels(model, params, device, specs=None, sizes=panda_sizes,
                     t0 = time.perf_counter()
                     _, plain_ms = cuda_timed_call(lambda: k.plain(*args))
                     plain_s += time.perf_counter() - t0
+                ops_node = ops(spec_name, name)
                 b_ms, b_by = bound_ms(k, kind, n_nodes, ops_node)
                 live = (f"  collision term live on "
                         f"{live_share(spec, model, refs, x):.0%} of nodes"
@@ -698,7 +788,7 @@ def check_kernels(model, params, device, specs=None, sizes=panda_sizes,
                       f"{ms:9.4f} ms (kernel only {kernel_ms:9.4f} ms)  plain "
                       + (f"{plain_ms:9.3f} ms" if plain_ms is not None
                          else "  stacked")
-                      + f" (all sizes, ops counted: {stacked_ms:9.3f} ms)  "
+                      + f" (all sizes stacked: {stacked_ms:9.3f} ms)  "
                       f"bound {b_ms:.6f} ms ({b_by}, {ops_node:.1f} ops/node)"
                       "  max abs err " + " ".join(
                           f"{lab}={e:.2e}" for lab, e in errs.items())
@@ -758,24 +848,20 @@ def step_inputs(N, seed, device, dt_kind, q_ready=None):
     return x, u, dt
 
 
-def check_step_kernels(model, params, device, cpu=None,
-                       sizes=STEP_CHECK_SIZES, q_ready=None, tag=""):
+def check_step_kernels(model, params, device, ops, sizes=STEP_CHECK_SIZES,
+                       q_ready=None, tag=""):
     """K5a and K5b vs their plain versions on the same CUDA inputs, f32, at
     `sizes` (by default every size the Panda's paths launch them at) with
     per-node and scalar dt around `q_ready` (`step_inputs`); each call's
-    time and kernel-only time (per-node dt) and bound (operations counted
-    on `cpu`, the model's CPU copy; the Panda's by default), its line
-    labelled `tag`. Returns {kernel: {N: numbers}}."""
-    from agimus_controller_tpu_torch.models.panda import load_panda
+    time and kernel-only time (per-node dt) and bound (`ops(kernel)`, the
+    operations per node, `start_counts`), its line labelled `tag`. Returns
+    {kernel: {N: numbers}}."""
     from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
 
-    model_cpu, params_cpu = cpu or load_panda(dtype=torch.float32,
-                                              device="cpu")
     report = {}
     for name, kind, derivs, _ in STEP_KERNELS:
         k = StepKernel(model, params, derivs, device)
         labels = ("xnext", "Fx", "Fu") if derivs else ("xnext",)
-        ops_node = None
         for N in sizes:
             errs = {}
             for dt_kind in ("scalar", "per_node"):
@@ -795,9 +881,7 @@ def check_step_kernels(model, params, device, cpu=None,
             ms = cuda_time_ms(run, reps=reps)
             prepared, _ = k.prepare(x, u, dt)
             kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=reps)
-            if ops_node is None:  # per node: the same at every size
-                ops_node = ops_per_node(model_cpu, params_cpu, None, kind,
-                                        derivs, None, x, u, dt, None)
+            ops_node = ops(name)
             b_ms, b_by = bound_ms(k, kind, N, ops_node)
             print(f"{name:20s} {tag:8s} N={N:6d}  wrapper {ms:9.4f} ms (kernel "
                   f"only {kernel_ms:9.4f} ms)  plain {plain_ms:9.3f} ms  bound "
@@ -876,9 +960,10 @@ def check_all_kernels(device):
     spec at every size its paths launch them at, and their nj = 8 instances
     on the Tiago-Pro arm (`tiago_spec`) at phase 7 (a)'s sizes: K1/K2 at
     `TIAGO_STAGE_SIZES`, K3/K4 at N = 1, K5a/K5b at `TIAGO_STEP_SIZES`.
-    Returns (K1-K4 {kernel: {spec: {N: numbers}}}, K5a/K5b {kernel: {N or
-    ("tiago", N): numbers}}): the Tiago-Pro sizes' errors join each
-    kernel's."""
+    The bounds' operations are counted on the host by worker processes
+    meanwhile (`start_counts`). Returns (K1-K4 {kernel: {spec: {N:
+    numbers}}}, K5a/K5b {kernel: {N or ("tiago", N): numbers}}): the
+    Tiago-Pro sizes' errors join each kernel's."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.models.tiago_pro import (
         TIAGO_PRO_Q_READY,
@@ -887,22 +972,34 @@ def check_all_kernels(device):
 
     model, params = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
                                dtype=torch.float32, device=device)
-    report, plain_s = check_kernels(model, params, device)
-    step_report = check_step_kernels(model, params, device)
-    tiago = load_tiago_pro(dtype=torch.float32, device=device)
-    cpu = load_tiago_pro(dtype=torch.float32, device="cpu")
-    tiago_sizes = lambda _, kind: TIAGO_STAGE_SIZES if kind == "stage" else (1,)
-    tiago_report, tiago_plain_s = check_kernels(
-        *tiago, device, {"tiago": tiago_spec(TIAGO_T)}, tiago_sizes,
-        tiago_inputs, timed=("tiago", TIAGO_STAGE_SIZES[0], 1))
-    for name, per_spec in tiago_report.items():
-        report[name].update(per_spec)
-    print(f"phase 3: K1-K4 plain calls (stacked, checks and timed) "
-          f"{plain_s + tiago_plain_s:.1f} s")
-    for name, per_n in check_step_kernels(
-            *tiago, device, cpu, TIAGO_STEP_SIZES, TIAGO_PRO_Q_READY,
-            "tiago").items():
-        step_report[name].update({("tiago", n): v for n, v in per_n.items()})
+    pool, counts = start_counts()
+    try:
+        report, plain_s = check_kernels(
+            model, params, device,
+            lambda sp, name: counts[("panda", sp, name)].result())
+        step_report = check_step_kernels(
+            model, params, device,
+            lambda name: counts[("panda", None, name)].result())
+        tiago = load_tiago_pro(dtype=torch.float32, device=device)
+        tiago_sizes = lambda _, kind: (TIAGO_STAGE_SIZES if kind == "stage"
+                                       else (1,))
+        tiago_report, tiago_plain_s = check_kernels(
+            *tiago, device,
+            lambda sp, name: counts[("tiago", sp, name)].result(),
+            {"tiago": tiago_spec(TIAGO_T)}, tiago_sizes, tiago_inputs,
+            timed=("tiago", TIAGO_STAGE_SIZES[0], 1))
+        for name, per_spec in tiago_report.items():
+            report[name].update(per_spec)
+        print(f"phase 3: K1-K4 plain calls (stacked, checks and timed) "
+              f"{plain_s + tiago_plain_s:.1f} s")
+        for name, per_n in check_step_kernels(
+                *tiago, device,
+                lambda name: counts[("tiago", None, name)].result(),
+                TIAGO_STEP_SIZES, TIAGO_PRO_Q_READY, "tiago").items():
+            step_report[name].update({("tiago", n): v
+                                      for n, v in per_n.items()})
+    finally:
+        pool.shutdown(cancel_futures=True)
     return report, step_report
 
 
@@ -3526,6 +3623,576 @@ def run_slice12_phase(device):
     return launches, lines
 
 
+# -- phase 8: the multi-device layer (slice 16) on one card -----------------
+MESH_SLOTS = 4  # slots of the one card (the JAX tests' virtual devices)
+KEEP_AWAY_GOAL = (0.45, 0.05, 0.55)  # the hand's goal, world frame
+MESH_T, MESH_B = 24, 16  # (a): 4 rows per slot
+MESH_FDDP_B = 1024  # (b): 256 rows per slot
+CSQP_B = 8  # (c): 2 rows per slot
+CSQP_SETTINGS = dict(max_iters=4, max_qp_iters=25, reg_init=1e-7)
+TSHARD_T, TSHARD_FDDP_T = 400, 64  # (d), float64
+TSHARD_TOL = 1e-9
+TINY_T, TINY_ROWS = 8, 2  # (e): the two-process solve, rows per process
+# the rule phase 4 holds its rows 0-7 to: iterations and flags equal, us
+# within this
+ROWS_US_TOL = 1e-3
+
+
+def batch_mesh(device, n=MESH_SLOTS):
+    """The single-process global mesh over n slots of `device`, after the
+    multi-process init (a no-op alone), collapsed to its batch axis (as the
+    JAX package's two-process worker does)."""
+    from agimus_controller_tpu_torch.parallel import (
+        initialize_distributed,
+        make_global_mesh,
+    )
+    from agimus_controller_tpu_torch.parallel.mesh import Mesh
+
+    if initialize_distributed():
+        raise AssertionError("phase 8: a single process joined a group")
+    mesh = make_global_mesh(t_shards=1, devices=[device] * n)
+    if mesh.shape != {"batch": n, "t": 1}:
+        raise AssertionError(f"phase 8: global mesh {mesh.shape}")
+    return Mesh(mesh.devices.reshape(-1), ("batch",),
+                mesh.process_ids.reshape(-1))
+
+
+def keep_away_problem(device, B, dtype=torch.float32, seed=None):
+    """The collision keep-away CSQP of the JAX package's multi-chip dryrun:
+    the Panda with phase 4's obstacle, a 2 cm band on link 7's capsule
+    (`collision_distance`), the hand pulled to `KEEP_AWAY_GOAL`, T=24.
+    Returns (model, params, spec, refs, x0s, xs0, us0): every row starts
+    at the ready state, or ready + N(0, 0.02^2) on q with `seed`."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.ocp.spec import (
+        ConstraintItem,
+        CostItem,
+        ProblemSpec,
+        default_references,
+    )
+    from agimus_controller_tpu_torch.ops.kinematics import frame_placement
+
+    T = MESH_T
+    model, params = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
+                               dtype=dtype, device=device)
+    goal = dict(kind="frame_placement", update=True, frame="panda_hand_tcp")
+    spec = ProblemSpec(
+        running_costs=(
+            CostItem(name="state_reg", kind="state", weight=0.1, update=True),
+            CostItem(name="ctrl", kind="control", weight=1e-3,
+                     act_weights=(1.0,) * 7),
+            CostItem(name="goal", weight=10.0, **goal)),
+        terminal_costs=(CostItem(name="goal", weight=100.0, **goal),),
+        constraints=(ConstraintItem(name="coll", kind="collision_distance",
+                                    pair_id=0, lower=(0.02,)),),
+        horizon=T, dt=0.01)
+    _, params64 = load_panda(env_urdf=ENV_URDF, collision_pairs=PAIR,
+                             dtype=torch.float64, device="cpu")
+    q0 = np.asarray(PANDA_Q_READY)
+    x0 = np.concatenate([q0, np.zeros(7)])
+    R0 = frame_placement(model, params64, torch.as_tensor(q0),
+                         model.frame_id("panda_hand_tcp"))[0].numpy()
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    tile = lambda a: f(np.tile(np.asarray(a)[None],
+                               (T + 1,) + (1,) * np.ndim(a)))
+    refs = default_references(spec, model, dtype=dtype, device=device)
+    refs["xref"] = tile(x0)
+    refs["ee_rot:panda_hand_tcp"] = tile(R0)
+    refs["ee_trans:panda_hand_tcp"] = tile(KEEP_AWAY_GOAL)
+    x0s = np.tile(x0[None], (B, 1))
+    if seed is not None:
+        x0s[:, :7] += 0.02 * np.random.default_rng(seed).normal(size=(B, 7))
+    return (model, params, spec, refs, f(x0s),
+            f(np.tile(x0s[:, None], (1, T + 1, 1))),
+            torch.zeros((B, T, 7), dtype=dtype, device=device))
+
+
+def _rows_agree(part, got, want):
+    """Phase 4's rule for rows solved apart: iterations and flags equal, us
+    within `ROWS_US_TOL`. Returns the us difference."""
+    du = float((got.us - want.us).abs().max())
+    if not (torch.equal(got.iters, want.iters)
+            and torch.equal(got.converged, want.converged)
+            and du < ROWS_US_TOL):
+        raise AssertionError(
+            f"phase 8 {part}: sharded rows (iters {got.iters.tolist()}, "
+            f"converged {got.converged.tolist()}) differ from the unsharded "
+            f"solve's (iters {want.iters.tolist()}, converged "
+            f"{want.converged.tolist()}), us max abs diff {du:.3e}")
+    return du
+
+
+def _finite(part, sol):
+    for field in ("xs", "us", "K", "k", "cost", "kkt"):
+        if not bool(torch.isfinite(getattr(sol, field)).all()):
+            raise AssertionError(f"phase 8 {part}: non-finite {field}")
+
+
+def _timed(device, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _path_launches(part, solver, names):
+    """The launches of the solver built for the mesh's card, zeroed before
+    the path ran; raises where one kernel did not launch."""
+    got = {name: k.launches for name, k in zip(names, solver.kernels)}
+    if len(got) != len(names) or min(got.values()) <= 0:
+        raise AssertionError(f"phase 8 {part}: launches {got}")
+    return got
+
+
+def run_sharded_sqp(device, mesh):
+    """(a) `sharded_batch_sqp` on the "auto" backend over the mesh's slots:
+    the keep-away problem at B=16 from the ready state (2 SQP and 10 ADMM
+    iterations, the dryrun's settings) against the unsharded
+    `make_batch_sqp`; the replicated rows must be equal."""
+    from agimus_controller_tpu_torch.parallel.mesh import sharded_batch_sqp
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+    from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
+
+    model, params, spec, refs, x0s, xs0, us0 = keep_away_problem(device,
+                                                                 MESH_B)
+    s = CSQPSettings(max_iters=2, max_qp_iters=10, reg_init=1e-7)
+    sharded = sharded_batch_sqp(model, params, spec, None, s, mesh)
+    solver = sharded.solver(mesh.slots("batch")[0][0])
+    if solver.backend != "kernels":
+        raise AssertionError(f"phase 8 (a): backend {solver.backend!r} "
+                             f"({solver.backend_reason})")
+    plain = make_batch_sqp(model, params, spec, s, device=device)
+    for k in solver.kernels:
+        k.launches = 0
+    sol, sharded_s = _timed(device, lambda: sharded(x0s, refs, xs0, us0))
+    launches = _path_launches("(a)", solver,
+                              [name for name, *_ in STAGE_KERNELS])
+    ref, plain_s = _timed(device, lambda: plain(x0s, refs, xs0, us0))
+    _finite("(a)", sol)
+    for f in sol._fields:
+        v = getattr(sol, f)
+        if isinstance(v, torch.Tensor) and not bool(
+                (v == v[:1]).all() | (v.isnan() & v[:1].isnan()).all()):
+            raise AssertionError(f"phase 8 (a): replicated rows differ in {f}")
+    du = _rows_agree("(a)", sol, ref)
+    return launches, (
+        f"phase 8 (a) sharded_batch_sqp (backend {solver.backend}) over "
+        f"{len(mesh.slots('batch'))} slots of {device}, keep-away T={MESH_T}, "
+        f"B={MESH_B}, f32: {sharded_s:.3f} s against the unsharded "
+        f"{plain_s:.3f} s (host clock, synchronized); iters "
+        f"{sol.iters.tolist()[:1]}, ADMM {sol.qp_iters.tolist()[:1]}, band "
+        f"violation {float(sol.constraint_norm.max()):.2e}; replicated rows "
+        f"equal; us max abs diff to unsharded {du:.3e}; launches {launches}")
+
+
+def run_sharded_fddp(device, mesh):
+    """(b) `sharded_batch_fddp` on the flagship batch problem (phase 4's, 10
+    iterations) at B=1024 over the mesh's slots, against the unsharded
+    B=1024 solve."""
+    from agimus_controller_tpu_torch.models.panda import load_panda
+    from agimus_controller_tpu_torch.parallel.mesh import sharded_batch_fddp
+    from agimus_controller_tpu_torch.solver.fddp import SolverSettings
+
+    bp = build_batch(device, n_variants=1)
+    model, params = load_panda(dtype=torch.float32, device=device)
+    sharded = sharded_batch_fddp(model, params, flagship_spec(BATCH_T), None,
+                                 SolverSettings(max_iters=10), mesh)
+    solver = sharded.solver(mesh.slots("batch")[0][0])
+    n = MESH_FDDP_B
+    args = (bp.variants[0][:n], bp.refs, bp.xs0[:n], bp.us0[:n])
+    for k in solver.kernels:
+        k.launches = 0
+    sol, sharded_s = _timed(device, lambda: sharded(*args))
+    launches = _path_launches("(b)", solver,
+                              [name for name, *_ in STEP_KERNELS])
+    ref, plain_s = _timed(device, lambda: bp.solver(*args))
+    _finite("(b)", sol)
+    du = _rows_agree("(b)", sol, ref)
+    c = lambda a: a.double().cpu().numpy()
+    return launches, (
+        f"phase 8 (b) sharded_batch_fddp over {len(mesh.slots('batch'))} "
+        f"slots, flagship T={BATCH_T}, B={n}, f32: {sharded_s:.3f} s against "
+        f"the unsharded {plain_s:.3f} s (host clock, synchronized); mean "
+        f"iterations {float(c(sol.iters).mean()):.2f}, converged share "
+        f"{float(c(sol.converged).mean()):.4f}; iterations and flags equal, "
+        f"us max abs diff {du:.3e}; launches {launches}")
+
+
+def run_batch_csqp(device, mesh):
+    """(c) `make_batch_csqp` and `sharded_batch_csqp` on (a)'s problem at
+    B=8 with perturbed starts: the sharded rows against the unsharded ones
+    (the shards exit each ADMM loop together), row 0 against `solve_csqp`
+    (phase 5 (c)'s bounds)."""
+    from agimus_controller_tpu_torch.ocp.costs import build_cost_functions
+    from agimus_controller_tpu_torch.parallel.mesh import sharded_batch_csqp
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings, solve_csqp
+    from agimus_controller_tpu_torch.solver.csqp_batch import make_batch_csqp
+
+    model, params, spec, refs, x0s, xs0, us0 = keep_away_problem(
+        device, CSQP_B, seed=0)
+    cf = build_cost_functions(model, params, spec)
+    s = CSQPSettings(**CSQP_SETTINGS)
+    batch = make_batch_csqp(model, params, spec, cf, s, device=device)
+    sharded = sharded_batch_csqp(model, params, spec, cf, s, mesh)
+    solver = sharded.solver(mesh.slots("batch")[0][0])
+    for k in solver.kernels + batch.kernels:
+        k.launches = 0
+    sol, sharded_s = _timed(device, lambda: sharded(x0s, refs, xs0, us0))
+    launches = _path_launches("(c)", solver,
+                              [name for name, *_ in STEP_KERNELS])
+    ref, batch_s = _timed(device, lambda: batch(x0s, refs, xs0, us0))
+    batch_launches = _path_launches("(c) unsharded", batch,
+                                    [name for name, *_ in STEP_KERNELS])
+    _finite("(c)", sol)
+    du = _rows_agree("(c)", sol, ref)
+    if not torch.equal(sol.qp_iters, ref.qp_iters):
+        raise AssertionError(
+            f"phase 8 (c): sharded ADMM counts {sol.qp_iters.tolist()} != "
+            f"unsharded {ref.qp_iters.tolist()}")
+    one, single_s = _timed(device, lambda: solve_csqp(
+        cf, x0s[0], refs, xs0[0], us0[0], s))
+    agree = _agreement("(c)", float((ref.us[0] - one.us).abs().max()),
+                       abs(float(ref.cost[0] - one.cost)) / abs(float(one.cost)))
+    for name, n in batch_launches.items():
+        launches[name] += n
+    return launches, (
+        f"phase 8 (c) make_batch_csqp B={CSQP_B} {batch_s:.3f} s, "
+        f"sharded_batch_csqp over {len(mesh.slots('batch'))} slots "
+        f"{sharded_s:.3f} s (host clock, synchronized), keep-away T={MESH_T}, "
+        f"f32, {CSQP_SETTINGS}: iters {ref.iters.tolist()}, ADMM "
+        f"{ref.qp_iters.tolist()} (equal sharded), us max abs diff sharded "
+        f"{du:.3e}; row 0 against solve_csqp ({single_s:.3f} s): {agree}; "
+        f"launches {launches}")
+
+
+def random_lqr(T, nx, nu, seed=0, device="cpu"):
+    """A random well-posed LQR (f64), the JAX package's
+    `tests/test_riccati_sharded.py::_random_lqr`: (lx, lu, lxx, lxu, luu,
+    Fx, Fu, fs [T+1], term_lx, term_lxx)."""
+    rng = np.random.default_rng(seed)
+    sym = lambda a: 0.5 * (a + np.swapaxes(a, -1, -2))
+    lxx = sym(rng.normal(size=(T, nx, nx)) * 0.1) + 2.0 * np.eye(nx)
+    luu = sym(rng.normal(size=(T, nu, nu)) * 0.1) + 2.0 * np.eye(nu)
+    lxu = rng.normal(size=(T, nx, nu)) * 0.05
+    lx = rng.normal(size=(T, nx))
+    lu = rng.normal(size=(T, nu))
+    Fx = np.tile(np.eye(nx), (T, 1, 1)) + rng.normal(size=(T, nx, nx)) * 0.02
+    Fu = rng.normal(size=(T, nx, nu)) * 0.1
+    fs = rng.normal(size=(T + 1, nx)) * 0.01
+    term_lx = rng.normal(size=(nx,))
+    term_lxx = sym(rng.normal(size=(nx, nx)) * 0.1) + 3.0 * np.eye(nx)
+    return [torch.as_tensor(a, dtype=torch.float64, device=device) for a in
+            (lx, lu, lxx, lxu, luu, Fx, Fu, fs, term_lx, term_lxx)]
+
+
+def _close(a, b, rtol=TSHARD_TOL, atol=0.1 * TSHARD_TOL):
+    """(within rtol/atol, the max abs difference)."""
+    d = (a - b).abs()
+    return bool((d <= atol + rtol * b.abs()).all()), float(d.max())
+
+
+def run_tsharded(device, mesh):
+    """(d) the horizon-sharded Riccati in f64 on the card over the mesh's
+    slots (axis "t"): `make_tsharded_riccati` against `parallel_riccati`
+    at T=400, and `solve_fddp_tsharded` against `solve_fddp` on the
+    flagship OCP at T=64, 2 iterations, the iterates within 1e-9."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.ocp.costs import build_cost_functions
+    from agimus_controller_tpu_torch.ocp.spec import default_references
+    from agimus_controller_tpu_torch.parallel.mesh import Mesh
+    from agimus_controller_tpu_torch.solver.fddp import SolverSettings, solve_fddp
+    from agimus_controller_tpu_torch.solver.riccati_pscan import parallel_riccati
+    from agimus_controller_tpu_torch.solver.riccati_sharded import (
+        make_tsharded_riccati,
+        solve_fddp_tsharded,
+    )
+
+    tmesh = Mesh(mesh.devices, ("t",))
+    a = random_lqr(TSHARD_T, 14, 7, device=device)
+    reg = 1e-6
+    got, shard_s = _timed(device, lambda: make_tsharded_riccati(tmesh)(
+        *a[:7], a[7][1:], a[8], a[9], reg))
+    b = lambda x: x[:, None]
+    want, scan_s = _timed(device, lambda: parallel_riccati(
+        *(b(x) for x in a[:8]), a[8][None], a[9][None],
+        torch.tensor([reg], dtype=torch.float64, device=device)))
+    errs = []
+    for name, g, w in zip(("ks", "Ks", "Qus", "d1", "d2"),
+                          got[:3] + got[5:], [w[:, 0] for w in want[:3]]
+                          + [want[3][0], want[4][0]]):
+        ok, e = _close(g, w)
+        errs.append(e)
+        if not ok:
+            raise AssertionError(f"phase 8 (d): sharded Riccati {name} off "
+                                 f"by {e:.3e} (rtol {TSHARD_TOL})")
+    T = TSHARD_FDDP_T
+    model, params = load_panda(dtype=torch.float64, device=device)
+    spec = flagship_spec(T)
+    cf = build_cost_functions(model, params, spec, torch.float64)
+    refs = default_references(spec, model, dtype=torch.float64, device=device)
+    x0 = torch.cat([torch.as_tensor(PANDA_Q_READY, dtype=torch.float64),
+                    torch.zeros(7, dtype=torch.float64)]).to(device)
+    refs["xref"] = x0[None].repeat(T + 1, 1)
+    problem = (cf, x0, refs, x0[None].repeat(T + 1, 1),
+               torch.zeros((T, 7), dtype=torch.float64, device=device))
+    s = SolverSettings(max_iters=2, n_alphas=4)
+    ref, fddp_s = _timed(device, lambda: solve_fddp(*problem, s))
+    sol, tfddp_s = _timed(device, lambda: solve_fddp_tsharded(*problem, s,
+                                                              tmesh))
+    diffs = {}
+    for f in ("xs", "us", "K", "k", "cost", "kkt"):
+        diffs[f] = float((getattr(sol, f) - getattr(ref, f)).abs().max())
+    if not (max(diffs.values()) <= TSHARD_TOL
+            and int(sol.iters) == int(ref.iters)):
+        raise AssertionError(f"phase 8 (d): solve_fddp_tsharded off by "
+                             f"{diffs} (bound {TSHARD_TOL})")
+    return (
+        f"phase 8 (d) horizon-sharded Riccati over {len(tmesh.slots('t'))} "
+        f"slots, f64: T={TSHARD_T} {shard_s * 1e3:.1f} ms against "
+        f"parallel_riccati {scan_s * 1e3:.1f} ms (host clock, synchronized), "
+        f"max abs diff {max(errs):.3e}; solve_fddp_tsharded T={T}, 2 "
+        f"iterations, {tfddp_s:.2f} s against solve_fddp {fddp_s:.2f} s, "
+        f"max abs diff {max(diffs.values()):.3e} (bound {TSHARD_TOL})")
+
+
+def tiny_problem(device, dtype=torch.float64):
+    """The JAX package's two-process test problem
+    (`tests/_distributed_problem.py`) on the port: the Panda, T=8,
+    goal tracking. Returns (model, params, spec, refs, x0_of) with x0_of(i)
+    scenario i's start, the ready pose with a deterministic per-scenario
+    joint offset."""
+    from agimus_controller_tpu_torch.models.panda import PANDA_Q_READY, load_panda
+    from agimus_controller_tpu_torch.ocp.spec import (
+        CostItem,
+        ProblemSpec,
+        default_references,
+    )
+
+    T = TINY_T
+    model, params = load_panda(dtype=dtype, device=device)
+    goal = dict(kind="frame_placement", update=True, frame="panda_hand_tcp")
+    spec = ProblemSpec(
+        running_costs=(
+            CostItem(name="state_reg", kind="state", weight=0.1, update=True),
+            CostItem(name="ctrl", kind="control_grav", weight=1e-3),
+            CostItem(name="goal", weight=10.0, **goal)),
+        terminal_costs=(CostItem(name="goal", weight=100.0, **goal),),
+        horizon=T, dt=0.01)
+    refs = default_references(spec, model, dtype=dtype, device=device)
+    x0 = np.concatenate([np.asarray(PANDA_Q_READY, np.float64), np.zeros(7)])
+    refs["xref"] = torch.as_tensor(np.tile(x0[None], (T + 1, 1)),
+                                   dtype=dtype, device=device)
+
+    def x0_of(i: int) -> np.ndarray:
+        out = x0.copy()
+        out[:7] += 0.02 * (1 + i) * np.sin(1.0 + np.arange(7.0))
+        return out
+
+    return model, params, spec, refs, x0_of
+
+
+TINY_SETTINGS = dict(max_iters=4, reg_init=1e-7)
+
+
+def distributed_worker(out_path: str, device: str):
+    """One process of a two-process sharded solve (the `AGIMUS_*`
+    environment gives the coordinator, the count and the rank): the global
+    mesh (on the CPU, two slots per process; on a card, each process's
+    cards), its own `TINY_ROWS` scenarios through `host_local_to_global`,
+    `sharded_batch_sqp` on the "xla" backend; writes its rows, their global
+    indices, the group's backend and the step kernels' launches to
+    `out_path` (npz)."""
+    from agimus_controller_tpu_torch.parallel import (
+        host_local_to_global,
+        initialize_distributed,
+        make_global_mesh,
+    )
+    from agimus_controller_tpu_torch.parallel import distributed
+    from agimus_controller_tpu_torch.parallel.mesh import Mesh, sharded_batch_sqp
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+
+    if not initialize_distributed():
+        raise AssertionError("multi-process launch not detected")
+    nproc, pid = distributed.process_count(), distributed.process_index()
+    if nproc != 2:
+        raise AssertionError(f"{nproc} processes")
+    dev = torch.device(device)
+    mesh = make_global_mesh(t_shards=1, devices=(
+        [dev] * 4 if dev.type == "cpu" else None))
+    mesh_b = Mesh(mesh.devices.reshape(-1), ("batch",),
+                  mesh.process_ids.reshape(-1))
+    dtype = torch.float64 if dev.type == "cpu" else torch.float32
+    model, params, spec, refs, x0_of = tiny_problem(dev, dtype)
+    T = spec.horizon
+    x0s = np.stack([x0_of(pid * TINY_ROWS + i) for i in range(TINY_ROWS)])
+    x0s, xs0, us0 = host_local_to_global(mesh_b, (
+        torch.as_tensor(x0s, dtype=dtype),
+        torch.as_tensor(np.repeat(x0s[:, None], T + 1, 1), dtype=dtype),
+        torch.zeros((TINY_ROWS, T, 7), dtype=dtype)))
+    if x0s.global_size != nproc * TINY_ROWS:
+        raise AssertionError(f"global batch {x0s.global_size}")
+    solver = sharded_batch_sqp(model, params, spec, None,
+                               CSQPSettings(**TINY_SETTINGS), mesh_b,
+                               backend="xla")
+    sol = solver(x0s, refs, xs0, us0)
+    local = solver.solver(solver.local[0])
+    np.savez(out_path,
+             idx=np.arange(sol.us.start, sol.us.start + TINY_ROWS),
+             us=sol.us.data.double().cpu().numpy(),
+             iters=sol.iters.data.cpu().numpy(),
+             converged=sol.converged.data.cpu().numpy(),
+             backend=np.asarray(distributed.backend()),
+             launches=np.asarray([k.launches for k in local.kernels]))
+    print(f"worker {pid}: rows {sol.us.start}..{sol.us.start + TINY_ROWS - 1}"
+          f" on {solver.local} -> {out_path}", flush=True)
+
+
+def start_workers(script, out_dir: Path, device: str, extra=()):
+    """Start two `script` processes (`script out_path device *extra`) as
+    one group through the `AGIMUS_*` environment, coordinator on a free
+    localhost port; returns (the processes, their output paths) for
+    `finish_workers`."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    outs = [out_dir / f"worker{i}.npz" for i in range(2)]
+    procs = []
+    for pid in range(2):
+        env = dict(os.environ, AGIMUS_COORDINATOR=f"localhost:{port}",
+                   AGIMUS_NUM_PROCESSES="2", AGIMUS_PROCESS_ID=str(pid),
+                   PYTHONPATH=str(ROOT))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script), str(outs[pid]), device, *extra],
+            env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs, outs
+
+
+def finish_workers(procs, outs, timeout=300):
+    """Wait for `start_workers`' processes (killing any still running after
+    `timeout` s or on an error); returns their npz results in rank order.
+    Raises with both logs if a worker failed."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("worker failed:\n" + "\n---\n".join(logs))
+    return [dict(np.load(o)) for o in outs]
+
+
+def launch_workers(script, out_dir: Path, device: str, extra=()):
+    """`start_workers` then `finish_workers`."""
+    return finish_workers(*start_workers(script, out_dir, device, extra))
+
+
+def tiny_reference(device, dtype, n):
+    """The single-process solve of the two-process problem's n rows."""
+    from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
+    from agimus_controller_tpu_torch.solver.sqp_batch import make_batch_sqp
+
+    model, params, spec, refs, x0_of = tiny_problem(device, dtype)
+    T = spec.horizon
+    x0s = np.stack([x0_of(i) for i in range(n)])
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    solver = make_batch_sqp(model, params, spec,
+                            CSQPSettings(**TINY_SETTINGS), device=device,
+                            backend="xla")
+    return solver(f(x0s), refs, f(np.repeat(x0s[:, None], T + 1, 1)),
+                  torch.zeros((n, T, 7), dtype=dtype, device=device))
+
+
+def start_two_processes(device, out_dir: Path):
+    """(e)'s two `chip_smoke.py --worker` processes on `device`, started
+    before (a) so that their start-up runs beside (a)-(d); returns the
+    handle `run_two_processes` takes."""
+    return start_workers(ROOT / "chip_smoke.py", out_dir, device.type,
+                         ("--worker",)), time.perf_counter()
+
+
+def run_two_processes(device, started):
+    """(e) two processes sharing the card through the `AGIMUS_*` path (the
+    group on gloo: NCCL refuses two ranks on one card), `TINY_ROWS` rows
+    each, f32 (`start_two_processes`): each process's rows against the
+    single-process solve of the four rows (phase 4's rule). Returns (the
+    workers' K5a/K5b launches, line)."""
+    (procs, outs), t0 = started
+    results = finish_workers(procs, outs)
+    wall = time.perf_counter() - t0
+    n = 2 * TINY_ROWS
+    ref = tiny_reference(device, torch.float64 if device.type == "cpu"
+                         else torch.float32, n)
+    got = {}
+    for r in results:
+        if str(r["backend"]) != "gloo":
+            raise AssertionError(f"phase 8 (e): backend {r['backend']}")
+        for k, i in enumerate(r["idx"]):
+            got[int(i)] = (r["us"][k], int(r["iters"][k]),
+                           bool(r["converged"][k]))
+    if sorted(got) != list(range(n)):
+        raise AssertionError(f"phase 8 (e): rows {sorted(got)}")
+    du = 0.0
+    for i in range(n):
+        us, it, conv = got[i]
+        du = max(du, float(np.abs(us - ref.us[i].double().cpu().numpy()).max()))
+        if (it, conv) != (int(ref.iters[i]), bool(ref.converged[i])) or \
+                not du < ROWS_US_TOL:
+            raise AssertionError(
+                f"phase 8 (e): row {i} (iters {it}, converged {conv}) against "
+                f"the single-process solve (iters {int(ref.iters[i])}, "
+                f"converged {bool(ref.converged[i])}), us diff {du:.3e}")
+    launches = {name: int(sum(r["launches"][j] for r in results))
+                for j, (name, *_) in enumerate(STEP_KERNELS)}
+    return launches, (
+        f"phase 8 (e) two processes on {device} (group backend gloo, "
+        f"AGIMUS_* environment), tiny T={TINY_T}, {TINY_ROWS} rows each, "
+        f"{str(ref.us.dtype).replace('torch.', '')}, "
+        f"'xla' backend: {wall:.1f} s from their start, beside (a)-(d); "
+        f"rows equal the "
+        f"single-process solve by phase 4's rule (us max abs diff {du:.3e}, "
+        f"iters {ref.iters.tolist()}); launches {launches}")
+
+
+def run_multi_device_phase(device):
+    """Phase 8: the multi-device layer on one card, four slots of it: (a)
+    the batch-sharded SQP on K1-K4, (b) the batch-sharded FDDP and (c) the
+    batch CSQP on K5a/K5b, (d) the horizon-sharded Riccati in f64, (e) two
+    processes sharing the card, started before (a) and joined after (d).
+    Returns (launches per kernel, lines)."""
+    import tempfile
+
+    launches = {name: 0 for name, *_ in KERNELS}
+    lines = []
+    mesh = batch_mesh(device)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        started = start_two_processes(device, Path(tmp))
+        try:
+            for part in (run_sharded_sqp, run_sharded_fddp, run_batch_csqp,
+                         run_tsharded,
+                         lambda d, m: run_two_processes(d, started)):
+                t0 = time.perf_counter()
+                out = part(device, mesh)
+                got, line = out if isinstance(out, tuple) else ({}, out)
+                lines.append(f"{line} [{time.perf_counter() - t0:.1f} s]")
+                for name, n in got.items():
+                    launches[name] += n
+        finally:
+            for p in started[0][0]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -3575,9 +4242,11 @@ def main():
     # -- 6. the reference-shaped control loop and the runtime's I/O, then
     # -- 7. slice 12: the Tiago-Pro arm on the nj = 8 kernels, soft contact
     # and the quaternion free-flyer (also through the fused tick), the
-    # sensitivity sweep
+    # sensitivity sweep, then
+    # -- 8. slice 16: the mesh, the sharded solvers, the batch CSQP, the
+    # horizon-sharded Riccati, two processes on the card
     for number, phase in ((5, run_fallback_phase), (6, run_control_loop_phase),
-                          (7, run_slice12_phase)):
+                          (7, run_slice12_phase), (8, run_multi_device_phase)):
         t0 = time.perf_counter()
         path_launches, lines = phase(device)
         for line in lines:
@@ -3586,7 +4255,7 @@ def main():
             launches[name] += n
         print(f"phase {number} took {time.perf_counter() - t0:.1f} s")
 
-    # -- result: launches over the paths of phases 4-7, the max error over
+    # -- result: launches over the paths of phases 4-8, the max error over
     # every checked spec and size; times (wrapper and bare launch) and bounds at
     # the flagship tick shape for K1-K4 and at the batch path's shapes for
     # K5a/K5b (no single PyTorch call computes a fused stage or a dynamics
@@ -3618,4 +4287,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[3:4] == ["--worker"]:  # one process of phase 8 (e)
+        distributed_worker(sys.argv[1], sys.argv[2])
+    else:
+        main()

@@ -5,17 +5,24 @@ them without the whole script.
     python3 examples/chip_phase.py 3 5    # kernels vs plain, then phase 5
     python3 examples/chip_phase.py 7      # slice 12 (Tiago-Pro, soft contact,
                                           # the quaternion free-flyer)
+    python3 examples/chip_phase.py 8      # slice 16: the mesh, the sharded
+                                          # solvers, the batch CSQP, the
+                                          # horizon-sharded Riccati, two
+                                          # processes on one card
 
 Builds the kernels as `chip_smoke.py` does, prints the card's name and
 power limit, then for each phase asked for its lines, its launches per
-kernel (phases 4-7) and its time on the host clock. Phases: 3 (K1-K4 and
+kernel (phases 4-8) and its time on the host clock. Phases: 3 (K1-K4 and
 K5a/K5b against their plain versions, also their nj = 8 instances on the
 Tiago-Pro arm), 4 (the flagship, collision, visual-servoing and batch
 paths, the batch rows also on the horizon-parallel Riccati sweep), 5 (the
 "xla" backend and the single-scenario solvers), 6 (the control loop, its
 recording, checkpoint, debugger, ROS shim and publisher process), 7 (the
 Tiago-Pro arm on the nj = 8 kernels, soft contact and the quaternion
-free-flyer, also through the fused tick, the sensitivity sweep). Needs a
+free-flyer, also through the fused tick, the sensitivity sweep), 8 (the
+multi-device layer over four slots of the card: the batch-sharded SQP on
+K1-K4, the batch-sharded FDDP and the batch CSQP on K5a/K5b, the
+horizon-sharded Riccati in f64, two processes sharing the card). Needs a
 CUDA device.
 """
 
@@ -66,7 +73,8 @@ def main(phases):
     run = {3: kernels, 4: paths,
            5: lambda: cs.run_fallback_phase(device),
            6: lambda: cs.run_control_loop_phase(device),
-           7: lambda: cs.run_slice12_phase(device)}
+           7: lambda: cs.run_slice12_phase(device),
+           8: lambda: cs.run_multi_device_phase(device)}
     for phase in phases:
         t0 = time.perf_counter()
         launches, lines = run[phase]()
