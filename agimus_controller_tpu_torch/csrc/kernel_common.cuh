@@ -1,16 +1,14 @@
 // Device-side helpers shared by the kernel sources (not by the host-C++
-// build of `stage_kernels.cuh`).
+// build of `stage_kernels.cuh`, which holds the blocks' shapes).
 #pragma once
 
 #include <cuda_runtime.h>
 
+#if !defined(AG_NJ)
+#error "build each source with -DAG_NJ=<joint count> (ops/_build.py)"
+#endif
+
 namespace ag {
-
-constexpr int kBlock = 128;  // threads per block
-
-// n floats rounded up to 16 bytes, so the shared-memory region after them
-// starts aligned.
-__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 // dst[i] = src[i], i < n, by threads tid of nt: each thread issues G loads
 // before their stores, so a few threads do not wait on memory once per value.
@@ -46,6 +44,17 @@ __device__ __forceinline__ void copy_out(float* __restrict__ dst,
     done = 4 * n4;
   }
   for (int i = done + tid; i < n; i += nt) dst[i] = src[i];
+}
+
+// Sets the kernel's dynamic shared memory where its block needs more than
+// the 48 KB a launch gets without asking (with `static_bytes` of static
+// shared memory beside it); past the card's opt-in (227 KB a block on
+// Hopper) the call fails and its error is returned.
+inline cudaError_t allow_smem(const void* fn, size_t smem,
+                              size_t static_bytes) {
+  if (smem + static_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace ag

@@ -14,14 +14,15 @@
 // (`ag::gather_row`), so the call runs no torch op on the refs and the
 // tick's ring-row views are read in place. The constants and inputs come
 // in through `copy_in`, every thread's loads issued before its stores.
-//   K1: one node per LANES = 16 lanes (the power of two >= 2 NJ; 8 Panda
-//   nodes per 128-thread block). Every lane runs the primal step; lane k
-//   the RNEA tangent k of (q, v) and the M^-1 column k, and per cost item
-//   the residual's tangent k, writing Jacobian columns into the node's
-//   shared scratch; after a warp barrier each lane sums the Gauss-Newton
-//   terms of the output entries it owns (e = lane mod 16) in registers and
-//   stores each once, so a node's stores are consecutive across its lanes
-//   and no output is read back. The per-lane phases are the host/device
+//   K1: one node per LANES = 16 lanes (the power of two >= 2 NJ, at most
+//   32; 8 Panda nodes per 128-thread block, 4 at 16 joints or more). Every
+//   lane runs the primal step; lane k the RNEA tangent k of (q, v) and the
+//   M^-1 column k, and per cost item the residual's tangent k, writing
+//   Jacobian columns into the node's shared scratch (past 16 joints lane k
+//   also takes tangents k + 32, ...); after a warp barrier each lane sums
+//   the Gauss-Newton terms of the output entries it owns (e = lane mod
+//   LANES) in registers and stores each once, so a node's stores are
+//   consecutive across its lanes and no output is read back. The per-lane phases are the host/device
 //   functions `ag::k1_*` of stage_kernels.cuh, which a host harness runs
 //   lane by lane (tests/test_torch_stage_lanes.py).
 //   K2: 32 nodes per 64-thread block; warp 0 runs the step of the 32
@@ -43,8 +44,12 @@
 // registers (three blocks per SM instead of two) K1 measured slower. The
 // main paths call K1/K2 only at the tick shape.
 //
+// One library per joint count: the source is compiled with -DAG_NJ=<nj>
+// (ops/_build.py) and holds that one instance of each kernel.
+//
 // Launch discipline: on the caller's stream, no synchronisation, no
-// allocation; `ag_stage` returns cudaGetLastError() of its launch.
+// allocation; `ag_stage` returns cudaGetLastError() of its launch, or the
+// error of a block that needs more shared memory than the card gives one.
 
 #include <cuda_runtime.h>
 
@@ -55,8 +60,7 @@ namespace {
 
 using ag::copy_in;
 using ag::kBlock;
-
-constexpr int kK2Nodes = 32;  // K2 nodes per block; two warps
+using ag::kK2Nodes;
 
 template <int NJ>
 __global__ void __launch_bounds__(kBlock)
@@ -138,31 +142,21 @@ cudaError_t launch(bool derivs, int N, const float* x, const float* u,
                    int consts_len, int n_items, float* xnext, float* Fx,
                    float* Fu, float* l, float* lx, float* lu, float* lxx,
                    float* lxu, float* luu, cudaStream_t s) {
-  constexpr int NX = 2 * NJ;
+  const void* fn = derivs ? (const void*)stage_k1_kernel<NJ>
+                          : (const void*)stage_k2_kernel<NJ>;
+  const size_t smem =
+      sizeof(float) * ag::smem_floats<NJ>(derivs ? ag::KID_K1 : ag::KID_K2,
+                                          consts_len, W, n_items);
+  // with the static table
+  cudaError_t e = ag::allow_smem(fn, smem, sizeof(ag::RefTable));
+  if (e != cudaSuccess) return e;
   if (derivs) {
-    typedef ag::K1Shape<NJ> K;
-    constexpr int NPB = kBlock / K::LANES;
-    size_t smem = sizeof(float) *
-                  ((size_t)ag::round4(consts_len) + (size_t)NPB * K::scratch(W));
-    if (smem + sizeof(ag::RefTable) > 48 * 1024) {  // with the static table
-      cudaError_t e = cudaFuncSetAttribute(
-          stage_k1_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return e;
-    }
+    constexpr int NPB = kBlock / ag::K1Shape<NJ>::LANES;
     stage_k1_kernel<NJ><<<(N + NPB - 1) / NPB, kBlock, smem, s>>>(
         N, x, u, dt, t_idx, tab, W, consts, consts_len, n_items, xnext, Fx,
         Fu, l, lx, lu, lxx, lxu, luu);
   } else {
     constexpr int B = kK2Nodes;
-    size_t smem = sizeof(float) * ((size_t)ag::round4(consts_len) +
-                                   (size_t)B * (2 * NX + NJ + 1 + W));
-    if (smem + sizeof(ag::RefTable) > 48 * 1024) {  // with the static table
-      cudaError_t e = cudaFuncSetAttribute(
-          stage_k2_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return e;
-    }
     stage_k2_kernel<NJ><<<(N + B - 1) / B, 2 * B, smem, s>>>(
         N, x, u, dt, t_idx, tab, W, consts, consts_len, n_items, xnext, l);
   }
@@ -176,7 +170,7 @@ extern "C" {
 // x [N, 2nj], u [N, nj], dt [N], t_idx [N] (int64 node times), refs the
 // source table of the W-float ref row; outputs node-major in the shapes of
 // the JAX `make_pallas_stage` run (Fx, Fu, lx ... luu unused and may be
-// null when derivs is 0).
+// null when derivs is 0). nj must be the library's AG_NJ.
 int ag_stage(int nj, int derivs, int N, const float* x, const float* u,
              const float* dt, const long long* t_idx,
              const ag::RefTable* refs, int W, const float* consts,
@@ -185,24 +179,17 @@ int ag_stage(int nj, int derivs, int N, const float* x, const float* u,
              float* luu, void* stream) {
   if (N <= 0) return 0;
   if (refs->n < 0 || refs->n > ag::kMaxRefs) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nj == 8)
-    return (int)launch<8>(derivs != 0, N, x, u, dt, t_idx, *refs, W, consts,
-                          consts_len, n_items, xnext, Fx, Fu, l, lx, lu, lxx,
-                          lxu, luu, s);
-  if (nj == 7)
-    return (int)launch<7>(derivs != 0, N, x, u, dt, t_idx, *refs, W, consts,
-                          consts_len, n_items, xnext, Fx, Fu, l, lx, lu, lxx,
-                          lxu, luu, s);
-  if (nj == 2)
-    return (int)launch<2>(derivs != 0, N, x, u, dt, t_idx, *refs, W, consts,
-                          consts_len, n_items, xnext, Fx, Fu, l, lx, lu, lxx,
-                          lxu, luu, s);
-  return (int)cudaErrorInvalidValue;
+  if (nj != AG_NJ) return (int)cudaErrorInvalidValue;
+  return (int)launch<AG_NJ>(derivs != 0, N, x, u, dt, t_idx, *refs, W, consts,
+                            consts_len, n_items, xnext, Fx, Fu, l, lx, lu,
+                            lxx, lxu, luu, (cudaStream_t)stream);
 }
 
 const char* ag_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+// The joint count of this library's kernels.
+int ag_nj() { return AG_NJ; }
 
 }  // extern "C"

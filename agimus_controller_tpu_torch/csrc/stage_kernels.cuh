@@ -58,27 +58,36 @@ namespace ag {
 // ---- packed-constants layout; must match ops/cuda_costs.py --------------
 // per joint (stride 31): rot 9, trans 3, axis 3, type (0 revolute,
 // 1 prismatic), parent, mass, com 3, inertia 9, armature; then gravity 3;
-// then one 84-float descriptor per cost item. A collision item carries its
-// activation code and alpha, the ref-row offset of its `w_coll` scale (-1:
-// unscaled) and one 17-float block per geometry of its pair: parent joint
-// (-1: world-fixed), rot 9, trans 3, radius, half length, and the ref-row
-// offsets of the streamed rot/trans of a world-fixed geometry (else -1).
-// Items without geometry reuse its first slots: a visual-servoing item
-// holds the ref-row offsets of its object transform `wMo` (rot 9, trans
-// 3), a frame-velocity item its convention code (V_*); the frame-velocity
-// reference `ee_vel` sits at I_REF.
+// then one descriptor per cost item (`Desc<NJ>::STRIDE` floats, 84 up to
+// 7 joints): kind, weight, frame joint, frame rot 9 and trans 3, the
+// ref-row offsets of its reference, weights and translation reference
+// (-1: static), its static reference and weights (`Desc<NJ>::NS` each: the
+// widest static item, a state item's 2 NJ, at least 14). A collision item
+// carries its activation code and alpha, the ref-row offset of its
+// `w_coll` scale (-1: unscaled) and one 17-float block per geometry of its
+// pair: parent joint (-1: world-fixed), rot 9, trans 3, radius, half
+// length, and the ref-row offsets of the streamed rot/trans of a
+// world-fixed geometry (else -1). Items without geometry reuse its first
+// slots: a visual-servoing item holds the ref-row offsets of its object
+// transform `wMo` (rot 9, trans 3), a frame-velocity item its convention
+// code (V_*); the frame-velocity reference `ee_vel` sits at I_REF.
 constexpr int JSTRIDE = 31;
 constexpr int J_ROT = 0, J_TRANS = 9, J_AXIS = 12, J_TYPE = 15, J_PARENT = 16,
               J_MASS = 17, J_COM = 18, J_INER = 21, J_ARM = 30;
-constexpr int ISTRIDE = 84;
 constexpr int I_KIND = 0, I_WEIGHT = 1, I_PJOINT = 2, I_FROT = 3,
-              I_FTRANS = 12, I_REF = 15, I_W = 16, I_TRANS = 17, I_SREF = 18,
-              I_SW = 32, I_ACT = 46, I_ALPHA = 47, I_WCOLL = 48, I_GEOM = 49;
+              I_FTRANS = 12, I_REF = 15, I_W = 16, I_TRANS = 17, I_SREF = 18;
 constexpr int GSTRIDE = 17;
 constexpr int G_PJOINT = 0, G_ROT = 1, G_TRANS = 10, G_RADIUS = 13,
               G_HALFLEN = 14, G_REF_ROT = 15, G_REF_TRANS = 16;
-constexpr int I_WMO_ROT = I_GEOM, I_WMO_TRANS = I_GEOM + 1,
-              I_VEL_FRAME = I_GEOM + 2;
+// The descriptor's slots after its static reference and weights, at NJ
+// joints.
+template <int NJ> struct Desc {
+  static constexpr int NS = 2 * NJ > 14 ? 2 * NJ : 14;
+  static constexpr int SW = I_SREF + NS, ACT = SW + NS, ALPHA = ACT + 1,
+                       WCOLL = ACT + 2, GEOM = ACT + 3, WMO_ROT = GEOM,
+                       WMO_TRANS = GEOM + 1, VEL_FRAME = GEOM + 2,
+                       STRIDE = GEOM + 2 * GSTRIDE + 1;
+};
 constexpr int K_STATE = 0, K_CONTROL = 1, K_CONTROL_GRAV = 2,
               K_FRAME_PLACEMENT = 3, K_FRAME_TRANSLATION = 4,
               K_FRAME_ROTATION = 5, K_COLLISION = 6, K_VISUAL_SERVOING = 7,
@@ -87,10 +96,23 @@ constexpr int V_WORLD = 0, V_LOCAL = 1, V_LOCAL_WORLD_ALIGNED = 2;
 constexpr int A_WEIGHTED_QUAD = 0, A_EXP = 1, A_QUAD_EXP = 2;
 
 // Lanes that run one node: the power of two >= n (K1, K3 and K5b: n = 2 NJ
-// = nx; K5a: n = NJ + 1).
+// = nx; K5a: n = NJ + 1), at most one warp. Where n passes 32, lane k takes
+// the node's items k, k + 32, ... (a tangent, a mass-matrix column, an
+// output component).
 constexpr int node_lanes(int n) {
   return n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;
 }
+
+// Whether lane `lane` of LANES owns item e of a node's N strided items
+// (e mod LANES); where the node has a lane per item, whether it is item e.
+template <int LANES, int N>
+AG_HD bool owns_item(int lane, int e) {
+  return (N <= LANES ? e : e % LANES) == lane;
+}
+
+// Rounds of a node's N strided items on LANES lanes: lane k takes item
+// r LANES + k in round r (one round, the item of the lane, where N <= LANES).
+AG_HD constexpr int rounds(int n, int lanes) { return (n + lanes - 1) / lanes; }
 
 // ---- forward-mode dual number ---------------------------------------------
 struct Dual {
@@ -613,8 +635,8 @@ AG_FN S collision_residual(const float* C, const float* D, const float* row,
   M3<S> oR[NJ];
   V3<S> op[NJ];
   world_placements<NJ, S>(C, q, oR, op);
-  const float* G1 = D + I_GEOM;
-  const float* G2 = D + I_GEOM + GSTRIDE;
+  const float* G1 = D + Desc<NJ>::GEOM;
+  const float* G2 = D + Desc<NJ>::GEOM + GSTRIDE;
   M3<S> R1, R2;
   V3<S> p1, p2;
   geometry_pose<S>(G1, row, oR, op, &R1, &p1);
@@ -646,7 +668,7 @@ AG_FN void frame_velocity(const float* C, const float* D, const M3<S>* oR,
       v0 = v0 + scale<S>(v[i], matvec(oR[i], ax));
     }
   }
-  int conv = (int)D[I_VEL_FRAME];
+  int conv = (int)D[Desc<NJ>::VEL_FRAME];
   if (conv != V_WORLD) v0 = v0 - cross(pf, w);
   if (conv == V_LOCAL) {
     w = mattvec(Rf, w);
@@ -684,8 +706,8 @@ AG_FN int frame_residual(const float* C, const float* D, const float* row,
   V3<S> refp = load3<S>(row + (int)D[I_TRANS]);
   if (kind == K_VISUAL_SERVOING) {
     // target wMo * oMf_ref (Pallas `_pose_target_c`, :215-221)
-    M3<S> wR = load9<S>(row + (int)D[I_WMO_ROT]);
-    V3<S> wp = load3<S>(row + (int)D[I_WMO_TRANS]);
+    M3<S> wR = load9<S>(row + (int)D[Desc<NJ>::WMO_ROT]);
+    V3<S> wp = load3<S>(row + (int)D[Desc<NJ>::WMO_TRANS]);
     refp = matvec(wR, refp) + wp;
     refR = matmul(wR, refR);
   }
@@ -706,9 +728,10 @@ AG_FN int frame_residual(const float* C, const float* D, const float* row,
 }
 
 // ---- cost items ------------------------------------------------------------
+template <int NJ>
 AG_HD float item_weight(const float* D, const float* row, int i) {
   int off = (int)D[I_W];
-  return off >= 0 ? row[off + i] : D[I_SW + i];
+  return off >= 0 ? row[off + i] : D[Desc<NJ>::SW + i];
 }
 AG_HD float item_ref(const float* D, const float* row, int i) {
   int off = (int)D[I_REF];
@@ -717,20 +740,21 @@ AG_HD float item_ref(const float* D, const float* row, int i) {
 
 // Activation of a residual r [nr]: returns a(r), fills da/dr and the
 // Gauss-Newton diagonal of d2a/dr2 (Pallas `_activation_c`, :188-208).
+template <int NJ>
 AG_FN float activation(const float* D, const float* row, int nr,
                        const float* r, float* a_dr, float* a_drr) {
-  int act = (int)D[I_ACT];
+  int act = (int)D[Desc<NJ>::ACT];
   if (act == A_WEIGHTED_QUAD) {
     float a = 0.f;
     for (int i = 0; i < nr; ++i) {
-      float w = item_weight(D, row, i);
+      float w = item_weight<NJ>(D, row, i);
       a += 0.5f * w * r[i] * r[i];
       a_dr[i] = w * r[i];
       a_drr[i] = w;
     }
     return a;
   }
-  float alpha = D[I_ALPHA];
+  float alpha = D[Desc<NJ>::ALPHA];
   float rr = 0.f;
   for (int i = 0; i < nr; ++i) rr += r[i] * r[i];
   if (act == A_EXP) {
@@ -760,19 +784,19 @@ AG_FN float item_costs(const float* C, int it, const float* row,
                        const M3<float>* R, const V3<float>* P, float* lx,
                        float* lu, float* lxx, float* lxu, float* luu) {
   constexpr int NX = 2 * NJ;
-  const float* D = C + NJ * JSTRIDE + 3 + it * ISTRIDE;
+  const float* D = C + NJ * JSTRIDE + 3 + it * Desc<NJ>::STRIDE;
   int kind = (int)D[I_KIND];
   float wgt = D[I_WEIGHT];
   // streamed w_collision_avoidance scale of an update=True collision item
   // (Pallas :482-483, :631-632)
-  if ((int)D[I_WCOLL] >= 0) wgt *= row[(int)D[I_WCOLL]];
+  if ((int)D[Desc<NJ>::WCOLL] >= 0) wgt *= row[(int)D[Desc<NJ>::WCOLL]];
   float li = 0.f;
   if (kind == K_STATE || kind == K_CONTROL) {
     int n = kind == K_STATE ? NX : NJ;
     for (int i = 0; i < n; ++i) {
       float xi = kind == K_CONTROL ? u[i] : (i < NJ ? q[i] : v[i - NJ]);
       float r = xi - item_ref(D, row, i);
-      float w = item_weight(D, row, i);
+      float w = item_weight<NJ>(D, row, i);
       li += 0.5f * w * r * r;
       if (DERIVS) {
         if (kind == K_STATE) {
@@ -806,7 +830,7 @@ AG_FN float item_costs(const float* C, int it, const float* row,
     }
     float wr[NJ];
     for (int i = 0; i < NJ; ++i) {
-      float w = item_weight(D, row, i);
+      float w = item_weight<NJ>(D, row, i);
       float r = u[i] - g[i];
       wr[i] = w * r;
       li += 0.5f * w * r * r;
@@ -815,18 +839,18 @@ AG_FN float item_costs(const float* C, int it, const float* row,
       // J_u = I, J_x = [-Jg, 0]
       for (int i = 0; i < NJ; ++i) {
         lu[i] += wgt * wr[i];
-        luu[i * NJ + i] += wgt * item_weight(D, row, i);
+        luu[i * NJ + i] += wgt * item_weight<NJ>(D, row, i);
       }
       for (int k = 0; k < NJ; ++k) {
         float s = 0.f;
         for (int i = 0; i < NJ; ++i) s += Jg[k][i] * wr[i];
         lx[k] += -wgt * s;
         for (int i = 0; i < NJ; ++i)
-          lxu[k * NJ + i] += -wgt * Jg[k][i] * item_weight(D, row, i);
+          lxu[k * NJ + i] += -wgt * Jg[k][i] * item_weight<NJ>(D, row, i);
         for (int k2 = 0; k2 <= k; ++k2) {
           float h = 0.f;
           for (int i = 0; i < NJ; ++i)
-            h += Jg[k][i] * item_weight(D, row, i) * Jg[k2][i];
+            h += Jg[k][i] * item_weight<NJ>(D, row, i) * Jg[k2][i];
           lxx[k * NX + k2] += wgt * h;
           if (k2 != k) lxx[k2 * NX + k] += wgt * h;
         }
@@ -855,7 +879,7 @@ AG_FN float item_costs(const float* C, int it, const float* row,
       nr = frame_residual<NJ, float>(C, D, row, kind, q, v, r);
     }
     float a_dr[6], a_drr[6];
-    li = activation(D, row, nr, r, a_dr, a_drr);
+    li = activation<NJ>(D, row, nr, r, a_dr, a_drr);
     if (DERIVS) {
       for (int k = 0; k < nd; ++k) {
         float s = 0.f;
@@ -954,21 +978,23 @@ AG_FN void dynamics_node(const float* C, const float* q, const float* v,
 }
 
 // ---- K5b: one node across the lanes of a warp slice -----------------------
-// LANES = the power of two >= 2 NJ lanes run one node (16 for the Panda).
-// The primal step is computed once per node and shared through the node's
-// scratch; the phases, with a warp barrier between them (the .cu kernel
-// places them):
-//   k5_place      lane i < NJ joint i's placement at q_i;
-//   k5_mass_bias  lane j < NJ column j of the mass matrix, lane NJ the
-//                 bias rnea(q, v, 0) and the joints' velocity values;
+// LANES = the power of two >= 2 NJ lanes run one node (16 for the Panda), at
+// most 32: past 16 joints a lane takes items lane, lane + 32, ... of each
+// phase (2 tangents on lanes 0-1 at NJ = 17). The primal step is computed
+// once per node and shared through the node's scratch; the phases, with a
+// warp barrier between them (the .cu kernel places them):
+//   k5_place      joint i's placement at q_i, on lane i mod LANES;
+//   k5_mass_bias  pass j < NJ column j of the mass matrix, pass NJ the bias
+//                 rnea(q, v, 0) and the joints' velocity values, pass j on
+//                 lane j mod LANES;
 //   k5_solve      lane 0 the Cholesky factor L, a = M^-1 (u - b) and the
 //                 joints' acceleration values and forces of rnea(q, v, a)
 //                 (one serial chain; no lane waits on it less by repeating
 //                 it);
-//   k5_tangent    lane i < NX x+ component i; lane k < NX tangent k of
-//                 (q, v) of rnea(q, v, a): its derivative parts only,
-//                 forward mode around the shared primal values -> Fx
-//                 column k; lane j < NJ the M^-1 column j -> Fu column j.
+//   k5_tangent    tangent k < NX on lane k mod LANES: x+ component k and
+//                 the derivative parts of rnea(q, v, a) along tangent k of
+//                 (q, v), forward mode around the shared primal values ->
+//                 Fx column k; for k < NJ the M^-1 column k -> Fu column k.
 // x+, Fx and Fu go to the node's output scratch; the kernel stores a
 // block's outputs together, at consecutive addresses.
 template <int NJ> struct K5Shape {
@@ -1001,11 +1027,13 @@ AG_HD V3<float>* k5_J(float* S) {  // [NJ][JV]
   return reinterpret_cast<V3<float>*>(S + K5Shape<NJ>::S_J);
 }
 
-template <int NJ>
+template <int NJ, int LANES>
 AG_FN void k5_place(int lane, const float* C, const float* xn, float* S) {
-  if (lane < NJ)
-    joint_transform<float>(C, lane, xn[lane], k5_R<NJ>(S)[lane],
-                           k5_P<NJ>(S)[lane]);
+  for (int r = 0; r < rounds(NJ, LANES); ++r) {
+    const int i = r * LANES + lane;
+    if (i >= NJ) break;
+    joint_transform<float>(C, i, xn[i], k5_R<NJ>(S)[i], k5_P<NJ>(S)[i]);
+  }
 }
 
 // The parent of joint i: i - 1 over a serial chain (CHAIN), where the
@@ -1146,23 +1174,29 @@ AG_FN void k5_primal(const float* C, const float* xn, const float* a,
   }
 }
 
-// VALUES as `k5_bias`: K5b keeps the velocity values, K5a does not.
-template <int NJ, bool VALUES = true>
+// Passes j = lane, lane + LANES, ... <= NJ: j < NJ the mass-matrix column
+// j, j = NJ the bias. VALUES as `k5_bias`: K5b keeps the velocity values,
+// K5a does not.
+template <int NJ, int LANES, bool VALUES = true>
 AG_FN void k5_mass_bias(int lane, const float* C, const float* xn,
                         const ForceSlots& fs, float* S) {
   typedef K5Shape<NJ> K;
   const M3<float>* R = k5_R<NJ>(S);
   const V3<float>* P = k5_P<NJ>(S);
-  if (lane < NJ) {
-    if (is_chain<NJ>(C))
-      mass_matrix_column_chain<NJ>(C, R, P, lane, fs, S + K::S_M);
-    else
-      mass_matrix_column<NJ>(C, R, P, lane, S + K::S_M);
-  } else if (lane == NJ) {
-    if (is_chain<NJ>(C))
-      k5_bias<NJ, true, VALUES>(C, xn, fs, S);
-    else
-      k5_bias<NJ, false, VALUES>(C, xn, fs, S);
+  for (int r = 0; r < rounds(NJ + 1, LANES); ++r) {
+    const int j = r * LANES + lane;
+    if (j > NJ) break;
+    if (j < NJ) {
+      if (is_chain<NJ>(C))
+        mass_matrix_column_chain<NJ>(C, R, P, j, fs, S + K::S_M);
+      else
+        mass_matrix_column<NJ>(C, R, P, j, S + K::S_M);
+    } else {
+      if (is_chain<NJ>(C))
+        k5_bias<NJ, true, VALUES>(C, xn, fs, S);
+      else
+        k5_bias<NJ, false, VALUES>(C, xn, fs, S);
+    }
   }
 }
 
@@ -1286,14 +1320,14 @@ AG_FN void k5_tangent_rnea(const float* C, const float* xn, const float* S,
   }
 }
 
+// Tangent k of the node: x+ component k, Fx column k and, for k < NJ, Fu
+// column k.
 template <int NJ>
-AG_FN void k5_tangent(int lane, const float* C, const float* xn, float h,
-                      const float* S, const ForceSlots& fs, float* xo,
-                      float* fx, float* fu) {
+AG_FN void k5_tangent_one(int k, const float* C, const float* xn, float h,
+                          const float* S, const ForceSlots& fs, float* xo,
+                          float* fx, float* fu) {
   typedef K5Shape<NJ> K;
   constexpr int NX = K::NX;
-  if (lane >= NX) return;
-  const int k = lane;
   const float* L = S + K::S_L;
   const float* a = S + K::S_A;
   const float h2 = h * h;
@@ -1332,13 +1366,27 @@ AG_FN void k5_tangent(int lane, const float* C, const float* xn, float h,
   }
 }
 
+// Lane `lane` takes the tangents lane, lane + LANES, ... < NX.
+template <int NJ>
+AG_FN void k5_tangent(int lane, const float* C, const float* xn, float h,
+                      const float* S, const ForceSlots& fs, float* xo,
+                      float* fx, float* fu) {
+  typedef K5Shape<NJ> K;
+  for (int r = 0; r < rounds(K::NX, K::LANES); ++r) {
+    const int k = r * K::LANES + lane;
+    if (k >= K::NX) break;
+    k5_tangent_one<NJ>(k, C, xn, h, S, fs, xo, fx, fu);
+  }
+}
+
 // ---- K5a: the primal step of one node across NJ + 1 lanes -----------------
 // LANES = the power of two >= NJ + 1 lanes run one node (8 for the Panda,
-// 4 for the 2-DoF arm), in K5b's first two phases and a finish of its own,
-// with a warp barrier between them:
-//   k5_place            lane i < NJ joint i's placement at q_i;
-//   k5_mass_bias<NJ, false>  lane j < NJ column j of the mass matrix,
-//                       lane NJ the bias rnea(q, v, 0);
+// 4 for the 2-DoF arm, 32 from 16 joints on), in K5b's first two phases and
+// a finish of its own, with a warp barrier between them:
+//   k5_place            joint i's placement at q_i, on lane i mod LANES;
+//   k5_mass_bias<NJ, LANES, false>  pass j < NJ column j of the mass
+//                       matrix, pass NJ the bias rnea(q, v, 0), pass j on
+//                       lane j mod LANES;
 //   k5a_finish          lane 0 the Cholesky factor, a = M^-1 (u - b) and
 //                       x+ (K5b's `k5_solve` also keeps L, a and the
 //                       forces of rnea(q, v, a) for its tangents; K5a needs
@@ -1409,16 +1457,20 @@ AG_FN void gather_row(const RefTable& tab, long long t, int lane, int lanes,
 }
 
 // ---- K1: one node across the lanes of a warp slice ------------------------
-// LANES = the power of two >= 2 NJ lanes run one node (16 for the Panda).
+// LANES = the power of two >= 2 NJ lanes run one node (16 for the Panda), at
+// most 32: past 16 joints lane k takes tangents k, k + 32, ... (lanes 0-1
+// two each at NJ = 17, a node's chain about twice as long).
 // Phases, with a warp barrier between them (the .cu kernel places them):
 //   k1_load      the node's x, u, dt and gathered ref row into its scratch;
 //   k1_dynamics  every lane the primal step (redundantly; one lane per
-//                component stores x+), then lane k the RNEA tangent k of
-//                (q, v) -> Fx column k and the M^-1 column k -> Fu column k,
-//                into the scratch;
+//                component stores x+), then lane k the RNEA tangents k,
+//                k + LANES, ... of (q, v) -> Fx columns and the M^-1
+//                columns k, k + LANES, ... < NJ -> Fu columns, into the
+//                scratch;
 //   per cost item, in the table's order:
-//     k1_item_tangent     every lane the item's value; lane k its tangent
-//                         k -> row k of the item's Jacobian in the scratch;
+//     k1_item_tangent     every lane the item's value; lane k its tangents
+//                         k, k + LANES, ... -> those rows of the item's
+//                         Jacobian in the scratch;
 //     k1_item_accumulate  each lane adds the item's Gauss-Newton terms to
 //                         the output entries it owns (e = lane mod LANES of
 //                         the node's lx | lu | lxx | lxu | luu), in registers;
@@ -1502,55 +1554,66 @@ AG_FN void k1_dynamics(int lane, const float* C, float* S, K1Lane<NJ>& st,
   chol_solve<NJ>(L, rhs, a);
   for (int i = 0; i < NJ; ++i) {
     float vn = vr[i] + h * a[i];
-    if (lane == i) xo[i] = qr[i] + h * vn;
-    if (lane == NJ + i) xo[NJ + i] = vn;
+    if (owns_item<LANES, NX>(lane, i)) xo[i] = qr[i] + h * vn;
+    if (owns_item<LANES, NX>(lane, NJ + i)) xo[NJ + i] = vn;
   }
-  // B: lane k the tangent k of (q, v); lanes >= NX repeat one and store
-  // nothing. da/d(q,v) = -M^-1 d rnea(q, v, a)/d(q, v), a held fixed.
+  // B: lane k the tangents k, k + LANES, ... of (q, v); in the first round
+  // lanes >= NX repeat one and store nothing, in a later round a lane past
+  // the last tangent stops. da/d(q,v) = -M^-1 d rnea(q, v, a)/d(q, v), a
+  // held fixed.
   const float h2 = h * h;
-  const int k = lane < NX ? lane : lane - NX;
-  Dual qd[NJ], vd[NJ], ad[NJ], td[NJ];
-  for (int i = 0; i < NJ; ++i) {
-    qd[i] = Dual(qr[i], k == i ? 1.f : 0.f);
-    vd[i] = Dual(vr[i], k == NJ + i ? 1.f : 0.f);
-    ad[i] = Dual(a[i]);
-  }
-  M3<Dual> Rd[NJ];
-  V3<Dual> Pd[NJ];
-  joint_transforms<NJ, Dual>(C, qd, Rd, Pd);
-  rnea<NJ, Dual>(C, Rd, Pd, vd, ad, td);
-  float col[NJ], da[NJ];
-  for (int i = 0; i < NJ; ++i) col[i] = -td[i].d;
-  chol_solve<NJ>(L, col, da);
   float* fx = S + K::S_FX;
-  if (lane < NX) {
-    // semi-implicit Euler chain rule: v+ = v + dt a ; q+ = q + dt v+
+  for (int r = 0; r < rounds(NX, LANES); ++r) {
+    const int t = r * LANES + lane;
+    if (r > 0 && t >= NX) break;
+    const int k = t < NX ? t : t - NX;
+    Dual qd[NJ], vd[NJ], ad[NJ], td[NJ];
     for (int i = 0; i < NJ; ++i) {
-      if (k < NJ) {
-        fx[i * NX + k] = (k == i ? 1.f : 0.f) + h2 * da[i];
-        fx[(NJ + i) * NX + k] = h * da[i];
-      } else {
-        fx[i * NX + k] = (k - NJ == i ? h : 0.f) + h2 * da[i];
-        fx[(NJ + i) * NX + k] = (k - NJ == i ? 1.f : 0.f) + h * da[i];
+      qd[i] = Dual(qr[i], k == i ? 1.f : 0.f);
+      vd[i] = Dual(vr[i], k == NJ + i ? 1.f : 0.f);
+      ad[i] = Dual(a[i]);
+    }
+    M3<Dual> Rd[NJ];
+    V3<Dual> Pd[NJ];
+    joint_transforms<NJ, Dual>(C, qd, Rd, Pd);
+    rnea<NJ, Dual>(C, Rd, Pd, vd, ad, td);
+    float col[NJ], da[NJ];
+    for (int i = 0; i < NJ; ++i) col[i] = -td[i].d;
+    chol_solve<NJ>(L, col, da);
+    if (t < NX) {
+      // semi-implicit Euler chain rule: v+ = v + dt a ; q+ = q + dt v+
+      for (int i = 0; i < NJ; ++i) {
+        if (k < NJ) {
+          fx[i * NX + k] = (k == i ? 1.f : 0.f) + h2 * da[i];
+          fx[(NJ + i) * NX + k] = h * da[i];
+        } else {
+          fx[i * NX + k] = (k - NJ == i ? h : 0.f) + h2 * da[i];
+          fx[(NJ + i) * NX + k] = (k - NJ == i ? 1.f : 0.f) + h * da[i];
+        }
       }
     }
   }
-  // Fu: lane j < NJ the M^-1 column j
-  const int j = lane % NJ;
-  float e[NJ], mcol[NJ];
-  for (int i = 0; i < NJ; ++i) e[i] = i == j ? 1.f : 0.f;
-  chol_solve<NJ>(L, e, mcol);
+  // Fu: lane j the M^-1 columns j, j + LANES, ... < NJ (in the first round
+  // lanes >= NJ repeat one and store nothing)
   float* fu = S + K::S_FU;
-  if (lane < NJ) {
-    for (int i = 0; i < NJ; ++i) {
-      fu[i * NJ + j] = h2 * mcol[i];
-      fu[(NJ + i) * NJ + j] = h * mcol[i];
+  for (int r = 0; r < rounds(NJ, LANES); ++r) {
+    const int t = r * LANES + lane;
+    if (r > 0 && t >= NJ) break;
+    const int j = t % NJ;
+    float e[NJ], mcol[NJ];
+    for (int i = 0; i < NJ; ++i) e[i] = i == j ? 1.f : 0.f;
+    chol_solve<NJ>(L, e, mcol);
+    if (t < NJ) {
+      for (int i = 0; i < NJ; ++i) {
+        fu[i * NJ + j] = h2 * mcol[i];
+        fu[(NJ + i) * NJ + j] = h * mcol[i];
+      }
     }
   }
 }
 
-// Phase C for cost item `it`: every lane its value (into st.l), lane k < nd
-// row k of its Jacobian; lane 0 the item vectors (state/control: r and w;
+// Phase C for cost item `it`: every lane its value (into st.l), lane k the
+// rows k, k + LANES, ... < nd of its Jacobian; lane 0 the item vectors (state/control: r and w;
 // control_grav: w r and w; the residual kinds: da/dr and the Gauss-Newton
 // diagonal).
 template <int NJ, int LANES>
@@ -1558,7 +1621,7 @@ AG_FN K1Item k1_item_tangent(int lane, const float* C, int it, float* S,
                              K1Lane<NJ>& st) {
   typedef K1Shape<NJ> K;
   constexpr int NX = K::NX;
-  const float* D = C + NJ * JSTRIDE + 3 + it * ISTRIDE;
+  const float* D = C + NJ * JSTRIDE + 3 + it * Desc<NJ>::STRIDE;
   const float* row = S + K::S_ROW;
   const float* x = S + K::S_X;  // q, v
   const float* u = S + K::S_U;
@@ -1569,14 +1632,15 @@ AG_FN K1Item k1_item_tangent(int lane, const float* C, int it, float* S,
   o.kind = (int)D[I_KIND];
   o.wgt = D[I_WEIGHT];
   // streamed w_collision_avoidance scale of an update=True collision item
-  if ((int)D[I_WCOLL] >= 0) o.wgt *= row[(int)D[I_WCOLL]];
+  if ((int)D[Desc<NJ>::WCOLL] >= 0)
+    o.wgt *= row[(int)D[Desc<NJ>::WCOLL]];
   float li = 0.f;
   if (o.kind == K_STATE || o.kind == K_CONTROL) {
     const int n = o.kind == K_STATE ? NX : NJ;
     for (int i = 0; i < n; ++i) {
       float xi = o.kind == K_CONTROL ? u[i] : x[i];
       float r = xi - item_ref(D, row, i);
-      float w = item_weight(D, row, i);
+      float w = item_weight<NJ>(D, row, i);
       li += 0.5f * w * r * r;
       if (lane == 0) {
         v1[i] = r;
@@ -1586,42 +1650,56 @@ AG_FN K1Item k1_item_tangent(int lane, const float* C, int it, float* S,
     o.nd = 0;
     o.nr = n;
   } else if (o.kind == K_CONTROL_GRAV) {
-    // J[k][i] = d g_i / d q_k
-    const int k = lane % NJ;
-    Dual qd[NJ], zd[NJ], td[NJ];
-    for (int i = 0; i < NJ; ++i) qd[i] = Dual(x[i], i == k ? 1.f : 0.f);
-    M3<Dual> Rd[NJ];
-    V3<Dual> Pd[NJ];
-    joint_transforms<NJ, Dual>(C, qd, Rd, Pd);
-    rnea<NJ, Dual>(C, Rd, Pd, zd, zd, td);
-    for (int i = 0; i < NJ; ++i) {
-      if (lane < NJ) J[k * NJ + i] = td[i].d;
-      float w = item_weight(D, row, i);
-      float r = u[i] - td[i].v;
-      li += 0.5f * w * r * r;
-      if (lane == 0) {
-        v1[i] = w * r;
-        v2[i] = w;
+    // J[k][i] = d g_i / d q_k; lane k the tangents k, k + LANES, ... < NJ
+    // (in the first round lanes >= NJ repeat one and store nothing), the
+    // value from the first round's pass
+    for (int r = 0; r < rounds(NJ, LANES); ++r) {
+      const int t = r * LANES + lane;
+      if (r > 0 && t >= NJ) break;
+      const int k = t % NJ;
+      Dual qd[NJ], zd[NJ], td[NJ];
+      for (int i = 0; i < NJ; ++i) qd[i] = Dual(x[i], i == k ? 1.f : 0.f);
+      M3<Dual> Rd[NJ];
+      V3<Dual> Pd[NJ];
+      joint_transforms<NJ, Dual>(C, qd, Rd, Pd);
+      rnea<NJ, Dual>(C, Rd, Pd, zd, zd, td);
+      for (int i = 0; i < NJ; ++i) {
+        if (t < NJ) J[k * NJ + i] = td[i].d;
+        if (r > 0) continue;
+        float w = item_weight<NJ>(D, row, i);
+        float r = u[i] - td[i].v;
+        li += 0.5f * w * r * r;
+        if (lane == 0) {
+          v1[i] = w * r;
+          v2[i] = w;
+        }
       }
     }
     o.nd = NJ;
     o.nr = NJ;
   } else {  // frame, visual-servoing and collision kinds: residual of q;
-            // frame_velocity: of q and v. J[k][i] = d r_i / d x_k
+            // frame_velocity: of q and v. J[k][i] = d r_i / d x_k; lane k
+            // the tangents k, k + LANES, ... < nd (in the first round lanes
+            // >= nd take tangent 0 and store nothing), the residual from the
+            // first round's pass
     o.nd = o.kind == K_FRAME_VELOCITY ? NX : NJ;
-    const int k = lane < o.nd ? lane : 0;
-    Dual qd[NJ], vd[NJ], rd[6];
-    for (int i = 0; i < NJ; ++i) {
-      qd[i] = Dual(x[i], i == k ? 1.f : 0.f);
-      vd[i] = Dual(x[NJ + i], NJ + i == k ? 1.f : 0.f);
-    }
-    o.nr = frame_residual<NJ, Dual>(C, D, row, o.kind, qd, vd, rd);
     float r[6], a_dr[6], a_drr[6];
-    for (int i = 0; i < 6; ++i) {
-      r[i] = rd[i].v;
-      if (i < o.nr && lane < o.nd) J[k * 6 + i] = rd[i].d;
+    for (int rnd = 0; rnd < rounds(NX, LANES); ++rnd) {
+      const int t = rnd * LANES + lane;
+      if (rnd > 0 && t >= o.nd) break;
+      const int k = t < o.nd ? t : 0;
+      Dual qd[NJ], vd[NJ], rd[6];
+      for (int i = 0; i < NJ; ++i) {
+        qd[i] = Dual(x[i], i == k ? 1.f : 0.f);
+        vd[i] = Dual(x[NJ + i], NJ + i == k ? 1.f : 0.f);
+      }
+      o.nr = frame_residual<NJ, Dual>(C, D, row, o.kind, qd, vd, rd);
+      for (int i = 0; i < 6; ++i) {
+        if (rnd == 0) r[i] = rd[i].v;
+        if (i < o.nr && t < o.nd) J[k * 6 + i] = rd[i].d;
+      }
     }
-    li = activation(D, row, o.nr, r, a_dr, a_drr);
+    li = activation<NJ>(D, row, o.nr, r, a_dr, a_drr);
     if (lane == 0) {
       for (int i = 0; i < o.nr; ++i) {
         v1[i] = a_dr[i];
@@ -1858,6 +1936,75 @@ AG_FN void terminal_item_values(int lane, const float* xn, const float* row,
   for (int it = lane; it < n_items; it += 32)
     vals[it] = item_costs<NJ, false>(C, it, row, q, v, un, R, P, nullptr,
                                      nullptr, nullptr, nullptr, nullptr);
+}
+
+// ---- the kernels' blocks ----------------------------------------------------
+constexpr int kBlock = 128;    // threads per block of K1, K3, K5a and K5b
+constexpr int kK2Nodes = 32;   // K2 nodes per block; two warps
+constexpr int kTermNodes = 4;  // K4 nodes (warps) per block
+
+// n floats rounded up to 16 bytes, so the shared-memory region after them
+// starts aligned.
+AG_HD constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// K5a's shared memory (floats) after the constants: per block the inputs
+// X [NPB, NX], U [NPB, NJ], H [NPB], the output XO [NPB, NX], the node
+// scratch W [NPB, K5aShape::SIZE] and the threads' force slots
+// DF [6 NJ, kBlock] (`ForceSlots`, thread-minor); each region starts
+// 16-byte aligned.
+template <int NJ> struct K5aBlock {
+  typedef K5aShape<NJ> K;
+  static constexpr int NX = 2 * NJ, NPB = kBlock / K::LANES;
+  static constexpr int X = 0, U = X + round4(NPB * NX),
+                       H = U + round4(NPB * NJ), XO = H + round4(NPB),
+                       W = XO + round4(NPB * NX),
+                       DF = W + round4(NPB * K::SIZE),
+                       SIZE = DF + 6 * NJ * kBlock;
+};
+
+// K5b's shared memory (floats) after the constants: per block the inputs
+// X [NPB, NX], U [NPB, NJ], H [NPB], the outputs XO [NPB, NX],
+// FX [NPB, NX*NX], FU [NPB, NX*NJ] (a block's nodes are contiguous, as in
+// the outputs), the node scratch W [NPB, SIZE] and the threads' force
+// slots DF [6 NJ, kBlock] (`ForceSlots`, thread-minor); each region starts
+// 16-byte aligned.
+template <int NJ> struct K5Block {
+  typedef K5Shape<NJ> K;
+  static constexpr int NX = K::NX, NPB = kBlock / K::LANES;
+  static constexpr int X = 0, U = X + round4(NPB * NX),
+                       H = U + round4(NPB * NJ), XO = H + round4(NPB),
+                       FX = XO + round4(NPB * NX),
+                       FU = FX + round4(NPB * NX * NX),
+                       W = FU + round4(NPB * NX * NJ),
+                       DF = W + round4(NPB * K::SIZE),
+                       SIZE = DF + 6 * NJ * kBlock;
+};
+
+// The kernels by number (`smem_floats`; `ops/cuda_dynamics.py` KERNEL_IDS).
+enum KernelId { KID_K1 = 1, KID_K2, KID_K3, KID_K4, KID_K5A, KID_K5B };
+
+// Dynamic shared memory of one block of `kernel` in floats: the packed
+// constants, then K1/K3 the node scratch [kBlock / LANES, K1Shape::scratch],
+// K2 per node x, x+, u, dt and the ref row, K4 the states [kTermNodes, NX],
+// the ref rows and the item values, K5a/K5b their `K5aBlock`/`K5Block`.
+// `ops/cuda_dynamics.py::smem_bytes` computes the same.
+template <int NJ>
+AG_HD int smem_floats(int kernel, int consts_len, int W, int n_items) {
+  typedef K1Shape<NJ> K;
+  const int c = round4(consts_len);
+  switch (kernel) {
+    case KID_K1:
+    case KID_K3:
+      return c + (kBlock / K::LANES) * K::scratch(W);
+    case KID_K2:
+      return c + kK2Nodes * (2 * K::NX + NJ + 1 + W);
+    case KID_K4:
+      return c + round4(kTermNodes * K::NX) + kTermNodes * (W + n_items);
+    case KID_K5A:
+      return c + K5aBlock<NJ>::SIZE;
+    default:
+      return c + K5Block<NJ>::SIZE;
+  }
 }
 
 }  // namespace ag

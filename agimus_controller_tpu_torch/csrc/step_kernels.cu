@@ -8,9 +8,10 @@
 // and outputs stay node-major, as the callers hold them (the Pallas kernel
 // pads to 1024-node blocks in a component-major [c, R, 128] layout).
 //
-// K5a: one node on LANES = 8 lanes (the power of two >= NJ + 1; 16 Panda
-// nodes per 128-thread block, 4 lanes and 32 nodes for the 2-DoF arm, 16
-// lanes and 8 nodes for the 8-joint Tiago-Pro arm), in
+// K5a: one node on LANES = 8 lanes (the power of two >= NJ + 1, at most 32;
+// 16 Panda nodes per 128-thread block, 4 lanes and 32 nodes for the 2-DoF
+// arm, 16 lanes and 8 nodes for the 8-joint Tiago-Pro arm, 32 lanes and 4
+// nodes for the 17-joint Tiago-Pro), in
 // K5b's first two phases and a finish of its own (`ag::k5_place`,
 // `k5_mass_bias`, `k5a_finish` of stage_kernels.cuh), with a warp barrier
 // between them: the joint placements one per lane; the mass-matrix columns
@@ -23,8 +24,9 @@
 // it once per time step at N = B = 4096 nodes: 256 blocks, a few
 // microseconds of arithmetic (PERF.md has the numbers).
 //
-// K5b: one node on LANES = 16 lanes (the power of two >= 2 NJ; 8 Panda
-// nodes per 128-thread block), in the phases `ag::k5_*` of
+// K5b: one node on LANES = 16 lanes (the power of two >= 2 NJ, at most 32;
+// 8 Panda nodes per 128-thread block; past 16 joints lane k takes tangents
+// k, k + 32, ...), in the phases `ag::k5_*` of
 // stage_kernels.cuh with a warp barrier between them: the joint
 // placements one per lane; the mass-matrix columns one per lane beside
 // the bias rnea(q, v, 0); on lane 0 the Cholesky factor, the joint
@@ -41,8 +43,12 @@
 // per node) and the bytes (308 floats written per node) would allow
 // several times less (PERF.md has the numbers and the variants measured).
 //
+// One library per joint count: the source is compiled with -DAG_NJ=<nj>
+// (ops/_build.py) and holds that one instance of each kernel.
+//
 // Launch discipline: on the caller's stream, no synchronisation, no
-// allocation; `ag_step` returns cudaGetLastError() of its launch.
+// allocation; `ag_step` returns cudaGetLastError() of its launch, or the
+// error of a block that needs more shared memory than the card gives one.
 
 #include <cuda_runtime.h>
 
@@ -53,23 +59,12 @@ namespace {
 
 using ag::copy_in;
 using ag::copy_out;
+using ag::K5aBlock;
+using ag::K5Block;
 using ag::kBlock;
 using ag::round4;
 
-// K5a's shared memory (floats): the constants, then per block the inputs
-// X [NPB, NX], U [NPB, NJ], H [NPB], the output XO [NPB, NX], the node
-// scratch W [NPB, K5aShape::SIZE] and the threads' force slots
-// DF [6 NJ, kBlock] (`ag::ForceSlots`, thread-minor); each region starts
-// 16-byte aligned.
-template <int NJ> struct K5aBlock {
-  typedef ag::K5aShape<NJ> K;
-  static constexpr int NX = 2 * NJ, NPB = kBlock / K::LANES;
-  static constexpr int X = 0, U = X + round4(NPB * NX),
-                       H = U + round4(NPB * NJ), XO = H + round4(NPB),
-                       W = XO + round4(NPB * NX),
-                       DF = W + round4(NPB * K::SIZE),
-                       SIZE = DF + 6 * NJ * kBlock;
-};
+// K5a's shared memory: the constants, then `ag::K5aBlock`.
 
 template <int NJ>
 __global__ void __launch_bounds__(kBlock)
@@ -92,13 +87,15 @@ step_kernel(int N, const float* __restrict__ x, const float* __restrict__ u,
   __syncthreads();
   const int node = tid / LANES, lane = tid % LANES;
   if (node < nb) {  // whole nodes only: a node's lanes run together
-    const unsigned mask = ((1u << LANES) - 1u) << ((tid % 32) / LANES * LANES);
+    const unsigned mask =
+        (LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1u))
+        << ((tid % 32) / LANES * LANES);
     const float* xn = sb + B::X + node * NX;
     float* S = sb + B::W + node * K::SIZE;
     const ag::ForceSlots fs{sb + B::DF + tid, kBlock};
-    ag::k5_place<NJ>(lane, C, xn, S);
+    ag::k5_place<NJ, LANES>(lane, C, xn, S);
     __syncwarp(mask);
-    ag::k5_mass_bias<NJ, false>(lane, C, xn, fs, S);
+    ag::k5_mass_bias<NJ, LANES, false>(lane, C, xn, fs, S);
     __syncwarp(mask);
     ag::k5a_finish<NJ>(lane, xn, sb + B::U + node * NJ, sb[B::H + node], S,
                        sb + B::XO + node * NX);
@@ -112,23 +109,7 @@ step_kernel(int N, const float* __restrict__ x, const float* __restrict__ u,
 // spilled) and than 2-3 blocks with more registers (PERF.md).
 constexpr int kStepDerivsBlocksPerSM = 4;
 
-// K5b's shared memory (floats): the constants, then per block the inputs
-// X [NPB, NX], U [NPB, NJ], H [NPB], the outputs XO [NPB, NX],
-// FX [NPB, NX*NX], FU [NPB, NX*NJ] (a block's nodes are contiguous, as in
-// the outputs), the node scratch W [NPB, SIZE] and the threads' force
-// slots DF [6 NJ, kBlock] (`ag::ForceSlots`, thread-minor); each region
-// starts 16-byte aligned.
-template <int NJ> struct K5Block {
-  typedef ag::K5Shape<NJ> K;
-  static constexpr int NX = K::NX, NPB = kBlock / K::LANES;
-  static constexpr int X = 0, U = X + round4(NPB * NX),
-                       H = U + round4(NPB * NJ), XO = H + round4(NPB),
-                       FX = XO + round4(NPB * NX),
-                       FU = FX + round4(NPB * NX * NX),
-                       W = FU + round4(NPB * NX * NJ),
-                       DF = W + round4(NPB * K::SIZE),
-                       SIZE = DF + 6 * NJ * kBlock;
-};
+// K5b's shared memory: the constants, then `ag::K5Block`.
 
 template <int NJ>
 __global__ void __launch_bounds__(kBlock, kStepDerivsBlocksPerSM)
@@ -159,9 +140,9 @@ step_derivs_kernel(int N, const float* __restrict__ x,
     const float h = sb[B::H + node];
     float* S = sb + B::W + node * K::SIZE;
     const ag::ForceSlots fs{sb + B::DF + tid, kBlock};
-    ag::k5_place<NJ>(lane, C, xn, S);
+    ag::k5_place<NJ, LANES>(lane, C, xn, S);
     __syncwarp(mask);
-    ag::k5_mass_bias<NJ>(lane, C, xn, fs, S);
+    ag::k5_mass_bias<NJ, LANES>(lane, C, xn, fs, S);
     __syncwarp(mask);
     ag::k5_solve<NJ>(lane, C, xn, sb + B::U + node * NJ, fs, S);
     __syncwarp(mask);
@@ -180,8 +161,9 @@ template <int NJ>
 void kernel_of(bool derivs, int consts_len, const void** fn, size_t* smem) {
   *fn = derivs ? (const void*)step_derivs_kernel<NJ>
                : (const void*)step_kernel<NJ>;
-  *smem = sizeof(float) * ((size_t)round4(consts_len) +
-                           (derivs ? K5Block<NJ>::SIZE : K5aBlock<NJ>::SIZE));
+  *smem = sizeof(float) * ag::smem_floats<NJ>(
+                              derivs ? ag::KID_K5B : ag::KID_K5A, consts_len,
+                              0, 0);
 }
 
 template <int NJ>
@@ -191,11 +173,8 @@ cudaError_t launch(bool derivs, int N, const float* x, const float* u,
   const void* fn;
   size_t smem;
   kernel_of<NJ>(derivs, consts_len, &fn, &smem);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = ag::allow_smem(fn, smem, 0);
+  if (e != cudaSuccess) return e;
   if (!derivs) {
     step_kernel<NJ><<<(N + K5aBlock<NJ>::NPB - 1) / K5aBlock<NJ>::NPB,
                       kBlock, smem, s>>>(N, x, u, dt, consts, consts_len,
@@ -214,10 +193,7 @@ int blocks_per_sm(bool derivs, int consts_len) {
   const void* fn;
   size_t smem;
   kernel_of<NJ>(derivs, consts_len, &fn, &smem);
-  if (smem > 48 * 1024 &&
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return -1;
+  if (ag::allow_smem(fn, smem, 0) != cudaSuccess) return -1;
   int n = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kBlock, smem) !=
       cudaSuccess)
@@ -229,29 +205,20 @@ int blocks_per_sm(bool derivs, int consts_len) {
 
 extern "C" {
 
+// nj must be the library's AG_NJ.
 int ag_step(int nj, int derivs, int N, const float* x, const float* u,
             const float* dt, const float* consts, int consts_len,
             float* xnext, float* Fx, float* Fu, void* stream) {
   if (N <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nj == 8)
-    return (int)launch<8>(derivs != 0, N, x, u, dt, consts, consts_len, xnext,
-                          Fx, Fu, s);
-  if (nj == 7)
-    return (int)launch<7>(derivs != 0, N, x, u, dt, consts, consts_len, xnext,
-                          Fx, Fu, s);
-  if (nj == 2)
-    return (int)launch<2>(derivs != 0, N, x, u, dt, consts, consts_len, xnext,
-                          Fx, Fu, s);
-  return (int)cudaErrorInvalidValue;
+  if (nj != AG_NJ) return (int)cudaErrorInvalidValue;
+  return (int)launch<AG_NJ>(derivs != 0, N, x, u, dt, consts, consts_len,
+                            xnext, Fx, Fu, (cudaStream_t)stream);
 }
 
 // Blocks of ag_step's kernel resident per SM on the current device, or -1.
 int ag_step_blocks_per_sm(int nj, int derivs, int consts_len) {
-  if (nj == 8) return blocks_per_sm<8>(derivs != 0, consts_len);
-  if (nj == 7) return blocks_per_sm<7>(derivs != 0, consts_len);
-  if (nj == 2) return blocks_per_sm<2>(derivs != 0, consts_len);
-  return -1;
+  if (nj != AG_NJ) return -1;
+  return blocks_per_sm<AG_NJ>(derivs != 0, consts_len);
 }
 
 }  // extern "C"

@@ -9,8 +9,8 @@
 // time t (the horizon, the same for every terminal node): the node's lanes
 // copy the ref row into shared memory (`ag::gather_row`), so a call runs
 // no torch op on the refs.
-//   K3: one node on LANES = 16 lanes (the power of two >= 2 NJ; 8 Panda
-//   nodes per 128-thread block), K1's cost-item phases at u = 0 and no dt
+//   K3: one node on LANES = 16 lanes (the power of two >= 2 NJ, at most 32;
+//   8 Panda nodes per 128-thread block), K1's cost-item phases at u = 0 and no dt
 //   scale: per item, lane k its tangent k of the item's residual into the
 //   node's scratch (`ag::k1_item_tangent`), then each lane sums the
 //   Gauss-Newton terms of the output entries it owns
@@ -25,8 +25,9 @@
 // What bounds them on this card: latency. The tick calls them at one node,
 // a few microseconds of work (PERF.md has the numbers).
 //
-// Launch discipline as stage_kernels.cu: the caller's stream, no
-// synchronisation, no allocation, cudaGetLastError() returned.
+// Built, as stage_kernels.cu, once per joint count (-DAG_NJ=<nj>). Launch
+// discipline as stage_kernels.cu: the caller's stream, no synchronisation,
+// no allocation, cudaGetLastError() returned.
 
 #include <cuda_runtime.h>
 
@@ -39,15 +40,7 @@ using ag::copy_in;
 using ag::round4;
 
 using ag::kBlock;
-
-// K3's shared memory (floats): the constants, then the node scratch
-// [NPB, K1Shape::scratch(W)].
-template <int NJ>
-size_t k3_smem(int consts_len, int W) {
-  typedef ag::K1Shape<NJ> K;
-  return sizeof(float) * ((size_t)round4(consts_len) +
-                          (size_t)(kBlock / K::LANES) * K::scratch(W));
-}
+using ag::kTermNodes;
 
 template <int NJ>
 __global__ void __launch_bounds__(kBlock)
@@ -80,16 +73,9 @@ terminal_k3_kernel(int N, const float* __restrict__ x, const ag::RefTable tab,
   ag::k3_store<NJ, LANES>(lane, st, n, l, lx, lxx);
 }
 
-constexpr int kTermNodes = 4;  // K4 nodes (warps) per block
-
-// K4's shared memory (floats): the constants, then X [kTermNodes, NX], the
-// ref rows [kTermNodes, W] and the item values [kTermNodes, n_items].
-template <int NJ>
-__host__ __device__ int term_smem(int consts_len, int W, int n_items) {
-  return round4(consts_len) + round4(kTermNodes * 2 * NJ) +
-         kTermNodes * (W + n_items);
-}
-
+// K4's shared memory (`ag::smem_floats`): the constants, then
+// X [kTermNodes, NX], the ref rows [kTermNodes, W] and the item values
+// [kTermNodes, n_items].
 template <int NJ>
 __global__ void __launch_bounds__(32 * kTermNodes)
 terminal_k4_kernel(int N, const float* __restrict__ x, const ag::RefTable tab,
@@ -132,13 +118,11 @@ cudaError_t launch(bool derivs, int N, const float* x,
   const void* fn = derivs ? (const void*)terminal_k3_kernel<NJ>
                           : (const void*)terminal_k4_kernel<NJ>;
   const size_t smem =
-      derivs ? k3_smem<NJ>(consts_len, W)
-             : sizeof(float) * term_smem<NJ>(consts_len, W, n_items);
-  if (smem + sizeof(ag::RefTable) > 48 * 1024) {  // with the static table
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+      sizeof(float) * ag::smem_floats<NJ>(derivs ? ag::KID_K3 : ag::KID_K4,
+                                          consts_len, W, n_items);
+  // with the static table
+  cudaError_t e = ag::allow_smem(fn, smem, sizeof(ag::RefTable));
+  if (e != cudaSuccess) return e;
   if (derivs) {
     constexpr int NPB = kBlock / ag::K1Shape<NJ>::LANES;
     terminal_k3_kernel<NJ><<<(N + NPB - 1) / NPB, kBlock, smem, s>>>(
@@ -157,24 +141,18 @@ extern "C" {
 
 // x [N, 2nj]; refs the source table of the W-float ref row, read at node
 // time t; outputs l [N] and, when derivs, lx [N, 2nj], lxx [N, 2nj, 2nj]
-// (unused and may be null when derivs is 0).
+// (unused and may be null when derivs is 0). nj must be the library's
+// AG_NJ.
 int ag_terminal(int nj, int derivs, int N, const float* x,
                 const ag::RefTable* refs, int t, int W, const float* consts,
                 int consts_len, int n_items, float* l, float* lx, float* lxx,
                 void* stream) {
   if (N <= 0) return 0;
   if (refs->n < 0 || refs->n > ag::kMaxRefs) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nj == 8)
-    return (int)launch<8>(derivs != 0, N, x, *refs, t, W, consts, consts_len,
-                          n_items, l, lx, lxx, s);
-  if (nj == 7)
-    return (int)launch<7>(derivs != 0, N, x, *refs, t, W, consts, consts_len,
-                          n_items, l, lx, lxx, s);
-  if (nj == 2)
-    return (int)launch<2>(derivs != 0, N, x, *refs, t, W, consts, consts_len,
-                          n_items, l, lx, lxx, s);
-  return (int)cudaErrorInvalidValue;
+  if (nj != AG_NJ) return (int)cudaErrorInvalidValue;
+  return (int)launch<AG_NJ>(derivs != 0, N, x, *refs, t, W, consts,
+                            consts_len, n_items, l, lx, lxx,
+                            (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -15,10 +15,15 @@ DEFAULT_DEVICE = "cuda"
 
 
 def resolve_device(device: torch.device | str = DEFAULT_DEVICE) -> torch.device:
-    """`torch.device(device)`, refusing a CUDA device when there is none."""
+    """`torch.device(device)`, refusing a CUDA device when there is none; a
+    card without an index is the current one, as the tensors made on it
+    report it (a wrapper built for "cuda" takes tensors on "cuda:0")."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but no CUDA device is available; "
-            "pass device='cpu' to run on the host")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but no CUDA device is "
+                "available; pass device='cpu' to run on the host")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-`nvcc` compiles every source under `csrc/` into one shared library with a
-plain C interface, loaded with `ctypes` (no PyTorch headers): one `nvcc`
-per source, all started together, then one link. The build happens at
-first use, into `build/kernels/` under the repository root, and is redone
-when the sources' content hash changes. A build or load failure raises with
-the compiler's output; nothing falls back.
+One library per joint count: `nvcc` compiles every source under `csrc/`
+with `-DAG_NJ=<nj>` into a shared library that holds that count's instance
+of each kernel, with a plain C interface, loaded with `ctypes` (no PyTorch
+headers): one `nvcc` per source, all started together, then one link per
+count. A count's library is built at its first use (`load_library(nj)`),
+into `build/kernels/` under the repository root, and again when the content
+hash of the sources and the flags changes; `build_many(njs)` starts every
+source of every count asked for at once. A build or load failure raises
+with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -40,58 +43,85 @@ def _nvcc() -> str:
                        "the kernels")
 
 
-def library_path() -> Path:
-    """Path of the library for the current sources (content-addressed)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def nvcc_flags(nj: int) -> tuple:
+    """The compile flags of nj's library: `NVCC_FLAGS` and its count."""
+    if int(nj) != nj or nj < 1:
+        raise ValueError(f"joint count {nj!r} is not a positive integer")
+    return NVCC_FLAGS + (f"-DAG_NJ={int(nj)}",)
+
+
+def library_path(nj: int) -> Path:
+    """Path of nj's library for the current sources and flags
+    (content-addressed)."""
+    flags = nvcc_flags(nj)
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libagimus_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libagimus_kernels_nj{int(nj)}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the sources if their library is missing; returns (path, the
-    compilers' output, empty when the library was already there)."""
-    out = library_path()
-    if out.is_file():
-        return out, ""
+def compile_commands(nj: int, stem: str) -> list:
+    """(nvcc command, object path) of each source of nj's library, the
+    objects named after `stem`."""
+    return [([_nvcc(), *nvcc_flags(nj), "-c", "-o", str(obj), str(src)], obj)
+            for src in sorted(CSRC.glob("*.cu"))
+            for obj in [BUILD_DIR / f"{stem}.{src.stem}.o"]]
+
+
+def build_many(njs) -> list:
+    """Compiles the libraries of the joint counts `njs` that are missing,
+    every source of every count at once; returns [(path, the compilers'
+    output, empty when the library was already there)] in njs's order."""
+    njs = list(dict.fromkeys(int(nj) for nj in njs))
+    outs = {nj: library_path(nj) for nj in njs}
+    todo = [nj for nj in njs if not outs[nj].is_file()]
+    logs = {nj: "" for nj in njs}
+    if not todo:
+        return [(outs[nj], logs[nj]) for nj in njs]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = f"{out.stem}.{os.getpid()}"
-    jobs = []  # one nvcc per source, all running at once
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for cmd, _, proc in jobs:
-        logs.append(proc.communicate()[0])
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                          f"{logs[-1]}")
-    objs = [obj for _, obj, _ in jobs]
+    jobs = {nj: [(cmd, obj, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd, obj in compile_commands(
+            nj, f"{outs[nj].stem}.{os.getpid()}")] for nj in todo}
+    failed = []
+    for nj in todo:
+        for cmd, _, proc in jobs[nj]:
+            out = proc.communicate()[0]
+            logs[nj] += out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
     try:
         if failed:
             raise RuntimeError("\n".join(failed))
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
-               *(str(o) for o in objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+        for nj in todo:
+            tmp = outs[nj].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *(str(obj) for _, obj, _ in jobs[nj])]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stderr}")
+            # atomic: a concurrent build never loads a partial file
+            os.replace(tmp, outs[nj])
     finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    return out, "".join(logs)
+        for nj in todo:
+            for _, obj, _ in jobs[nj]:
+                obj.unlink(missing_ok=True)
+    return [(outs[nj], logs[nj]) for nj in njs]
+
+
+def build(nj: int) -> tuple:
+    """`build_many([nj])`'s one entry: (path, the compilers' output)."""
+    return build_many([nj])[0]
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with C signatures."""
-    path, _ = build()
+def load_library(nj: int) -> ctypes.CDLL:
+    """Build (if needed) and load nj's kernel library, with C signatures."""
+    path, _ = build(nj)
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     # nj, derivs, N, x, u, dt, t_idx, &RefTable, W, consts, consts_len,
@@ -110,8 +140,13 @@ def load_library() -> ctypes.CDLL:
     lib.ag_step_blocks_per_sm.restype = i
     lib.ag_error_string.argtypes = [i]
     lib.ag_error_string.restype = ctypes.c_char_p
+    lib.ag_nj.argtypes = []
+    lib.ag_nj.restype = i
+    if lib.ag_nj() != nj:
+        raise RuntimeError(f"{path} holds the kernels of {lib.ag_nj()} "
+                           f"joints, not {nj}")
     return lib
 
 
-def error_string(err: int) -> str:
-    return f"{err} ({load_library().ag_error_string(err).decode()})"
+def error_string(nj: int, err: int) -> str:
+    return f"{err} ({load_library(nj).ag_error_string(err).decode()})"

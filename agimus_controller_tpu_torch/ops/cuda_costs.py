@@ -27,7 +27,8 @@ torch-side gather per call. The plain versions gather on the torch side
 kernel reads the model constants
 and a cost-descriptor table from one packed float buffer
 (`_pack_constants`), so one build serves every model with the same number
-of joints.
+of joints: each joint count has its library (`_build.load_library(nj)`),
+built at the count's first use.
 
 Covered: every spec the Pallas kernels take (`pallas_costs._supported`).
 The kinds state, control, control_grav, frame_placement, frame_translation,
@@ -48,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -69,12 +71,15 @@ from .batched_costs import (
 )
 from .batched_dynamics import _StaticModel, _add, _matmul, _matvec, _sub
 from .cuda_dynamics import (
-    KERNEL_NJ,
+    _JSTRIDE,
     _check_input,
     _pack_model,
     _ptr,
+    check_smem,
     dt_per_node,
     dynamics_terms,
+    launch_error,
+    smem_bytes,
 )
 
 # in the order of the kernels' kind codes (`K_*`, `csrc/stage_kernels.cuh`)
@@ -88,18 +93,30 @@ _POSE_KINDS = ("frame_placement", "frame_translation", "frame_rotation",
 ACTIVATIONS = ("weighted_quad", "exp", "quad_exp")
 
 # cost-descriptor layout after the packed model constants (`_pack_model`);
-# must match `csrc/stage_kernels.cuh`
-_ISTRIDE = 84
+# must match `csrc/stage_kernels.cuh` (I_* and `Desc<NJ>`)
 _I_KIND, _I_WEIGHT, _I_PJOINT, _I_FROT, _I_FTRANS = 0, 1, 2, 3, 12
-_I_REF, _I_W, _I_TRANS, _I_SREF, _I_SW = 15, 16, 17, 18, 32
-_I_ACT, _I_ALPHA, _I_WCOLL, _I_GEOM = 46, 47, 48, 49
+_I_REF, _I_W, _I_TRANS, _I_SREF = 15, 16, 17, 18
 # per collision geometry (two per item): parent joint, rot 9, trans 3,
 # radius, half length, then the ref-row offsets of its streamed rot/trans
 _GSTRIDE = 17
-# items without geometry reuse the geometry slots: a visual-servoing item
-# holds the ref-row offsets of its `wMo` rot/trans, a frame-velocity item
-# its convention code
-_I_WMO_ROT, _I_WMO_TRANS, _I_VEL_FRAME = _I_GEOM, _I_GEOM + 1, _I_GEOM + 2
+
+
+def desc_layout(nj: int) -> SimpleNamespace:
+    """The descriptor's slots after its static reference and weights,
+    whose blocks hold the widest static item of nj joints (a state item's
+    2 nj entries, at least 14: 84 floats a descriptor up to 7 joints).
+    Items without geometry reuse the geometry slots: a visual-servoing item
+    holds the ref-row offsets of its `wMo` rot/trans (wmo_rot, wmo_trans), a
+    frame-velocity item its convention code (vel_frame)."""
+    ns = max(14, 2 * nj)
+    act = _I_SREF + 2 * ns
+    geom = act + 3
+    return SimpleNamespace(ns=ns, sw=_I_SREF + ns, act=act, alpha=act + 1,
+                           wcoll=act + 2, geom=geom, wmo_rot=geom,
+                           wmo_trans=geom + 1, vel_frame=geom + 2,
+                           stride=geom + 2 * _GSTRIDE + 1)
+
+
 _KIND_CODE = {k: i for i, k in enumerate(COVERED_KINDS)}
 _ACT_CODE = {a: i for i, a in enumerate(ACTIVATIONS)}
 
@@ -455,9 +472,9 @@ def _item_terms_c(item: CostItem, model, params, sm, q, v, u, rget,
 
     Derivative routes: control_grav takes the closed-form gravity Jacobian
     (`analytic_derivs.gravity_torque_with_dq`); the frame, visual-servoing
-    and collision kinds take forward tangents of the residual
-    (`torch.func.jvp`, one per joint), frame_velocity one per entry of
-    (q, v)."""
+    and collision kinds take forward tangents of the residual, one per
+    joint, frame_velocity one per entry of (q, v), all of an item in one
+    `torch.func.jvp` vmapped over the unit tangents."""
     nj = sm.nj
     nx = 2 * nj
     zero = torch.zeros_like(q[0])
@@ -536,13 +553,12 @@ def _item_terms_c(item: CostItem, model, params, sm, q, v, u, rget,
                 item, model, params, sm, zl[:nj], vl, rget))
 
         z = torch.stack(q + v if ndiff == nx else q)
-        Jcols = []
-        for k in range(ndiff):
-            e = torch.zeros_like(z)
-            e[k] = 1.0
-            r_st, jcol = torch.func.jvp(r_of, (z,), (e,))
-            Jcols.append(jcol)  # [nr, N]
-        r = list(r_st.unbind(0))
+        # the ndiff unit tangents in one vmapped pass: [ndiff, nr, N]
+        eye = torch.eye(ndiff, dtype=z.dtype, device=z.device)[:, :, None]
+        r_st, jac = torch.func.vmap(
+            lambda e: torch.func.jvp(r_of, (z,), (e.expand_as(z),)))(eye)
+        Jcols = list(jac.unbind(0))
+        r = list(r_st[0].unbind(0))
     else:
         r = _residual_c(item, model, params, sm, q, v, rget)
 
@@ -598,7 +614,9 @@ def check_supported(spec: ProblemSpec, model: RobotModel,
     """Raises NotImplementedError, with the reason, on what the stage
     kernels do not take: what the Pallas kernels refuse
     (`pallas_costs._supported`), a frame fixed to the root, and on the card
-    joint counts without a kernel instance."""
+    a joint count and cost model whose block needs more shared memory than
+    the card gives one (`cuda_dynamics.check_smem`, with the bytes). Any
+    joint count has its kernels (`_build.load_library(nj)`)."""
     if spec.soft_contact is not None:
         # as the Pallas kernels (`pallas_costs.py:424-426`): soft contact
         # runs on the "xla" backend
@@ -619,10 +637,21 @@ def check_supported(spec: ProblemSpec, model: RobotModel,
                 model.frames[model.frame_id(item.frame)].parent_joint < 0:
             raise NotImplementedError(
                 f"frame {item.frame!r} is fixed to the root")
-    if device.type == "cuda" and model.nj not in KERNEL_NJ:
-        raise NotImplementedError(
-            f"the stage kernels are instantiated for nj in {KERNEL_NJ}, "
-            f"not {model.nj} (other joint counts: ROADMAP queue 2, item 4)")
+    if device.type == "cuda":
+        for items, kernels in ((spec.running_costs, ("K1", "K2")),
+                               (spec.terminal_costs, ("K3", "K4"))):
+            for kernel in kernels:
+                check_smem(kernel, *_launch_shape(model, items))
+
+
+def _launch_shape(model: RobotModel, items):
+    """(nj, packed-constants length, ref-row width, item count) of a stage
+    or terminal kernel over `items`, as its wrapper launches it."""
+    items = tuple(i for i in items if i.active)
+    _, width = _slice_layout(_ref_layout(model, items))
+    consts_len = (_JSTRIDE * model.nj + 3
+                  + desc_layout(model.nj).stride * len(items))
+    return model.nj, consts_len, width, len(items)
 
 
 def _pack_constants(model: RobotModel, params: ModelParams, items,
@@ -630,9 +659,10 @@ def _pack_constants(model: RobotModel, params: ModelParams, items,
     """Model constants + cost-descriptor table as one float32 buffer."""
     P = {f: getattr(params, f).detach().to("cpu", torch.float64).numpy()
          for f in ModelParams._fields}
-    desc = np.zeros((len(items), _ISTRIDE))
+    lay = desc_layout(model.nj)
+    desc = np.zeros((len(items), lay.stride))
     desc[:, _I_REF:_I_TRANS + 1] = -1.0
-    desc[:, _I_WCOLL] = -1.0
+    desc[:, lay.wcoll] = -1.0
     off = lambda key: offsets[key][0]
     for r, item in enumerate(items):
         d = desc[r]
@@ -648,19 +678,19 @@ def _pack_constants(model: RobotModel, params: ModelParams, items,
             d[_I_REF] = off(f"ee_rot:{item.frame}")
             d[_I_TRANS] = off(f"ee_trans:{item.frame}")
         if item.kind == "visual_servoing":
-            d[_I_WMO_ROT] = off(f"wMo_rot:{item.object_frame}")
-            d[_I_WMO_TRANS] = off(f"wMo_trans:{item.object_frame}")
+            d[lay.wmo_rot] = off(f"wMo_rot:{item.object_frame}")
+            d[lay.wmo_trans] = off(f"wMo_trans:{item.object_frame}")
         if item.kind == "frame_velocity":
             d[_I_REF] = off(f"ee_vel:{item.frame}")  # read with any weights
-            d[_I_VEL_FRAME] = _vel_frame_code(item.reference_frame)
-        d[_I_ACT] = _ACT_CODE[item.activation]
-        d[_I_ALPHA] = item.act_alpha
+            d[lay.vel_frame] = _vel_frame_code(item.reference_frame)
+        d[lay.act] = _ACT_CODE[item.activation]
+        d[lay.alpha] = item.act_alpha
         if item.kind == "collision_distance":
             if item.update:
-                d[_I_WCOLL] = off("w_coll")
+                d[lay.wcoll] = off("w_coll")
             pair = model.collision_pairs[item.pair_id]
             for k, g in enumerate(pair):
-                b = d[_I_GEOM + k * _GSTRIDE:_I_GEOM + (k + 1) * _GSTRIDE]
+                b = d[lay.geom + k * _GSTRIDE:lay.geom + (k + 1) * _GSTRIDE]
                 pj = model.geometries[g].parent_joint
                 b[0] = pj
                 b[1:10] = P["geom_rot"][g].reshape(-1)
@@ -684,7 +714,7 @@ def _pack_constants(model: RobotModel, params: ModelParams, items,
                 d[_I_REF] = off(ref_key)
             d[_I_W] = off(w_key) + w_shift
         else:
-            d[_I_SW:_I_SW + nr] = _static_weights(item, nr)
+            d[lay.sw:lay.sw + nr] = _static_weights(item, nr)
             if item.kind in ("state", "control"):
                 sref = item.static_ref or (0.0,) * nr
                 d[_I_SREF:_I_SREF + nr] = [float(s) for s in sref[:nr]]
@@ -697,7 +727,7 @@ class _StageBase:
 
     def __init__(self, model: RobotModel, params: ModelParams,
                  spec: ProblemSpec, items, derivs: bool,
-                 device: torch.device | str):
+                 device: torch.device | str, running: bool):
         # the spec first: an uncovered spec raises the same on any machine
         check_supported(spec, model, torch.device(device))
         self.device = resolve_device(device)
@@ -708,6 +738,9 @@ class _StageBase:
         self.layout = _ref_layout(model, self.items)
         self.offsets, self.width = _slice_layout(self.layout)
         self.plan = RefPlan(self.layout, params)
+        self.name = ("K1" if derivs else "K2") if running else (
+            "K3" if derivs else "K4")
+        self.smem = smem_bytes(self.name, *_launch_shape(model, self.items))
         self.launches = 0  # kernel launches (CUDA path only)
         self._consts = None
         if self.device.type == "cuda":
@@ -733,7 +766,7 @@ class _StageBase:
         if self._consts is None or x.device != self.device:
             raise ValueError(
                 f"wrapper built for {self.device}, called with {x.device}")
-        return _build.load_library()
+        return _build.load_library(self.nj)
 
 
 class StageKernel(_StageBase):
@@ -747,7 +780,7 @@ class StageKernel(_StageBase):
 
     def __init__(self, model, params, spec, derivs, device=DEFAULT_DEVICE):
         super().__init__(model, params, spec, spec.running_costs, derivs,
-                         device)
+                         device, running=True)
 
     def __call__(self, x, u, dt, t_idx, refs):
         if x.device.type == "cpu":
@@ -797,7 +830,8 @@ class StageKernel(_StageBase):
         lib, cargs, _ = args
         err = lib.ag_stage(*cargs)
         if err != 0:
-            raise RuntimeError(f"stage kernel launch failed: {_build.error_string(err)}")
+            raise launch_error(f"{self.name} stage kernel", self.nj, err,
+                               self.smem)
         self.launches += 1
 
     def plain(self, x, u, dt, t_idx, refs):
@@ -837,7 +871,7 @@ class TerminalKernel(_StageBase):
 
     def __init__(self, model, params, spec, derivs, device=DEFAULT_DEVICE):
         super().__init__(model, params, spec, spec.terminal_costs, derivs,
-                         device)
+                         device, running=False)
         self.horizon = spec.horizon
 
     def __call__(self, x, refs):
@@ -874,8 +908,8 @@ class TerminalKernel(_StageBase):
         lib, cargs, _ = args
         err = lib.ag_terminal(*cargs)
         if err != 0:
-            raise RuntimeError(
-                f"terminal kernel launch failed: {_build.error_string(err)}")
+            raise launch_error(f"{self.name} terminal kernel", self.nj, err,
+                               self.smem)
         self.launches += 1
 
     def plain(self, x, refs):

@@ -104,7 +104,24 @@ def dynamics_terms(sm: _StaticModel, q, v, u, dt, with_derivs: bool):
         xnext[i] = q[i] + dt * vn
     if not with_derivs:
         return xnext, None, None
+    if q[0].dtype == torch.float32:
+        # the derivatives in float64: where a node's accelerations are large
+        # (a light joint without armature driven hard, as the full
+        # Tiago-Pro's wrists) the closed form's float32 sums cancel and lose
+        # more of Fx than the kernels' forward tangents do
+        up = lambda xs: [t.double() for t in xs]
+        q, v, a, dt = up(q), up(v), up(a), dt.double()
+        Xs = _joint_transforms(sm, q)
+        L = _chol_factor_c(_mass_matrix_cols(sm, Xs), nj)
+        fx, fu = _step_derivatives(sm, q, v, a, Xs, L, dt)
+        return xnext, [f.float() for f in fx], [f.float() for f in fu]
+    return (xnext,) + _step_derivatives(sm, q, v, a, Xs, L, dt)
 
+
+def _step_derivatives(sm: _StaticModel, q, v, a, Xs, L, dt):
+    """(Fx, Fu) of the Euler step at the accelerations a, with the
+    Cholesky factor L of the mass matrix, as lists of row-major entries."""
+    nj = sm.nj
     # d rnea(q, v, a)/d(q, v) at fixed a, closed form
     Dq, Dv = rnea_qv_derivatives(sm, q, v, a, Xs)
     one = q[0].new_ones(q[0].shape)
@@ -138,7 +155,7 @@ def dynamics_terms(sm: _StaticModel, q, v, u, dt, with_derivs: bool):
         for j in range(nj):
             fu[i * nj + j] = dt2 * minv_cols[j][i]
             fu[(nj + i) * nj + j] = dt * minv_cols[j][i]
-    return xnext, fx, fu
+    return fx, fu
 
 
 def euler_step(sm: _StaticModel, x, u, dt):
@@ -156,7 +173,6 @@ def euler_step(sm: _StaticModel, x, u, dt):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-KERNEL_NJ = (2, 7, 8)  # joint counts the kernels are instantiated for
 # packed model constants; must match `csrc/stage_kernels.cuh` (J_*): per
 # joint rot 9, trans 3, axis 3, type, parent, mass, com 3, inertia 9,
 # armature; then gravity 3
@@ -182,6 +198,80 @@ def _pack_model(model: RobotModel, params: ModelParams) -> np.ndarray:
         joints[i, 21:30] = P["inertia"][i].reshape(-1)
         joints[i, 30] = P["armature"][i]
     return np.concatenate([joints.reshape(-1), P["gravity"]])
+
+
+# the kernels' numbers in `smem_bytes`; must match `ag::KernelId`
+KERNEL_IDS = {"K1": 1, "K2": 2, "K3": 3, "K4": 4, "K5a": 5, "K5b": 6}
+# shared memory one block may use on Hopper (the opt-in maximum), and the
+# static part of K1-K4's (their by-value `ag::RefTable`: an int, padding
+# and `MAX_REFS` = 24 entries of 32 bytes)
+SMEM_OPTIN_BYTES = 232_448
+REF_TABLE_BYTES = 8 + 24 * 32
+
+
+def _node_lanes(n: int) -> int:
+    """`ag::node_lanes`: the power of two >= n, at most 32."""
+    return min(32, max(2, 1 << (n - 1).bit_length()))
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(kernel: str, nj: int, consts_len: int, width: int = 0,
+               n_items: int = 0) -> int:
+    """Shared memory of one block of `kernel` (a `KERNEL_IDS` key) at nj
+    joints, with `consts_len` packed constants, a ref row of `width`
+    floats and `n_items` cost items: the dynamic part of
+    `csrc/stage_kernels.cuh::smem_floats` and K1-K4's static table."""
+    nx, c = 2 * nj, _round4(consts_len)
+    if kernel in ("K1", "K3"):
+        # K1Shape: x, u, dt, Fx, Fu, an item Jacobian, two item vectors, the
+        # ref row, per node
+        scratch = (nx + nj + 1 + nx * nx + nx * nj + max(6 * nx, nj * nj)
+                   + 2 * max(nx, 6) + width)
+        floats = c + (128 // _node_lanes(nx)) * scratch
+    elif kernel == "K2":
+        floats = c + 32 * (2 * nx + nj + 1 + width)
+    elif kernel == "K4":
+        floats = c + _round4(4 * nx) + 4 * (width + n_items)
+    elif kernel in ("K5a", "K5b"):
+        derivs = kernel == "K5b"
+        npb = 128 // _node_lanes(nx if derivs else nj + 1)
+        # K5Shape's node scratch: R, P, M, b (K5a's ends there), then a, L
+        # and the joint table
+        size = 12 * nj + nj * nj + nj
+        if derivs:
+            size += nj + nj * nj + 24 * nj
+        outs = (_round4(npb * nx * nx) + _round4(npb * nx * nj)
+                if derivs else 0)
+        floats = (c + _round4(npb * nx) + _round4(npb * nj) + _round4(npb)
+                  + _round4(npb * nx) + outs + _round4(npb * size)
+                  + 6 * nj * 128)
+    else:
+        raise ValueError(f"kernel {kernel!r} not in {tuple(KERNEL_IDS)}")
+    return 4 * floats + (0 if kernel.startswith("K5") else REF_TABLE_BYTES)
+
+
+def check_smem(kernel: str, nj: int, consts_len: int, width: int = 0,
+               n_items: int = 0):
+    """Raises NotImplementedError, with the bytes, where one block of
+    `kernel` needs more shared memory than the card gives a block: the one
+    joint count or cost model the kernels refuse."""
+    need = smem_bytes(kernel, nj, consts_len, width, n_items)
+    if need > SMEM_OPTIN_BYTES:
+        raise NotImplementedError(
+            f"{kernel} at nj={nj}: a block needs {need} bytes of shared "
+            f"memory, more than the {SMEM_OPTIN_BYTES} a block may use")
+
+
+def launch_error(what: str, nj: int, err: int, smem: int) -> RuntimeError:
+    """The wrapper's error for a failed launch, with the block's shared
+    memory."""
+    return RuntimeError(
+        f"{what} launch failed: {_build.error_string(nj, err)} (nj={nj}; a "
+        f"block takes {smem} bytes of shared memory, {SMEM_OPTIN_BYTES} at "
+        "most)")
 
 
 def _check_input(name, t, device, shape):
@@ -222,11 +312,11 @@ class StepKernel:
     def __init__(self, model: RobotModel, params: ModelParams, derivs: bool,
                  device: torch.device | str = DEFAULT_DEVICE):
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and model.nj not in KERNEL_NJ:
-            raise NotImplementedError(
-                f"the step kernels are instantiated for nj in {KERNEL_NJ}, "
-                f"not {model.nj} (other joint counts: ROADMAP queue 2, "
-                "item 4)")
+        self.name = "K5b" if derivs else "K5a"
+        consts_len = _JSTRIDE * model.nj + 3
+        self.smem = smem_bytes(self.name, model.nj, consts_len)
+        if self.device.type == "cuda":
+            check_smem(self.name, model.nj, consts_len)
         self.nj, self.derivs = model.nj, derivs
         self.sm = _StaticModel(model, params)
         self.launches = 0  # kernel launches (CUDA path only)
@@ -249,7 +339,7 @@ class StepKernel:
         if self._consts is None or x.device != self.device:
             raise ValueError(
                 f"wrapper built for {self.device}, called with {x.device}")
-        lib = _build.load_library()
+        lib = _build.load_library(self.nj)
         N, nj = x.shape[0], self.nj
         nx = 2 * nj
         dt = dt_per_node(dt, x)
@@ -271,7 +361,8 @@ class StepKernel:
         lib, cargs, _ = args
         err = lib.ag_step(*cargs)
         if err != 0:
-            raise RuntimeError(f"step kernel launch failed: {_build.error_string(err)}")
+            raise launch_error(f"{self.name} step kernel", self.nj, err,
+                               self.smem)
         self.launches += 1
 
     def plain(self, x, u, dt):

@@ -58,9 +58,12 @@ else the generic `ocp.costs.CostFunctions` in its batched forms. The
 default, "auto", takes "kernels" when `cuda_costs.check_supported` passes
 for the spec, the model and the device, else "xla", and logs the refusal's
 reason; `backend="xla"` forces the fallback on any spec. A kernel that
-fails to build or launch raises, it never changes the backend. On the card
-the step kernels, as the stage kernels, refuse a joint count outside
-`KERNEL_NJ` (ROADMAP queue 2, item 4); on the CPU every backend takes any.
+fails to build or launch raises, it never changes the backend. The
+kernels take any joint count and any kinematic tree (one library per count,
+`ops/_build.py`); on the card the one refusal left, of the stage and the
+step kernels alike, is a block that needs more shared memory than the card
+gives one (`cuda_dynamics.check_smem`, with the bytes), and "auto" takes
+"xla" where the stage kernels refuse.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from `agimus_controller_tpu_torch/csrc/`:
-the stage kernels K1-K4 and the dynamics-step kernels K5a/K5b. Holds K1-K4
+Builds the hand-written kernels from `agimus_controller_tpu_torch/csrc/`,
+one library per joint count the phases run (`BUILD_NJ`: 2, 7, 8, 17, all
+sources at once): the stage kernels K1-K4 and the dynamics-step kernels
+K5a/K5b. Holds K1-K4
 against their plain-PyTorch versions on the card on six specs (the
 flagship goal tracking, the Pallas kernels' test spec with its collision
 item, the shipped collision-avoidance YAML, the visual-servoing OCP
@@ -15,8 +17,9 @@ ring-row views of the refs, and K5a/K5b at every shape the paths launch
 them at, with per-node and scalar dt; and the nj = 8 instances of all six
 on the 8-joint Tiago-Pro arm (`tiago_spec`) at the sizes phase 7 launches
 them at (K1/K2 at N = 20 and 21 and K3/K4 at 1, also on the ring-row
-views; K5a/K5b with per-node and scalar dt); times each call and its bare
-launch and computes its bound. The plain K1-K4 results of a spec's sizes
+views; K5a/K5b with per-node and scalar dt), and their nj = 17 instances
+on the full branched Tiago-Pro (`tiago_full_spec`, both tools) at the same
+sizes; times each call and its bare launch and computes its bound. The plain K1-K4 results of a spec's sizes
 come from one stacked call (nodes are independent), which also counts the
 operations of the bound.
 Then drives the port's four main paths, every entry point on the card, the
@@ -77,11 +80,16 @@ B=1024 against the unsharded solve; (c) `make_batch_csqp` and
 `solve_csqp`; (d) the horizon-sharded Riccati in f64 against
 `parallel_riccati` (T=400) and `solve_fddp_tsharded` against `solve_fddp`
 (T=64); (e) two processes sharing the card through the `AGIMUS_*`
-environment (gloo), each one's rows against a single-process solve. Each
-phase prints its seconds.
+environment (gloo), each one's rows against a single-process solve. Phase
+9 drives the full 17-DoF Tiago-Pro (a branched tree: the head and both
+arms on the prismatic torso; `load_tiago_full`) on the nj = 17 kernels:
+both tools' targets through `FusedTickRunner` (phase 7 (a)'s buffer and
+schedule, converged, each tool under a quarter of its start error) and
+`make_batch_fddp` at B=1024, rows 0-7 against a B=8 solve. Each phase
+prints its seconds.
 
 The tick paths must have launched every stage kernel, the batch path both
-step kernels and no stage kernel. Exits non-zero without a result when
+step kernels and no stage kernel; phase 9 every kernel at nj = 17. Exits non-zero without a result when
 there is no CUDA device or any phase fails. The line before the last is
 the card's name and power limit, the one before it a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -635,42 +643,51 @@ def _count_init():
     torch.set_num_threads(1)
 
 
-def _count_robot(robot):
-    """The CPU f32 model of a count job, built once per worker process."""
-    if robot not in _count_models:
+def _count_robot(robot, dtype):
+    """The CPU model of a count job in `dtype`, built once per worker
+    process."""
+    if (robot, dtype) not in _count_models:
         if robot == "panda":
             from agimus_controller_tpu_torch.models.panda import load_panda
 
-            _count_models[robot] = load_panda(
-                env_urdf=ENV_URDF, collision_pairs=PAIR, dtype=torch.float32,
+            _count_models[robot, dtype] = load_panda(
+                env_urdf=ENV_URDF, collision_pairs=PAIR, dtype=dtype,
                 device="cpu")
         else:
             from agimus_controller_tpu_torch.models.tiago_pro import (
                 load_tiago_pro,
             )
 
-            _count_models[robot] = load_tiago_pro(dtype=torch.float32,
-                                                  device="cpu")
-    return _count_models[robot]
+            _count_models[robot, dtype] = (
+                load_tiago_full if robot == "tiago17" else load_tiago_pro)(
+                dtype=dtype, device="cpu")
+    return _count_models[robot, dtype]
 
 
 def count_job(robot, spec_name, kind, derivs):
     """Operations per node of one kernel's plain version (a worker's job):
-    `robot` "panda" or "tiago", `spec_name` a `SPECS` key or "tiago" (None
-    for the step kernels)."""
+    `robot` "panda", "tiago" (the arm, nj = 8) or "tiago17" (the full
+    Tiago-Pro), `spec_name` a `SPECS` key, "tiago" or "tiago17" (None for
+    the step kernels). The plain version runs in f64 on the f32 inputs made
+    f64: for an f32 node it takes Fx and Fu in f64 (a second pass over the
+    dynamics), which is the reference's accuracy and not the function's
+    work."""
     from agimus_controller_tpu_torch.models.tiago_pro import TIAGO_PRO_Q_READY
 
-    model, params = _count_robot(robot)
+    model, _ = _count_robot(robot, torch.float32)
+    _, params = _count_robot(robot, torch.float64)
+    up = lambda *ts: tuple(t.double() for t in ts)
     N = COUNT_NODES
+    q_ready = {"tiago": TIAGO_PRO_Q_READY,
+               "tiago17": tiago_full_ready()}.get(robot)
     if kind == "step":
-        x, u, dt = step_inputs(N, N + derivs, "cpu", "per_node",
-                               TIAGO_PRO_Q_READY if robot == "tiago" else None)
-        return ops_per_node(model, params, None, kind, derivs, None, x, u,
-                            dt, None)
-    if robot == "tiago":
-        spec = tiago_spec(TIAGO_T)
+        x, u, dt = step_inputs(N, N + derivs, "cpu", "per_node", q_ready)
+        return ops_per_node(model, params, None, kind, derivs, None,
+                            *up(x, u, dt), None)
+    if robot != "panda":
+        spec = (tiago_spec if robot == "tiago" else tiago_full_spec)(TIAGO_T)
         refs, x, u, dt, t_idx = tiago_inputs(spec, model, N, N + derivs,
-                                             "cpu")
+                                             "cpu", q_ready)
     else:
         spec = SPECS[spec_name](100, model)
         refs, x, u, dt, t_idx = randomized_inputs(spec, model, N, N + derivs,
@@ -680,6 +697,8 @@ def count_job(robot, spec_name, kind, derivs):
         make_cuda_terminal,
     )
 
+    refs = {key: v.double() for key, v in refs.items()}
+    x, u, dt = up(x, u, dt)
     if kind == "stage":
         k = make_cuda_stage(model, params, spec, derivs, "cpu")
         return count_ops(lambda: k.plain(x, u, dt, t_idx, refs)) / N
@@ -699,7 +718,8 @@ def start_counts():
         initializer=_count_init)
     jobs = [("panda", sp, STAGE_KERNELS) for sp in CHECKED_SPECS] + [
         ("panda", None, STEP_KERNELS), ("tiago", "tiago", STAGE_KERNELS),
-        ("tiago", None, STEP_KERNELS)]
+        ("tiago", None, STEP_KERNELS), ("tiago17", "tiago17", STAGE_KERNELS),
+        ("tiago17", None, STEP_KERNELS)]
     counts = {}
     for robot, sp, kernels in jobs:
         for name, kind, derivs, _ in kernels:
@@ -908,34 +928,87 @@ TIAGO_B = 1024
 TIAGO_STEP_SIZES = (8, 160, 1024, 20_480)
 
 
-def tiago_spec(T: int, frame: str = TIAGO_FRAME):
+def tiago_spec(T: int, frame=TIAGO_FRAME):
     """The Tiago-Pro OCP of the JAX package's second-robot test: state and
     gravity-compensation regularisation and the translation of `frame`
     (the tool; another robot's frame gives that robot the same cost
-    model)."""
+    model), or of each frame of a tuple (an item "goal_<frame>" each,
+    running and terminal: `tiago_full_spec`)."""
     from agimus_controller_tpu_torch.ocp.spec import CostItem, ProblemSpec
 
-    goal = dict(kind="frame_translation", update=True, frame=frame)
+    frames = (frame,) if isinstance(frame, str) else tuple(frame)
+    name = lambda f: "goal" if isinstance(frame, str) else f"goal_{f}"
+    goal = lambda f: dict(kind="frame_translation", update=True, frame=f)
     return ProblemSpec(
         running_costs=(
             CostItem(name="state_reg", kind="state", weight=0.1, update=True),
-            CostItem(name="ctrl", kind="control_grav", weight=1e-3),
-            CostItem(name="goal", weight=10.0, **goal)),
-        terminal_costs=(CostItem(name="goal", weight=100.0, **goal),),
+            CostItem(name="ctrl", kind="control_grav", weight=1e-3)) + tuple(
+            CostItem(name=name(f), weight=10.0, **goal(f)) for f in frames),
+        terminal_costs=tuple(CostItem(name=name(f), weight=100.0, **goal(f))
+                             for f in frames),
         horizon=T, dt=0.02)
+
+
+# -- the full 17-DoF branched Tiago-Pro: K1-K5b at nj = 17 -------------------
+TIAGO_FULL_FRAMES = ("left_arm_tool_link", "right_arm_tool_link")
+# the full model's armature: the reduced model's 0.05 on every joint
+# (`load_tiago_pro` gives the full model none). Without it the wrists'
+# inertia (~1e-3 kg m^2) is all their mass matrix holds: the check nodes'
+# random torques reach |v+| ~ 200 rad/s in one step, where float32 leaves
+# the step past TOL's absolute 2e-5 from its f64 value
+# (`examples/full_tiago_f32_step.py`).
+TIAGO_FULL_ARMATURE = 0.05
+# joints 1-7 of the right arm against the left arm's at one pose: the signs
+# that put every link of the right arm at its left twin's place with y
+# negated (joints 5 and 7 are 0 in the ready pose)
+TIAGO_MIRROR = np.array([-1.0, 1.0, -1.0, 1.0, -1.0, 1.0, -1.0])
+
+
+def tiago_full_ready():
+    """The full Tiago-Pro's ready pose, a 17-vector: the torso lift and the
+    left arm at `TIAGO_PRO_Q_READY`'s values, the head at 0, the right arm
+    the left's mirror image, (0.15, 0, 0, 0.5, 0.5, -1.2, 1.0, 0.0, 1.1, 0.0,
+    -0.5, 0.5, 1.2, 1.0, -0.0, 1.1, -0.0)."""
+    from agimus_controller_tpu_torch.models.tiago_pro import TIAGO_PRO_Q_READY
+
+    arm = np.asarray(TIAGO_PRO_Q_READY[1:], dtype=float)
+    return np.concatenate([[TIAGO_PRO_Q_READY[0], 0.0, 0.0], arm,
+                           TIAGO_MIRROR * arm])
+
+
+def load_tiago_full(dtype, device):
+    """The full 17-DoF Tiago-Pro (`load_tiago_pro(moving_joint_names="all")`)
+    with `TIAGO_FULL_ARMATURE` on every joint."""
+    from agimus_controller_tpu_torch.models.tiago_pro import load_tiago_pro
+
+    return load_tiago_pro(moving_joint_names="all",
+                          armature=np.full(17, TIAGO_FULL_ARMATURE),
+                          dtype=dtype, device=device)
+
+
+def tiago_full_spec(T: int):
+    """`tiago_spec` with the translation of both tools: the bimanual
+    Tiago-Pro OCP of phase 9 and the nj = 17 kernel checks."""
+    return tiago_spec(T, TIAGO_FULL_FRAMES)
+
+
+def tiago_goal(frame):
+    """`TIAGO_GOAL` from the tool of `frame`, its y mirrored for the right
+    arm."""
+    g = np.asarray(TIAGO_GOAL, dtype=float)
+    return g * [1.0, -1.0, 1.0] if frame.startswith("right") else g
 
 
 def tiago_inputs(spec, model, N, seed, device, q_ready=None):
     """`randomized_inputs` for `tiago_spec`: every ref of the spec drawn
-    from the seed (the targets of its frame around (0.3, 0.3, 0.9)), x ~
-    (q_ready + 0.1 N(0, 1), 0.5 N(0, 1)) around `q_ready` (the Tiago-Pro's
-    ready pose by default), u ~ 2 N(0, 1), node times uniform over the
-    horizon."""
+    from the seed (the targets of each frame around (0.3, +-0.3, 0.9), y
+    negative for the right arm), x ~ (q_ready + 0.1 N(0, 1), 0.5 N(0, 1))
+    around `q_ready` (the Tiago-Pro arm's ready pose by default), u ~
+    2 N(0, 1), node times uniform over the horizon."""
     from agimus_controller_tpu_torch.models.tiago_pro import TIAGO_PRO_Q_READY
     from agimus_controller_tpu_torch.ocp.spec import default_references
 
     q_ready = TIAGO_PRO_Q_READY if q_ready is None else q_ready
-    frame = spec.terminal_costs[0].frame
     rng = np.random.default_rng(seed)
     Tn, nj = spec.horizon + 1, model.nj
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -945,9 +1018,11 @@ def tiago_inputs(spec, model, N, seed, device, q_ready=None):
         size=(Tn, nj)) * 0.2, rng.normal(size=(Tn, nj)) * 0.2], 1))
     refs["w_x"] = f(rng.uniform(0.1, 2.0, (Tn, 2 * nj)))
     refs["w_u"] = f(rng.uniform(0.1, 2.0, (Tn, nj)))
-    refs[f"ee_trans:{frame}"] = f(
-        rng.normal(size=(Tn, 3)) * 0.2 + np.asarray([0.3, 0.3, 0.9]))
-    refs[f"w_ee:{frame}"] = f(rng.uniform(0.1, 2.0, (Tn, 6)))
+    for item in spec.terminal_costs:
+        y = -0.3 if item.frame.startswith("right") else 0.3
+        refs[f"ee_trans:{item.frame}"] = f(
+            rng.normal(size=(Tn, 3)) * 0.2 + np.asarray([0.3, y, 0.9]))
+        refs[f"w_ee:{item.frame}"] = f(rng.uniform(0.1, 2.0, (Tn, 6)))
     x, u, _ = step_inputs(N, seed, device, "scalar", q_ready)
     t_idx = torch.as_tensor(rng.integers(0, spec.horizon, size=(N,)),
                             device=device)
@@ -957,13 +1032,14 @@ def tiago_inputs(spec, model, N, seed, device, q_ready=None):
 
 def check_all_kernels(device):
     """Phase 3: K1-K5b vs their plain versions on the Panda, every checked
-    spec at every size its paths launch them at, and their nj = 8 instances
-    on the Tiago-Pro arm (`tiago_spec`) at phase 7 (a)'s sizes: K1/K2 at
-    `TIAGO_STAGE_SIZES`, K3/K4 at N = 1, K5a/K5b at `TIAGO_STEP_SIZES`.
-    The bounds' operations are counted on the host by worker processes
-    meanwhile (`start_counts`). Returns (K1-K4 {kernel: {spec: {N:
-    numbers}}}, K5a/K5b {kernel: {N or ("tiago", N): numbers}}): the
-    Tiago-Pro sizes' errors join each kernel's."""
+    spec at every size its paths launch them at, their nj = 8 instances
+    on the Tiago-Pro arm (`tiago_spec`) at phase 7 (a)'s sizes and their
+    nj = 17 instances on the full Tiago-Pro (`tiago_full_spec`) at phase 9's,
+    the same: K1/K2 at `TIAGO_STAGE_SIZES`, K3/K4 at N = 1, K5a/K5b at
+    `TIAGO_STEP_SIZES`. The bounds' operations are counted on the host by
+    worker processes meanwhile (`start_counts`). Returns (K1-K4 {kernel:
+    {spec: {N: numbers}}}, K5a/K5b {kernel: {N or (robot, N): numbers}}):
+    the Tiago-Pro sizes' errors join each kernel's."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.models.tiago_pro import (
         TIAGO_PRO_Q_READY,
@@ -980,24 +1056,33 @@ def check_all_kernels(device):
         step_report = check_step_kernels(
             model, params, device,
             lambda name: counts[("panda", None, name)].result())
-        tiago = load_tiago_pro(dtype=torch.float32, device=device)
         tiago_sizes = lambda _, kind: (TIAGO_STAGE_SIZES if kind == "stage"
                                        else (1,))
-        tiago_report, tiago_plain_s = check_kernels(
-            *tiago, device,
-            lambda sp, name: counts[("tiago", sp, name)].result(),
-            {"tiago": tiago_spec(TIAGO_T)}, tiago_sizes, tiago_inputs,
-            timed=("tiago", TIAGO_STAGE_SIZES[0], 1))
-        for name, per_spec in tiago_report.items():
-            report[name].update(per_spec)
-        print(f"phase 3: K1-K4 plain calls (stacked, checks and timed) "
-              f"{plain_s + tiago_plain_s:.1f} s")
-        for name, per_n in check_step_kernels(
+        for robot, load, make_spec, q_ready in (
+                ("tiago", load_tiago_pro, tiago_spec, TIAGO_PRO_Q_READY),
+                ("tiago17", load_tiago_full, tiago_full_spec,
+                 tiago_full_ready())):
+            tiago = load(dtype=torch.float32, device=device)
+            t0 = time.perf_counter()
+            tiago_report, tiago_plain_s = check_kernels(
                 *tiago, device,
-                lambda name: counts[("tiago", None, name)].result(),
-                TIAGO_STEP_SIZES, TIAGO_PRO_Q_READY, "tiago").items():
-            step_report[name].update({("tiago", n): v
-                                      for n, v in per_n.items()})
+                lambda sp, name: counts[(robot, sp, name)].result(),
+                {robot: make_spec(TIAGO_T)}, tiago_sizes,
+                lambda *a: tiago_inputs(*a, q_ready),
+                timed=(robot, TIAGO_STAGE_SIZES[0], 1))
+            for name, per_spec in tiago_report.items():
+                report[name].update(per_spec)
+            plain_s += tiago_plain_s
+            for name, per_n in check_step_kernels(
+                    *tiago, device,
+                    lambda name: counts[(robot, None, name)].result(),
+                    TIAGO_STEP_SIZES, q_ready, robot).items():
+                step_report[name].update({(robot, n): v
+                                          for n, v in per_n.items()})
+            print(f"phase 3: nj={tiago[0].nj} ({robot}) K1-K5b checked in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        print(f"phase 3: K1-K4 plain calls (stacked, checks and timed) "
+              f"{plain_s:.1f} s")
     finally:
         pool.shutdown(cancel_futures=True)
     return report, step_report
@@ -2873,35 +2958,54 @@ def _tool_position(model, params64, fid):
         np.asarray(q, dtype=float)), fid)[1].numpy()
 
 
-def tiago_problem(device):
+def tiago_problem(device, full=False):
     """Phase 7 (a)'s problem: the Tiago-Pro arm (f32 on `device`, an f64
     host copy), `tiago_spec(TIAGO_T)`, x0 at the ready pose, the tool
-    target FK(ready) + `TIAGO_GOAL`, the gravity torque at the ready pose."""
+    target FK(ready) + `TIAGO_GOAL`, the gravity torque at the ready pose;
+    with `full` phase 9's: the full 17-DoF Tiago-Pro (`load_tiago_full`),
+    `tiago_full_spec`,
+    x0 at `tiago_full_ready()`, each tool's target FK(ready) +
+    `tiago_goal(frame)`. `tools`, `p0` and `target` are per frame."""
     from agimus_controller_tpu_torch.models.tiago_pro import (
         TIAGO_PRO_Q_READY,
         load_tiago_pro,
     )
     from agimus_controller_tpu_torch.ops.dynamics import generalized_gravity
 
-    model, params = load_tiago_pro(dtype=torch.float32, device=device)
-    _, params64 = load_tiago_pro(dtype=torch.float64, device="cpu")
-    tool = _tool_position(model, params64, model.frame_id(TIAGO_FRAME))
-    q0 = np.asarray(TIAGO_PRO_Q_READY, dtype=float)
-    p0 = tool(q0)
+    load = load_tiago_full if full else load_tiago_pro
+    model, params = load(dtype=torch.float32, device=device)
+    _, params64 = load(dtype=torch.float64, device="cpu")
+    frames = TIAGO_FULL_FRAMES if full else (TIAGO_FRAME,)
+    tools = {f: _tool_position(model, params64, model.frame_id(f))
+             for f in frames}
+    q0 = tiago_full_ready() if full else np.asarray(TIAGO_PRO_Q_READY,
+                                                    dtype=float)
+    p0 = {f: tools[f](q0) for f in frames}
     return SimpleNamespace(
-        model=model, params=params, spec=tiago_spec(TIAGO_T), tool=tool,
-        q0=q0, x0=np.concatenate([q0, np.zeros(8)]), p0=p0,
-        target=p0 + np.asarray(TIAGO_GOAL),
+        model=model, params=params,
+        spec=tiago_full_spec(TIAGO_T) if full else tiago_spec(TIAGO_T),
+        frames=frames, tools=tools, q0=q0,
+        x0=np.concatenate([q0, np.zeros(model.nj)]), p0=p0,
+        target={f: p0[f] + tiago_goal(f) for f in frames},
         tau_g=generalized_gravity(model, params64,
-                                  torch.as_tensor(q0)).numpy())
+                                  torch.as_tensor(q0)).numpy(),
+        label=("phase 9 full Tiago-Pro" if full else "phase 7 (a) Tiago-Pro"))
 
 
-def run_tiago_tick(device):
+def _tool_errors(tp, q):
+    """{frame: distance of its tool at q from its target} (m)."""
+    return {f: float(np.linalg.norm(tp.tools[f](q) - tp.target[f]))
+            for f in tp.frames}
+
+
+def run_tiago_tick(device, full=False):
     """Phase 7 (a), the tick: the Tiago-Pro OCP through a
     `PackedTrajectoryBuffer` and `FusedTickRunner` on backend "auto",
     which must take the stage kernels' nj = 8 instances: the first solve
-    at limit 300, `TIAGO_TICKS` ticks at limit 2, one at limit 10. Returns
-    (launches of K1-K4 over the ticks, line)."""
+    at limit 300, `TIAGO_TICKS` ticks at limit 2, one at limit 10; with
+    `full` phase 9's, the same on the full Tiago-Pro and the nj = 17
+    instances, both tools streamed. Returns (launches of K1-K4 over the
+    ticks, line)."""
     from agimus_controller_tpu_torch.mpc.buffer import (
         DTFactorsNSeq,
         TrajectoryPoint,
@@ -2916,7 +3020,7 @@ def run_tiago_tick(device):
     from agimus_controller_tpu_torch.ocp.spec import default_references
     from agimus_controller_tpu_torch.solver.csqp import CSQPSettings
 
-    tp = tiago_problem(device)
+    tp = tiago_problem(device, full)
     T, nj = TIAGO_T, tp.model.nj
     refs = default_references(tp.spec, tp.model, dtype=torch.float32,
                               device=device)
@@ -2927,11 +3031,12 @@ def run_tiago_tick(device):
                 id=i, time_ns=int(i * 2e7), robot_configuration=tp.q0,
                 robot_velocity=np.zeros(nj), robot_acceleration=np.zeros(nj),
                 robot_effort=tp.tau_g,
-                end_effector_poses={TIAGO_FRAME: (np.eye(3), tp.target)}),
+                end_effector_poses={f: (np.eye(3), tp.target[f])
+                                    for f in tp.frames}),
             weights=TrajectoryPointWeights(
                 w_robot_configuration=np.ones(nj),
                 w_robot_velocity=np.ones(nj), w_robot_effort=np.ones(nj),
-                w_end_effector_poses={TIAGO_FRAME: np.ones(6)}))
+                w_end_effector_poses={f: np.ones(6) for f in tp.frames}))
 
     buf = PackedTrajectoryBuffer(DTFactorsNSeq(factors=[1], n_steps=[T]),
                                  RowLayout(tp.spec, tp.model),
@@ -2945,7 +3050,7 @@ def run_tiago_tick(device):
     solver = runner.solver
     if solver.backend != "kernels":
         raise AssertionError(
-            f"phase 7 (a): backend {solver.backend!r} "
+            f"{tp.label}: backend {solver.backend!r} "
             f"({solver.backend_reason}), expected 'kernels'")
     for k in solver.kernels:
         k.launches = 0
@@ -2968,48 +3073,52 @@ def run_tiago_tick(device):
     launches = dict(zip([k[0] for k in STAGE_KERNELS],
                         (k.launches for k in solver.kernels)))
     if not (np.all(np.isfinite(u0)) and np.all(np.isfinite(K0))):
-        raise AssertionError("phase 7 (a): non-finite control message")
+        raise AssertionError(f"{tp.label}: non-finite control message")
     if not (conv and kkt < 1e-4):
         raise AssertionError(
-            f"phase 7 (a): final tick did not converge (kkt={kkt:.2e})")
-    e0 = float(np.linalg.norm(tp.p0 - tp.target))
-    eT = float(np.linalg.norm(tp.tool(
-        runner._xs[-1, :nj].double().cpu().numpy()) - tp.target))
-    if not eT < 0.25 * e0:
-        raise AssertionError(
-            f"phase 7 (a): tool error {eT:.4f} m not under 0.25 x the start "
-            f"error {e0:.4f} m")
+            f"{tp.label}: final tick did not converge (kkt={kkt:.2e})")
+    e0 = _tool_errors(tp, tp.q0)
+    eT = _tool_errors(tp, runner._xs[-1, :nj].double().cpu().numpy())
+    for f in tp.frames:
+        if not eT[f] < 0.25 * e0[f]:
+            raise AssertionError(
+                f"{tp.label}: {f} error {eT[f]:.4f} m not under 0.25 x the "
+                f"start error {e0[f]:.4f} m")
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:
-        raise AssertionError(f"phase 7 (a): {missing} never launched")
+        raise AssertionError(f"{tp.label}: {missing} never launched")
+    errors = ", ".join(f"{f} {eT[f] * 1e3:.2f} mm (start {e0[f] * 1e3:.2f} "
+                       "mm)" for f in tp.frames)
     return launches, (
-        f"phase 7 (a) Tiago-Pro tick (nj=8, T={T}, backend "
+        f"{tp.label} tick (nj={nj}, T={T}, backend "
         f"{solver.backend}): first solve {first_s:.2f} s, iters={it0} "
         f"kkt={kkt0:.2e}; tick median {_median_ms(times):.3f} ms over "
         f"{TIAGO_TICKS} ticks at limit 2 (host clock, synchronized); "
         f"{syncs:.2f} host syncs per tick; final tick iters={iters} "
-        f"kkt={kkt:.2e} conv={conv}; planned tool error {eT * 1e3:.2f} mm "
-        f"(start {e0 * 1e3:.2f} mm); launches {launches}")
+        f"kkt={kkt:.2e} conv={conv}; planned tool errors {errors}; "
+        f"launches {launches}")
 
 
-def run_tiago_batch(device):
+def run_tiago_batch(device, full=False):
     """Phase 7 (a), the batch: `make_batch_fddp` on the Tiago-Pro OCP,
     T = `TIAGO_T`, B = `TIAGO_B`, f32, 10 iterations, x0 = ready +
     N(0, 0.02^2) on q; rows 0-7 must equal a B = 8 solve (iterations and
-    convergence equal, us within the batch path's 1e-3). Returns (launches
-    of K5a/K5b, line)."""
+    convergence equal, us within the batch path's 1e-3); with `full`
+    phase 9's, the same on the full Tiago-Pro (K5a/K5b at nj = 17). Returns
+    (launches of K5a/K5b, line)."""
     from agimus_controller_tpu_torch.ocp.spec import default_references
     from agimus_controller_tpu_torch.solver.fddp import SolverSettings
     from agimus_controller_tpu_torch.solver.fddp_batch import make_batch_fddp
 
-    tp = tiago_problem(device)
+    tp = tiago_problem(device, full)
     T, B, nj = TIAGO_T, TIAGO_B, tp.model.nj
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                   device=device)
     refs = default_references(tp.spec, tp.model, dtype=torch.float32,
                               device=device)
     refs["xref"] = f(np.tile(tp.x0[None], (T + 1, 1)))
-    refs[f"ee_trans:{TIAGO_FRAME}"] = f(np.tile(tp.target[None], (T + 1, 1)))
+    for fr in tp.frames:
+        refs[f"ee_trans:{fr}"] = f(np.tile(tp.target[fr][None], (T + 1, 1)))
     rng = np.random.default_rng(0)
     x0s = f(tp.x0[None] + np.concatenate(
         [rng.normal(size=(B, nj)) * BATCH_X0_NOISE, np.zeros((B, nj))], 1))
@@ -3030,30 +3139,32 @@ def run_tiago_batch(device):
                 zip(STEP_KERNELS, solver.kernels)}
     for field in ("xs", "us", "K", "k", "cost", "kkt", "gap_norm"):
         if not bool(torch.isfinite(getattr(big, field)).all()):
-            raise AssertionError(f"phase 7 (a) batch: non-finite {field}")
+            raise AssertionError(f"{tp.label} batch: non-finite {field}")
     rows = slice(0, BATCH_ROWS)
     du = float((big.us[rows] - small.us).abs().max())
     if not (torch.equal(big.iters[rows], small.iters)
             and torch.equal(big.converged[rows], small.converged)
             and du < 1e-3):
         raise AssertionError(
-            f"phase 7 (a) batch: rows 0-{BATCH_ROWS - 1} differ from the "
+            f"{tp.label} batch: rows 0-{BATCH_ROWS - 1} differ from the "
             f"B={BATCH_ROWS} solve (iters {big.iters[rows].tolist()} vs "
             f"{small.iters.tolist()}, us max abs diff {du:.3e})")
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:
-        raise AssertionError(f"phase 7 (a) batch: {missing} never launched")
+        raise AssertionError(f"{tp.label} batch: {missing} never launched")
     c = lambda a: a.double().cpu().numpy()
-    dist = np.linalg.norm(np.stack([tp.tool(q) for q in c(
-        big.xs[:, -1, :nj])]) - tp.target, axis=1)
+    finals = c(big.xs[:, -1, :nj])
+    median = {fr: float(np.median([np.linalg.norm(tp.tools[fr](q)
+                                                  - tp.target[fr])
+                                   for q in finals])) for fr in tp.frames}
+    dist = ", ".join(f"{fr} {median[fr] * 1e3:.3f} mm" for fr in tp.frames)
     return launches, (
-        f"phase 7 (a) Tiago-Pro batch FDDP (B={B}, T={T}, f32, 10 "
+        f"{tp.label} batch FDDP (nj={nj}, B={B}, T={T}, f32, 10 "
         f"iterations): solve {big_s:.3f} s = {B / big_s:.1f} solves/s (host "
         f"clock, synchronized), {solver.host_syncs - s0} host syncs; mean "
         f"iterations {float(c(big.iters).mean()):.2f}; converged share "
         f"{float(c(big.converged).mean()):.4f}; median planned tool error "
-        f"{float(np.median(dist)) * 1e3:.3f} mm (start "
-        f"{np.linalg.norm(TIAGO_GOAL) * 1e3:.1f} mm); rows 0-"
+        f"{dist} (start {np.linalg.norm(TIAGO_GOAL) * 1e3:.1f} mm); rows 0-"
         f"{BATCH_ROWS - 1} match the B={BATCH_ROWS} solve (us max abs diff "
         f"{du:.3e}); launches {launches}")
 
@@ -3620,6 +3731,23 @@ def run_slice12_phase(device):
     for part in (run_soft_tick, run_freeflyer, run_ff_tick, run_sensitivity):
         t0 = time.perf_counter()
         lines.append(f"{part(device)} [{time.perf_counter() - t0:.1f} s]")
+    return launches, lines
+
+
+def run_full_tiago_phase(device):
+    """Phase 9: the full 17-DoF branched Tiago-Pro on K1-K5b's nj = 17
+    instances, f32, T = `TIAGO_T`, dt 0.02: both tools' translations
+    through `FusedTickRunner` (phase 7 (a)'s buffer and schedule) and
+    `make_batch_fddp` at B = `TIAGO_B` on K5a/K5b, rows 0-7 against a B = 8
+    solve. Returns (launches per kernel, lines)."""
+    launches = {name: 0 for name, *_ in KERNELS}
+    lines = []
+    for part in (run_tiago_tick, run_tiago_batch):
+        t0 = time.perf_counter()
+        got, line = part(device, full=True)
+        lines.append(f"{line} [{time.perf_counter() - t0:.1f} s]")
+        for name, n in got.items():
+            launches[name] += n
     return launches, lines
 
 
@@ -4193,6 +4321,28 @@ def run_multi_device_phase(device):
     return launches, lines
 
 
+# the joint counts the phases run: the 2-DoF arm (phases 5 and 8), the
+# Panda, the Tiago-Pro arm (phase 7) and the full Tiago-Pro (phase 9)
+BUILD_NJ = (2, 7, 8, 17)
+
+
+def build_kernels(build):
+    """Phase 2: `build.build_many(BUILD_NJ)`, every source of every count at
+    once, each library loaded; prints each library and ptxas's register,
+    stack and spill lines. Returns {nj: library path}."""
+    t0 = time.perf_counter()
+    built = build.build_many(BUILD_NJ)
+    print(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
+    for nj, (path, log) in zip(BUILD_NJ, built):
+        build.load_library(nj)
+        print(f"nj={nj}: {path.name}")
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "stack frame")):
+                print("  ptxas:", line.strip())
+    return {nj: path for nj, (path, _) in zip(BUILD_NJ, built)}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -4211,14 +4361,9 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; TF32 off (matmul and cudnn)")
 
-    # -- 2. build
+    # -- 2. build every joint count's library at once
     t0 = time.perf_counter()
-    lib_path, log = _build.build()
-    _build.load_library()
-    print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    build_kernels(_build)
     print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
 
     # -- 3. kernels vs plain, on the Panda and at nj = 8 on the Tiago-Pro arm
@@ -4244,9 +4389,12 @@ def main():
     # and the quaternion free-flyer (also through the fused tick), the
     # sensitivity sweep, then
     # -- 8. slice 16: the mesh, the sharded solvers, the batch CSQP, the
-    # horizon-sharded Riccati, two processes on the card
+    # horizon-sharded Riccati, two processes on the card, then
+    # -- 9. the full 17-DoF Tiago-Pro on the nj = 17 kernels: the fused tick
+    # and the batch FDDP
     for number, phase in ((5, run_fallback_phase), (6, run_control_loop_phase),
-                          (7, run_slice12_phase), (8, run_multi_device_phase)):
+                          (7, run_slice12_phase), (8, run_multi_device_phase),
+                          (9, run_full_tiago_phase)):
         t0 = time.perf_counter()
         path_launches, lines = phase(device)
         for line in lines:
@@ -4255,7 +4403,7 @@ def main():
             launches[name] += n
         print(f"phase {number} took {time.perf_counter() - t0:.1f} s")
 
-    # -- result: launches over the paths of phases 4-8, the max error over
+    # -- result: launches over the paths of phases 4-9, the max error over
     # every checked spec and size; times (wrapper and bare launch) and bounds at
     # the flagship tick shape for K1-K4 and at the batch path's shapes for
     # K5a/K5b (no single PyTorch call computes a fused stage or a dynamics

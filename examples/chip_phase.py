@@ -9,12 +9,16 @@ them without the whole script.
                                           # solvers, the batch CSQP, the
                                           # horizon-sharded Riccati, two
                                           # processes on one card
+    python3 examples/chip_phase.py 9      # the full 17-DoF Tiago-Pro on the
+                                          # nj = 17 kernels: the fused tick
+                                          # and the batch FDDP
 
-Builds the kernels as `chip_smoke.py` does, prints the card's name and
-power limit, then for each phase asked for its lines, its launches per
-kernel (phases 4-8) and its time on the host clock. Phases: 3 (K1-K4 and
-K5a/K5b against their plain versions, also their nj = 8 instances on the
-Tiago-Pro arm), 4 (the flagship, collision, visual-servoing and batch
+Builds every joint count's kernels as `chip_smoke.py`'s phase 2 does,
+prints the card's name and power limit, then for each phase asked for its
+lines, its launches per kernel (phases 4-9) and its time on the host clock.
+Phases: 3 (K1-K4 and K5a/K5b against their plain versions, also their
+nj = 8 instances on the Tiago-Pro arm and their nj = 17 instances on the
+full Tiago-Pro), 4 (the flagship, collision, visual-servoing and batch
 paths, the batch rows also on the horizon-parallel Riccati sweep), 5 (the
 "xla" backend and the single-scenario solvers), 6 (the control loop, its
 recording, checkpoint, debugger, ROS shim and publisher process), 7 (the
@@ -22,8 +26,9 @@ Tiago-Pro arm on the nj = 8 kernels, soft contact and the quaternion
 free-flyer, also through the fused tick, the sensitivity sweep), 8 (the
 multi-device layer over four slots of the card: the batch-sharded SQP on
 K1-K4, the batch-sharded FDDP and the batch CSQP on K5a/K5b, the
-horizon-sharded Riccati in f64, two processes sharing the card). Needs a
-CUDA device.
+horizon-sharded Riccati in f64, two processes sharing the card), 9 (the
+full 17-DoF Tiago-Pro through the fused tick and the batch FDDP on the
+nj = 17 kernels). Needs a CUDA device.
 """
 
 import subprocess
@@ -49,9 +54,8 @@ def main(phases):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     t0 = time.perf_counter()
-    lib_path, _ = _build.build()
-    _build.load_library()
-    print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    cs.build_kernels(_build)
+    print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -74,7 +78,8 @@ def main(phases):
            5: lambda: cs.run_fallback_phase(device),
            6: lambda: cs.run_control_loop_phase(device),
            7: lambda: cs.run_slice12_phase(device),
-           8: lambda: cs.run_multi_device_phase(device)}
+           8: lambda: cs.run_multi_device_phase(device),
+           9: lambda: cs.run_full_tiago_phase(device)}
     for phase in phases:
         t0 = time.perf_counter()
         launches, lines = run[phase]()

@@ -3,8 +3,10 @@
     python3 examples/kernel_sass_diff.py PARENT_DIR CHANGE_DIR [OLD=NEW ...]
         [--show N]
 
-Builds the kernel library of each checkout (`ops/_build.py` of that
-checkout, into its own build directory), disassembles both with
+Builds the kernel libraries of each checkout (`ops/_build.py` of that
+checkout, into its own build directory: the libraries of the joint counts
+2, 7 and 8 where a checkout builds one per count, else its one library),
+disassembles both with
 `cuobjdump -sass` and prints, per kernel instance, the instruction counts
 and whether the two are the same instruction for instruction (addresses,
 encodings and the compilation unit's anonymous-namespace hash removed);
@@ -28,14 +30,20 @@ from pathlib import Path
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 
 
-def build(root: Path) -> str:
-    """Path of root's kernel library, built if missing."""
+NJS = (2, 7, 8)  # the joint counts compared
+
+
+def build(root: Path) -> list[str]:
+    """Paths of root's kernel libraries, built if missing."""
     code = (f"import sys; sys.path.insert(0, {str(root)!r}); "
             "from agimus_controller_tpu_torch.ops import _build; "
-            "print(_build.build()[0])")
+            "paths = ([p for p, _ in _build.build_many("
+            f"{NJS!r})] if hasattr(_build, 'build_many') "
+            "else [_build.build()[0]]); "
+            "print('|'.join(str(p) for p in paths))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True)
-    return out.stdout.strip().splitlines()[-1]
+    return out.stdout.strip().splitlines()[-1].split("|")
 
 
 def kernel_name(mangled: str) -> str:
@@ -51,10 +59,11 @@ def kernel_name(mangled: str) -> str:
     return mangled
 
 
-def sass(lib: str) -> dict[str, list[str]]:
-    """Instructions of every kernel in lib, by kernel name."""
-    text = subprocess.run([CUOBJDUMP, "-sass", lib], capture_output=True,
-                          text=True, check=True).stdout
+def sass(libs: list[str]) -> dict[str, list[str]]:
+    """Instructions of every kernel in libs, by kernel name."""
+    text = "\n".join(subprocess.run([CUOBJDUMP, "-sass", lib],
+                                    capture_output=True, text=True,
+                                    check=True).stdout for lib in libs)
     funcs, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)

@@ -54,8 +54,11 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    _build.build()
-    _build.load_library()
+    if hasattr(_build, "build_many"):  # one library per joint count
+        _build.load_library(7)
+    else:
+        _build.build()
+        _build.load_library()
     print(f"[{a.tag}] {root}; {card}")
     device = torch.device("cuda", 0)
     runs = {"collision": smoke.run_collision_path, "vs": smoke.run_vs_path,

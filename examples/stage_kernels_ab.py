@@ -2,6 +2,7 @@
 
     python3 examples/stage_kernels_ab.py --root DIR [--out FILE.json]
         [--specs flagship,...] [--kernels stage,terminal,step]
+        [--robot panda|tiago]
 
 Imports `agimus_controller_tpu_torch` from DIR (this checkout or an
 unpacked older one, e.g. `git archive <commit> | tar -x -C build/parent`),
@@ -24,6 +25,10 @@ the batch path's N = 4 096 and 409 600 with per-node dt:
   graph replayed 10 times (median, CUDA events), per launch. `kernel_ms`
   also holds the host's submission of its one launch.
 
+With `--robot tiago` the same on the 8-joint Tiago-Pro arm at the sizes
+phase 7 launches its kernels at: K1/K2 on `chip_smoke.tiago_spec` at
+`TIAGO_STAGE_SIZES`, K3/K4 at N = 1, K5a/K5b at `TIAGO_STEP_SIZES`
+(`tiago_inputs` / `step_inputs` around its ready pose).
 The inputs are `chip_smoke.randomized_inputs` / `step_inputs` of the
 checkout that holds this script, whatever DIR is. Prints one
 line per case, the card's name and power limit, the compiler's register,
@@ -182,6 +187,7 @@ def main():
     ap.add_argument("--specs", default="flagship,full,yaml,vs,fv,cap25")
     ap.add_argument("--kernels", default="stage,terminal,step")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--robot", choices=("panda", "tiago"), default="panda")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("stage_kernels_ab: no CUDA device")
@@ -197,6 +203,10 @@ def main():
     smoke = importlib.util.module_from_spec(spec_)
     spec_.loader.exec_module(smoke)
     from agimus_controller_tpu_torch.models.panda import load_panda
+    from agimus_controller_tpu_torch.models.tiago_pro import (
+        TIAGO_PRO_Q_READY,
+        load_tiago_pro,
+    )
     from agimus_controller_tpu_torch.ops import _build
     from agimus_controller_tpu_torch.ops.cuda_costs import (
         make_cuda_stage,
@@ -210,15 +220,32 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     t0 = time.perf_counter()
-    _, log = _build.build()
-    _build.load_library()
+    nj = 7 if a.robot == "panda" else 8
+    if hasattr(_build, "build_many"):  # one library per joint count
+        _, log = _build.build(nj)
+        lib = _build.load_library(nj)
+    else:
+        _, log = _build.build()
+        lib = _build.load_library()
     print(f"[{a.tag}] {root}: built in {time.perf_counter() - t0:.1f} s; {card}")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[{a.tag}]   ptxas:", line.strip())
-    model, params = load_panda(env_urdf=smoke.ENV_URDF,
-                               collision_pairs=smoke.PAIR,
-                               dtype=torch.float32, device=device)
+    if a.robot == "panda":
+        model, params = load_panda(env_urdf=smoke.ENV_URDF,
+                                   collision_pairs=smoke.PAIR,
+                                   dtype=torch.float32, device=device)
+        specs = {n: smoke.SPECS[n](100, model) for n in a.specs.split(",")}
+        inputs, q_ready = smoke.randomized_inputs, None
+        sizes, terminal_sizes, step_sizes = SIZES, TERMINAL_SIZES, STEP_SIZES
+    else:
+        model, params = load_tiago_pro(dtype=torch.float32, device=device)
+        specs = {"tiago": smoke.tiago_spec(smoke.TIAGO_T)}
+        inputs = lambda spec, model, N, seed, device: smoke.tiago_inputs(
+            spec, model, N, seed, device)
+        q_ready = TIAGO_PRO_Q_READY
+        sizes, terminal_sizes = smoke.TIAGO_STAGE_SIZES, (1,)
+        step_sizes = smoke.TIAGO_STEP_SIZES
     out = []
 
     def record(name, spec_name, N, times):
@@ -231,27 +258,25 @@ def main():
                         host_ms=host_ms, device_ms=device_ms))
 
     groups = a.kernels.split(",")
-    for spec_name in a.specs.split(","):
-        spec = smoke.SPECS[spec_name](100, model)
+    for spec_name, spec in specs.items():
         for derivs in (True, False):
             if "stage" in groups:
                 k = make_cuda_stage(model, params, spec, derivs, device)
-                for N in SIZES:
-                    refs, x, u, dt, t_idx = smoke.randomized_inputs(
-                        spec, model, N, seed=N + derivs, device=device)
+                for N in sizes:
+                    refs, x, u, dt, t_idx = inputs(spec, model, N, N + derivs,
+                                                   device)
                     record("K1" if derivs else "K2", spec_name, N, time_case(
                         smoke, lambda: k(x, u, dt, t_idx, refs),
                         lambda: stage_launch(k, x, u, dt, t_idx, refs), 50))
             if "terminal" in groups:
                 k = make_cuda_terminal(model, params, spec, derivs, device)
-                for N in TERMINAL_SIZES:
-                    refs, x, _, _, _ = smoke.randomized_inputs(
-                        spec, model, N, seed=N + derivs, device=device)
+                for N in terminal_sizes:
+                    refs, x, _, _, _ = inputs(spec, model, N, N + derivs,
+                                              device)
                     record("K3" if derivs else "K4", spec_name, N, time_case(
                         smoke, lambda: k(x, refs),
                         lambda: terminal_launch(k, x, refs), 50))
     if "step" in groups:
-        lib = _build.load_library()
         for derivs in (False, True):
             k = StepKernel(model, params, derivs, device)
             if hasattr(lib, "ag_step_blocks_per_sm"):
@@ -261,9 +286,9 @@ def main():
                       f"blocks per SM: {blocks}")
                 out.append(dict(kernel="K5b" if derivs else "K5a",
                                 blocks_per_sm=blocks))
-            for N in STEP_SIZES:
+            for N in step_sizes:
                 x, u, dt = smoke.step_inputs(N, N + derivs, device,
-                                             "per_node")
+                                             "per_node", q_ready)
                 record("K5b" if derivs else "K5a", "", N, time_case(
                     smoke, lambda: k(x, u, dt),
                     lambda: step_launch(k, x, u, dt),

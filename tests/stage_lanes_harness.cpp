@@ -9,18 +9,24 @@
 // 1's cost items. K4: the warp's gather of the ref row, then the item
 // values lane by lane and their sum. The one-thread bodies the lane
 // programs replaced (`ag::dynamics_node`, `ag::terminal_node`) run as
-// references. Built with
-//   g++ -std=c++17 -O2 -shared -fPIC -I agimus_controller_tpu_torch/csrc
-// by tests/test_torch_stage_lanes.py and test_torch_step_lanes.py and
-// called through ctypes with the arguments of `ag_stage`, `ag_terminal` and
+// references. Built once per joint count, as the kernels are, with
+//   g++ -std=c++17 -O2 -shared -fPIC -DAG_NJ=<nj>
+//       -I agimus_controller_tpu_torch/csrc
+// by tests/_torch_lanes_lib.py (for test_torch_stage_lanes.py,
+// test_torch_step_lanes.py and test_torch_joint_counts.py) and called
+// through ctypes with the arguments of `ag_stage`, `ag_terminal` and
 // `ag_step` (no stream; the step and the terminal one-thread body take a
-// lane-program switch).
+// lane-program switch); a call for another joint count returns 1.
 
 #include <algorithm>
 #include <cmath>
 #include <vector>
 
 #include "stage_kernels.cuh"
+
+#if !defined(AG_NJ)
+#error "build with -DAG_NJ=<joint count>"
+#endif
 
 namespace {
 
@@ -145,10 +151,10 @@ void step(int lanes, int N, const float* x, const float* u, const float* dt,
                                    xo.data(), nullptr, nullptr);
     } else {
       for (int lane = 0; lane < K::LANES; ++lane)
-        ag::k5_place<NJ>(lane, C, xn, S.data());
+        ag::k5_place<NJ, K::LANES>(lane, C, xn, S.data());
       std::vector<float> df(6 * NJ * K::LANES, NAN);
       for (int lane = 0; lane < K::LANES; ++lane)
-        ag::k5_mass_bias<NJ, false>(
+        ag::k5_mass_bias<NJ, K::LANES, false>(
             lane, C, xn, ag::ForceSlots{&df[lane], K::LANES}, S.data());
       for (int lane = 0; lane < K::LANES; ++lane)
         ag::k5a_finish<NJ>(lane, xn, un, dt[n], S.data(), xo.data());
@@ -177,12 +183,12 @@ void step_derivs(int lanes, int N, const float* x, const float* u,
                                   fx.data(), fu.data());
     } else {
       for (int lane = 0; lane < K::LANES; ++lane)
-        ag::k5_place<NJ>(lane, C, xn, S.data());
+        ag::k5_place<NJ, K::LANES>(lane, C, xn, S.data());
       // each lane's force slots, thread-minor as in the kernel
       std::vector<float> df(6 * NJ * K::LANES, NAN);
       auto fs = [&](int lane) { return ag::ForceSlots{&df[lane], K::LANES}; };
       for (int lane = 0; lane < K::LANES; ++lane)
-        ag::k5_mass_bias<NJ>(lane, C, xn, fs(lane), S.data());
+        ag::k5_mass_bias<NJ, K::LANES>(lane, C, xn, fs(lane), S.data());
       for (int lane = 0; lane < K::LANES; ++lane)
         ag::k5_solve<NJ>(lane, C, xn, un, fs(lane), S.data());
       for (int lane = 0; lane < K::LANES; ++lane)
@@ -209,9 +215,7 @@ extern "C" int ag_terminal_host(int nj, int derivs, int N, const float* x,
   else                                                                     \
     k4<NJ>(N, x, *tab, t, W, C, n_items, l);                               \
   return 0
-  if (nj == 8) { AG_HOST(8); }
-  if (nj == 7) { AG_HOST(7); }
-  if (nj == 2) { AG_HOST(2); }
+  if (nj == AG_NJ) { AG_HOST(AG_NJ); }
 #undef AG_HOST
   return 1;
 }
@@ -223,19 +227,9 @@ extern "C" int ag_terminal_node_host(int nj, int N, const float* x,
                                      const float* C, int n_items, float* l,
                                      float* lx, float* lxx) {
   if (tab->n < 0 || tab->n > ag::kMaxRefs) return 1;
-  if (nj == 8) {
-    terminal_one_thread<8>(N, x, *tab, t, W, C, n_items, l, lx, lxx);
-    return 0;
-  }
-  if (nj == 7) {
-    terminal_one_thread<7>(N, x, *tab, t, W, C, n_items, l, lx, lxx);
-    return 0;
-  }
-  if (nj == 2) {
-    terminal_one_thread<2>(N, x, *tab, t, W, C, n_items, l, lx, lxx);
-    return 0;
-  }
-  return 1;
+  if (nj != AG_NJ) return 1;
+  terminal_one_thread<AG_NJ>(N, x, *tab, t, W, C, n_items, l, lx, lxx);
+  return 0;
 }
 
 // K5a (derivs = 0) or K5b's phases, or with lanes = 1 their one-thread
@@ -250,9 +244,7 @@ extern "C" int ag_step_host(int nj, int derivs, int lanes, int N,
   else                                                              \
     step<NJ>(lanes, N, x, u, dt, C, xnext);                         \
   return 0
-  if (nj == 8) { AG_HOST(8); }
-  if (nj == 7) { AG_HOST(7); }
-  if (nj == 2) { AG_HOST(2); }
+  if (nj == AG_NJ) { AG_HOST(AG_NJ); }
 #undef AG_HOST
   return 1;
 }
@@ -273,9 +265,14 @@ extern "C" int ag_stage_host(int nj, int derivs, int N, const float* x,
   else                                                                      \
     k2<NJ>(N, x, u, dt, t_idx, *tab, W, C, n_items, xnext, l);              \
   return 0
-  if (nj == 8) { AG_HOST(8); }
-  if (nj == 7) { AG_HOST(7); }
-  if (nj == 2) { AG_HOST(2); }
+  if (nj == AG_NJ) { AG_HOST(AG_NJ); }
 #undef AG_HOST
   return 1;
+}
+
+// The dynamic shared memory of one block of kernel `kernel` (`ag::KernelId`,
+// K1 = 1 ... K5b = 6) in floats at this joint count (`ag::smem_floats`).
+extern "C" int ag_smem_floats_host(int kernel, int consts_len, int W,
+                                   int n_items) {
+  return ag::smem_floats<AG_NJ>(kernel, consts_len, W, n_items);
 }

@@ -14,8 +14,10 @@ views of the refs. The step kernels K5a/K5b take random Panda nodes with v
 and u live, with per-node and scalar dt. The nj = 2 instances run on a
 planar 2-DoF arm (K3/K4 with every kind in the terminal model), the nj = 8
 instances on the Tiago-Pro arm (`chip_smoke.tiago_spec`, K1-K4 on the
-plain refs and the tick's ring-row views; K5a/K5b at phase 7's sizes). On
-a GPU machine:
+plain refs and the tick's ring-row views; K5a/K5b at phase 7's sizes), the
+nj = 17 instances on the full branched Tiago-Pro (`chip_smoke.
+tiago_full_spec`, both tools) and the nj = 4 ones on a 4-joint Tiago-Pro
+chain, each count's library built at its first use. On a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
@@ -393,4 +395,80 @@ def test_step_kernel_matches_plain_tiago(device, tiago, kernel, N, dt_kind):
     if not derivs:
         got, want = (got,), (want,)
     smoke.check_outputs(f"{kernel} tiago N={N} {dt_kind} dt", got, want,
+                        ("xnext", "Fx", "Fu")[:len(got)])
+
+
+# the nj = 17 instances on the full Tiago-Pro (branched; `chip_smoke.
+# load_tiago_full`, the bimanual `tiago_full_spec`) and the nj = 4 ones on
+# a 4-joint Tiago-Pro chain (the torso and the left arm's first three
+# joints, `tiago_spec`)
+CHAIN4 = ["torso_lift_joint", "left_arm_1_joint", "left_arm_2_joint",
+          "left_arm_3_joint"]
+
+
+@pytest.fixture(scope="module", params=["tiago17", "chain4"])
+def robot_nj(request, device):
+    from agimus_controller_tpu_torch.models.tiago_pro import (
+        TIAGO_PRO_Q_READY,
+        load_tiago_pro,
+    )
+
+    if request.param == "tiago17":
+        return (request.param, smoke.load_tiago_full(torch.float32, device),
+                smoke.tiago_full_spec(smoke.TIAGO_T), smoke.tiago_full_ready())
+    return (request.param, load_tiago_pro(moving_joint_names=CHAIN4,
+                                          dtype=torch.float32, device=device),
+            smoke.tiago_spec(smoke.TIAGO_T), TIAGO_PRO_Q_READY[:4])
+
+
+@pytest.mark.parametrize("view", ["refs", "tick"])
+@pytest.mark.parametrize("kernel", [k[0] for k in smoke.STAGE_KERNELS])
+def test_kernel_matches_plain_joint_counts(device, robot_nj, kernel, view):
+    """K1-K4's nj = 17 and nj = 4 instances (K1/K2 at N = 20 and 21, K3/K4
+    at N = 1)."""
+    from agimus_controller_tpu_torch.ops.cuda_costs import (
+        make_cuda_stage,
+        make_cuda_terminal,
+    )
+
+    name, (model, params), spec, q_ready = robot_nj
+    _, kind, derivs, _ = next(k for k in smoke.KERNELS if k[0] == kernel)
+    for N in smoke.TIAGO_STAGE_SIZES if kind == "stage" else (1,):
+        refs, x, u, dt, t_idx = smoke.tiago_inputs(spec, model, N, N, device,
+                                                   q_ready)
+        if kind == "stage":
+            k = make_cuda_stage(model, params, spec, derivs, device)
+            args, labels = (x, u, dt, t_idx), (
+                smoke.STAGE_OUT if derivs else ("xnext", "l"))
+        else:
+            k = make_cuda_terminal(model, params, spec, derivs, device)
+            args, labels = (x,), ("l", "lx", "lxx")
+        want = k.plain(*args, refs)
+        if view == "tick":
+            refs = smoke.tick_views(spec, model, refs)
+        got = k(*args, refs)
+        torch.cuda.synchronize()
+        assert k.launches == 1
+        smoke.check_outputs(f"{kernel} {name} N={N} {view}", got, want,
+                            labels)
+
+
+@pytest.mark.parametrize("dt_kind", ["per_node", "scalar"])
+@pytest.mark.parametrize("N", smoke.TIAGO_STEP_SIZES)
+@pytest.mark.parametrize("kernel", [k[0] for k in smoke.STEP_KERNELS])
+def test_step_kernel_matches_plain_joint_counts(device, robot_nj, kernel, N,
+                                                dt_kind):
+    """K5a/K5b's nj = 17 and nj = 4 instances at phase 9's sizes."""
+    from agimus_controller_tpu_torch.ops.cuda_dynamics import StepKernel
+
+    name, (model, params), _, q_ready = robot_nj
+    derivs = kernel == "K5b_step_derivs"
+    x, u, dt = smoke.step_inputs(N, N, device, dt_kind, q_ready)
+    k = StepKernel(model, params, derivs, device)
+    got, want = k(x, u, dt), k.plain(x, u, dt)
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    if not derivs:
+        got, want = (got,), (want,)
+    smoke.check_outputs(f"{kernel} {name} N={N} {dt_kind} dt", got, want,
                         ("xnext", "Fx", "Fu")[:len(got)])

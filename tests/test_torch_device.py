@@ -167,3 +167,16 @@ def test_default_device_is_the_card(arm, name, monkeypatch):
 def test_host_when_asked(arm, name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert ENTRY_POINTS[name](arm, {"device": "cpu"}) is not None
+
+
+def test_card_without_index_is_the_current_one(monkeypatch):
+    """A wrapper built for "cuda" compares its device with its inputs',
+    which report the card's index: "cuda" resolves to the current card."""
+    from agimus_controller_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device() == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -19,9 +19,9 @@ perturbed starts with a random dual warm start:
   `test_torch_fallback_constrained.py`;
 - the "auto" selection table: every `chip_smoke.CHECKED_SPECS` spec and
   the collision YAML on the Panda stay on the kernels; a quad_exp goal, a
-  quad_exp state item, a frame fixed to the root (2-DoF arm and the 2-DoF
-  fork) and, on the card only, a 3-joint arm go to "xla", each with the
-  refusal as its reason.
+  quad_exp state item and a frame fixed to the root (2-DoF arm and the
+  2-DoF fork) go to "xla", each with the refusal as its reason; a 3-joint
+  arm stays on the kernels, on the card as on the CPU.
 
 Iterates, gains, duals and reports agree to `ATOL` (1e-8); iteration and
 ADMM counts and convergence flags are equal.
@@ -191,7 +191,7 @@ DECLINED = {
                         "fixed to the root"),
     "root_frame_fork_cpu": ("fork", lambda: _goal_spec("base"),
                             torch.device("cpu"), "fixed to the root"),
-    "nj3_card": ("arm3", lambda: _goal_spec("tip"), CUDA, "queue 2, item 4"),
+    "nj3_card": ("arm3", lambda: _goal_spec("tip"), CUDA, None),
     "nj3_cpu": ("arm3", lambda: _goal_spec("tip"), torch.device("cpu"), None),
     "fork_tip_card": ("fork", lambda: _goal_spec("l2"), CUDA, None),
 }

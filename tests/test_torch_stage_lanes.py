@@ -17,14 +17,16 @@ and `cap25` (more ref keys than the by-value table holds) specs at N = 19
 with one dt for every node, as a float and as a 0-d tensor; on the 2-DoF
 arm (4 lanes per node); and on the 8-joint Tiago-Pro arm (`chip_smoke.
 tiago_spec`, 16 lanes per node and none spare, a prismatic root joint) at
-the node counts phase 7 launches K1/K2 at, K3/K4 at one node. Skips only
-without g++.
+the node counts phase 7 launches K1/K2 at, K3/K4 at one node; and at other
+joint counts: the full 17-DoF branched Tiago-Pro with the bimanual
+`chip_smoke.tiago_full_spec` (32 lanes per node, tangents strided: lanes 0-1
+take two), a 4-joint Tiago-Pro chain and the 2-joint fork (a prismatic
+joint on the base). The harness is built per joint count, as the kernels
+are (`tests/_torch_lanes_lib.py`). Skips only without g++.
 """
 
 import ctypes
 import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,9 +43,9 @@ from agimus_controller_tpu_torch.ocp.spec import (
 )
 from agimus_controller_tpu_torch.ops import cuda_costs
 from agimus_controller_tpu_torch.ops.cuda_dynamics import dt_per_node
+from tests._torch_lanes_lib import HostLibs
 from tests.test_ring_control_loop import URDF_2DOF
 
-ROOT = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
 N = 19
 SPECS = ("flagship", "full", "yaml", "vs", "fv", "cap25")
@@ -51,25 +53,11 @@ SPECS = ("flagship", "full", "yaml", "vs", "fv", "cap25")
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+    """The harness, built with g++ per joint count at the count's first use
+    (`tests/_torch_lanes_lib.py`)."""
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernels' per-lane functions")
-    out = tmp_path_factory.mktemp("stage_lanes") / "libstage_lanes.so"
-    subprocess.run(
-        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I",
-         str(ROOT / "agimus_controller_tpu_torch" / "csrc"), "-o", str(out),
-         str(ROOT / "tests" / "stage_lanes_harness.cpp")],
-        check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ag_stage_host.argtypes = [i, i, i, p, p, p, p, p, i, p, i, i] + [p] * 9
-    lib.ag_terminal_host.argtypes = [i, i, i, p, p, i, i, p, i, i, p, p, p]
-    lib.ag_terminal_node_host.argtypes = [i, i, p, p, i, i, p, i, p, p, p]
-    lib.ag_step_host.argtypes = [i, i, i, i, p, p, p, p, p, p, p]
-    for fn in (lib.ag_stage_host, lib.ag_terminal_host,
-               lib.ag_terminal_node_host, lib.ag_step_host):
-        fn.restype = i
-    return lib
+    return HostLibs(tmp_path_factory.mktemp("stage_lanes"))
 
 
 @pytest.fixture(scope="module")
@@ -327,3 +315,73 @@ def test_terminal_lanes_tiago(host_lib, tiago, derivs, view):
             smoke.check_outputs(f"{name} vs one-thread body", got,
                                 run_terminal_host(host_lib, k, x, refs,
                                                   one_thread=True), labels)
+
+
+# joint counts past the Panda's and the arm's: the full 17-DoF Tiago-Pro
+# (branched, 32 lanes a node, lanes 0-1 two tangents each), a 4-joint
+# Tiago-Pro chain (the torso and the left arm's first three joints; 8 lanes
+# a node) and the 2-joint fork (a prismatic joint on the base, no serial
+# chain; 4 lanes a node)
+CHAIN4 = ["torso_lift_joint", "left_arm_1_joint", "left_arm_2_joint",
+          "left_arm_3_joint"]
+
+
+def _joint_count_case(robot, n, seed):
+    """(model, params, spec, refs, x, u, dt, t_idx) of one robot."""
+    from agimus_controller_tpu_torch.models.tiago_pro import TIAGO_PRO_Q_READY
+    from tests.test_torch_step_lanes import URDF_FORK
+
+    if robot == "fork":
+        model, params = build_model_from_urdf(
+            URDF_FORK, armature=np.array([0.1, 0.1]), dtype=torch.float32,
+            device=CPU)
+        spec = ProblemSpec(running_costs=arm_items(),
+                           terminal_costs=arm_items(5.0), horizon=8, dt=0.01)
+        rng = np.random.default_rng(seed)
+        f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
+        refs = arm_refs(spec, model, rng)
+        x = f(rng.normal(size=(n, 4)) * 0.5)
+        u = f(rng.normal(size=(n, 2)))
+        t_idx = torch.as_tensor(rng.integers(0, 8, size=n))
+        return (model, params, spec, refs, x, u,
+                f(rng.uniform(0.005, 0.03, n)), t_idx)
+    if robot == "tiago17":
+        model, params = load_tiago_pro(moving_joint_names="all",
+                                       dtype=torch.float32, device=CPU)
+        spec, q_ready = smoke.tiago_full_spec(smoke.TIAGO_T), \
+            smoke.tiago_full_ready()
+    else:
+        model, params = load_tiago_pro(moving_joint_names=CHAIN4,
+                                       dtype=torch.float32, device=CPU)
+        spec, q_ready = smoke.tiago_spec(smoke.TIAGO_T), TIAGO_PRO_Q_READY[:4]
+    return (model, params, spec) + smoke.tiago_inputs(spec, model, n, seed,
+                                                      CPU, q_ready)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+@pytest.mark.parametrize("robot", ["tiago17", "chain4", "fork"])
+def test_lanes_joint_counts(host_lib, robot, kernel):
+    """K1/K2 at phase 9's node count (20), K3/K4 at one node and five,
+    against the plain versions; K3 also against its one-thread body."""
+    derivs = kernel in ("K1", "K3")
+    if kernel in ("K1", "K2"):
+        model, params, spec, refs, x, u, dt, t_idx = _joint_count_case(
+            robot, 20, 20 + derivs)
+        assert model.nj == {"tiago17": 17, "chain4": 4, "fork": 2}[robot]
+        k = cuda_costs.make_cuda_stage(model, params, spec, derivs, CPU)
+        check(f"{kernel} {robot}", run_host(host_lib, k, x, u, dt, t_idx,
+                                            refs),
+              k.plain(x, u, dt, t_idx, refs), derivs)
+        return
+    labels = ("l", "lx", "lxx")
+    for n in (1, 5):
+        model, params, spec, refs, x, *_ = _joint_count_case(robot, n, 4)
+        k = cuda_costs.make_cuda_terminal(model, params, spec, derivs, CPU)
+        got = run_terminal_host(host_lib, k, x, refs)
+        smoke.check_outputs(f"{kernel} {robot} N={n}", got,
+                            k.plain(x, refs), labels)
+        if derivs:
+            smoke.check_outputs(f"{kernel} {robot} N={n} vs one-thread body",
+                                got, run_terminal_host(host_lib, k, x, refs,
+                                                       one_thread=True),
+                                labels)

@@ -8,13 +8,19 @@ phase lane by lane over a NaN-filled scratch), feeds it the wrapper's
 packed model constants, and holds K5b's x+, Fx and Fu and K5a's x+ at
 `chip_smoke.TOL` against `StepKernel.plain`, against the JAX package's
 `make_batched_step_with_derivs` / `make_batched_step` in f32 (the Pallas
-kernel body on the tree, which the batched step does not take), and against
+kernel body on the tree, which the batched step does not take; at nj = 17
+the plain version stands for it, held against that body in f64 by
+`test_torch_joint_counts.py`: the body runs eagerly for ~15 s there), and
+against
 the one-thread body `ag::dynamics_node` that both ran before, on the Panda
 (16 lanes per K5b node, 8 per K5a node), the 8-joint Tiago-Pro arm (16
 lanes per K5b and K5a node, none spare in K5b; a prismatic root joint), the
+full 17-DoF Tiago-Pro (branched: the head and both arms on the torso; 32
+lanes per K5b node, lanes 0-1 two tangents each, 32 per K5a node), the
 2-DoF arm (4 lanes) and a 2-DoF tree with a prismatic joint (the kernels'
 path for a tree that is no serial chain), with per-node and scalar dt,
-nodes drawn from a numpy seed.
+nodes drawn from a numpy seed. The harness is built per joint count, as
+the kernels are (`tests/_torch_lanes_lib.py`).
 K5a's x+ also equals K5b's bit for bit (the same primal phases). Skips only
 without g++.
 """
@@ -60,12 +66,16 @@ URDF_FORK = URDF_2DOF.replace(
     '<origin xyz="0.2 0 0.1" rpy="0.3 0 0"/><axis xyz="0 0 1"/>')
 
 
-@pytest.fixture(scope="module", params=["panda", "tiago", "arm", "fork"])
+@pytest.fixture(scope="module",
+                params=["panda", "tiago", "tiago17", "arm", "fork"])
 def robot(request):
     if request.param == "panda":
         jm, jp = jax_load_panda(dtype=np.float32)
     elif request.param == "tiago":
         jm, jp = jax_load_tiago_pro(dtype=np.float32)
+    elif request.param == "tiago17":
+        jm, jp = jax_load_tiago_pro(moving_joint_names="all",
+                                    dtype=np.float32)
     else:
         urdf = URDF_2DOF if request.param == "arm" else URDF_FORK
         jm, jp = jax_build(urdf, armature=np.array([0.1, 0.1]),
@@ -80,6 +90,8 @@ def nodes(name, nj, dt_kind):
         return smoke.step_inputs(N, 11, CPU, dt_kind)
     if name == "tiago":
         return smoke.step_inputs(N, 11, CPU, dt_kind, TIAGO_PRO_Q_READY)
+    if name == "tiago17":
+        return smoke.step_inputs(N, 11, CPU, dt_kind, smoke.tiago_full_ready())
     rng = np.random.default_rng(12)
     f = lambda a: torch.as_tensor(a, dtype=torch.float32)
     x = f(rng.normal(size=(N, 2 * nj)) * 0.5)
@@ -132,10 +144,11 @@ def test_step_lanes_match_references(host_lib, robot, dt_kind):
     x, u, dt = nodes(name, jm.nj, dt_kind)
     got = run_host(host_lib, jm, params, x, u, dt, lanes=0)
     plain = StepKernel(jm, params, True, CPU).plain(x, u, dt)
-    jax_out = jax_step(jm, jp, x, u, dt)
     one_thread = run_host(host_lib, jm, params, x, u, dt, lanes=1)
-    for ref, want in (("plain", plain), ("jax", jax_out),
-                      ("one-thread body", one_thread)):
+    refs = [("plain", plain), ("one-thread body", one_thread)]
+    if name != "tiago17":
+        refs.append(("jax", jax_step(jm, jp, x, u, dt)))
+    for ref, want in refs:
         smoke.check_outputs(f"K5b lanes {name} {dt_kind} dt vs {ref}", got,
                             want, OUT)
 
@@ -148,11 +161,12 @@ def test_step_a_lanes_match_references(host_lib, robot, dt_kind):
     x, u, dt = nodes(name, jm.nj, dt_kind)
     got = run_host(host_lib, jm, params, x, u, dt, lanes=0, derivs=False)
     plain = (StepKernel(jm, params, False, CPU).plain(x, u, dt),)
-    jax_out = jax_step(jm, jp, x, u, dt, derivs=False)
     one_thread = run_host(host_lib, jm, params, x, u, dt, lanes=1,
                           derivs=False)
-    for ref, want in (("plain", plain), ("jax", jax_out),
-                      ("one-thread body", one_thread)):
+    refs = [("plain", plain), ("one-thread body", one_thread)]
+    if name != "tiago17":
+        refs.append(("jax", jax_step(jm, jp, x, u, dt, derivs=False)))
+    for ref, want in refs:
         smoke.check_outputs(f"K5a lanes {name} {dt_kind} dt vs {ref}", got,
                             want, OUT[:1])
     k5b = run_host(host_lib, jm, params, x, u, dt, lanes=0)
