@@ -31,6 +31,11 @@ result. A trial's running cost at node t depends only on that node's
 after the rollout's T steps and sums them over t in the order of the JAX
 scan, so the numbers are those of one call per step.
 
+Under a profiler a solve records the spans (`spans.py`) "fddp.solve" (the
+call), "fddp.riccati" (each backward pass, whichever sweep), "fddp.costs"
+(each cost-pack evaluation) and "fddp.sync" (each host read of a flag, one
+per `host_syncs`).
+
 Soft contact (`spec.soft_contact`, JAX `fddp_batch.py:80-124`): the
 force-augmented state [q; v; f] is stepped by `ops.batched_dynamics.
 make_batched_soft_step(_with_derivs)` with each node's `contact_active`
@@ -57,6 +62,7 @@ from ..ops.batched_dynamics import (
     make_batched_soft_step_with_derivs,
 )
 from ..ops.cuda_dynamics import make_cuda_step, make_cuda_step_derivs
+from ..spans import span
 from .fddp import (
     Solution,
     SolverSettings,
@@ -164,7 +170,8 @@ class BatchFDDP:
 
     def _all(self, mask: torch.Tensor) -> bool:
         self.host_syncs += 1
-        return bool(mask.all())
+        with span("fddp.sync"):
+            return bool(mask.all())
 
     def _node_data(self, xs):
         """(dt [T, B], the same flattened [T*B], node times [T*B]) on xs's
@@ -187,12 +194,14 @@ class BatchFDDP:
         the terminal cost; one cost-pack call over all T*B nodes."""
         T, B = self.T, xs.shape[1]
         _, _, t_flat = self._node_data(xs)
-        c = self.pack.value(xs[:-1].reshape(T * B, -1),
-                            us.reshape(T * B, -1), t_flat, refs).reshape(T, B)
-        acc = xs.new_zeros(B)
-        for t in range(T):
-            acc = acc + c[t]
-        return acc + self.pack.term_value(xs[-1], refs)
+        with span("fddp.costs"):
+            c = self.pack.value(xs[:-1].reshape(T * B, -1),
+                                us.reshape(T * B, -1), t_flat,
+                                refs).reshape(T, B)
+            acc = xs.new_zeros(B)
+            for t in range(T):
+                acc = acc + c[t]
+            return acc + self.pack.term_value(xs[-1], refs)
 
     def _step(self, x, u, dts, t_idx, refs):
         """x+ of the nodes: K5a, or the soft step with the nodes' contact
@@ -216,7 +225,8 @@ class BatchFDDP:
             dyn = (d.xnext.reshape(T, B, nx), d.Fx.reshape(T, B, nt, nt),
                    d.Fu.reshape(T, B, nt, nu))
             costs = tuple(c.reshape((T, B) + c.shape[1:]) for c in d[:6])
-            return dyn, costs, self.pack.term_pack(xs[-1], refs)
+            with span("fddp.costs"):
+                return dyn, costs, self.pack.term_pack(xs[-1], refs)
         if self.soft:
             act = refs["contact_active"].to(xs.dtype).index_select(0, t_flat)
             xnext, Fx, Fu = self.soft_db(x_flat, u_flat, dts_flat, act)
@@ -224,9 +234,10 @@ class BatchFDDP:
             xnext, Fx, Fu = self.step_dk(x_flat, u_flat, dts_flat)
         dyn = (xnext.reshape(T, B, nx), Fx.reshape(T, B, nx, nx),
                Fu.reshape(T, B, nx, nu))
-        costs = tuple(c.reshape((T, B) + c.shape[1:]) for c in
-                      self.pack.pack(x_flat, u_flat, t_flat, refs))
-        return dyn, costs, self.pack.term_pack(xs[-1], refs)
+        with span("fddp.costs"):
+            costs = tuple(c.reshape((T, B) + c.shape[1:]) for c in
+                          self.pack.pack(x_flat, u_flat, t_flat, refs))
+            return dyn, costs, self.pack.term_pack(xs[-1], refs)
 
     def _sdiff(self, x1, x0):
         """x1 (-) x0 over leading batch dimensions: the tangent difference
@@ -256,12 +267,14 @@ class BatchFDDP:
         bad [B])."""
         _, Fx, Fu = dyn
         _, lx, lu, lxx, lxu, luu = costs
-        if self.riccati == "pscan":
-            return parallel_riccati(lx, lu, lxx, lxu, luu, Fx, Fu, fs,
-                                    term[1], term[2], reg)
-        sweep = (backward_components if self.riccati == "component"
-                 else backward_dense)
-        return sweep(Fx, Fu, lx, lu, lxx, lxu, luu, fs, term[1], term[2], reg)
+        with span("fddp.riccati"):
+            if self.riccati == "pscan":
+                return parallel_riccati(lx, lu, lxx, lxu, luu, Fx, Fu, fs,
+                                        term[1], term[2], reg)
+            sweep = (backward_components if self.riccati == "component"
+                     else backward_dense)
+            return sweep(Fx, Fu, lx, lu, lxx, lxu, luu, fs, term[1], term[2],
+                         reg)
 
     # ------------------------------------------------------------------
     # line search
@@ -332,6 +345,10 @@ class BatchFDDP:
 
     # ------------------------------------------------------------------
     def __call__(self, x0s, refs, xs_in, us_in) -> Solution:
+        with span("fddp.solve"):
+            return self._solve(x0s, refs, xs_in, us_in)
+
+    def _solve(self, x0s, refs, xs_in, us_in) -> Solution:
         s = self.settings
         T = self.T
         xs = xs_in.transpose(0, 1).contiguous()  # [T+1, B, nx] time-major
