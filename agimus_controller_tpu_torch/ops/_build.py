@@ -138,6 +138,9 @@ def load_library(nj: int) -> ctypes.CDLL:
     # nj, derivs, consts_len -> resident blocks per SM of ag_step's kernel
     lib.ag_step_blocks_per_sm.argtypes = [i, i, i]
     lib.ag_step_blocks_per_sm.restype = i
+    # nj, T, B, 11 inputs, 6 outputs, stream
+    lib.ag_riccati.argtypes = [i, i, i] + [p] * 18
+    lib.ag_riccati.restype = i
     lib.ag_error_string.argtypes = [i]
     lib.ag_error_string.restype = ctypes.c_char_p
     lib.ag_nj.argtypes = []

@@ -12,7 +12,8 @@ through every stage:
   forms of the generic `ocp.costs.CostFunctions` take its place, as the
   JAX solver falls back to `vmap(cf.cost_derivs)`,
 - Riccati backward: the batch-minor `riccati_components.backward_components`
-  ("component", the default), the horizon-parallel scan of
+  ("component", the default; for a rigid state one launch of the sweep
+  kernel `ops/cuda_riccati.py` on the card), the horizon-parallel scan of
   `riccati_pscan.parallel_riccati` ("pscan", log2 T combines deep) or the
   dense `[B, n, n]` sweep with batched Cholesky factors ("dense"),
 - line search: the alpha = 0.5**i ladder with per-scenario first accept
@@ -62,6 +63,7 @@ from ..ops.batched_dynamics import (
     make_batched_soft_step_with_derivs,
 )
 from ..ops.cuda_dynamics import make_cuda_step, make_cuda_step_derivs
+from ..ops.cuda_riccati import RiccatiKernel
 from ..spans import span
 from .fddp import (
     Solution,
@@ -155,6 +157,7 @@ class BatchFDDP:
         elif not self.manifold:
             self.step_k = make_cuda_step(model, params, self.device)
             self.step_dk = make_cuda_step_derivs(model, params, self.device)
+            self.riccati_k = RiccatiKernel(model.nj, self.device)
         self._ts = torch.as_tensor(spec.timesteps(), dtype=torch.float64)
         self._alphas = [0.5 ** i for i in range(settings.n_alphas)]
         self._nodes = {}  # (B, dtype, device) -> per-node dt and times
@@ -162,11 +165,11 @@ class BatchFDDP:
 
     @property
     def kernels(self):
-        """The two step-kernel wrappers, K5a and K5b (none for soft contact
-        or a manifold state)."""
+        """The two step-kernel wrappers, K5a and K5b, and the component
+        Riccati sweep's (none for soft contact or a manifold state)."""
         if self.soft or self.manifold:
             return ()
-        return (self.step_k, self.step_dk)
+        return (self.step_k, self.step_dk, self.riccati_k)
 
     def _all(self, mask: torch.Tensor) -> bool:
         self.host_syncs += 1
@@ -271,8 +274,13 @@ class BatchFDDP:
             if self.riccati == "pscan":
                 return parallel_riccati(lx, lu, lxx, lxu, luu, Fx, Fu, fs,
                                         term[1], term[2], reg)
-            sweep = (backward_components if self.riccati == "component"
-                     else backward_dense)
+            if self.riccati == "dense":
+                sweep = backward_dense
+            elif self.soft or self.manifold:
+                # their state is not the kernel's [q; v] of 2 nj
+                sweep = backward_components
+            else:
+                sweep = self.riccati_k
             return sweep(Fx, Fu, lx, lu, lxx, lxu, luu, fs, term[1], term[2],
                          reg)
 

@@ -6,7 +6,9 @@ Every tensor is stored with the scenario batch as the MINOR dimension —
 `fddp_batch` read the same way. Small-matrix products are
 broadcast-multiply-reduce; the Cholesky and the triangular solves are
 unrolled scalar recurrences over `[B]` vectors. `backward_components` is the
-FDDP backward sweep (JAX `riccati_components.py:85-148`).
+FDDP backward sweep (JAX `riccati_components.py:85-148`), and the plain
+version of the sweep kernel `ops/cuda_riccati.py`, which the batch FDDP
+launches once a sweep on the card for a rigid state.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@
 
 Builds the hand-written kernels from `agimus_controller_tpu_torch/csrc/`,
 one library per joint count the phases run (`BUILD_NJ`: 2, 7, 8, 17, all
-sources at once): the stage kernels K1-K4 and the dynamics-step kernels
-K5a/K5b. Holds K1-K4
+sources at once): the stage kernels K1-K4, the dynamics-step kernels
+K5a/K5b and the batch FDDP's Riccati sweep R1. Holds K1-K4
 against their plain-PyTorch versions on the card on six specs (the
 flagship goal tracking, the Pallas kernels' test spec with its collision
 item, the shipped collision-avoidance YAML, the visual-servoing OCP
@@ -19,7 +19,10 @@ on the 8-joint Tiago-Pro arm (`tiago_spec`) at the sizes phase 7 launches
 them at (K1/K2 at N = 20 and 21 and K3/K4 at 1, also on the ring-row
 views; K5a/K5b with per-node and scalar dt), and their nj = 17 instances
 on the full branched Tiago-Pro (`tiago_full_spec`, both tools) at the same
-sizes; times each call and its bare launch and computes its bound. The plain K1-K4 results of a spec's sizes
+sizes; and R1 against the plain component sweep in float32 and float64
+on seeded LQ data at the batch path's, phase 7 (a)'s and the benchmark
+cell's shapes (`RICCATI_CHECK_SIZES`); times each call and its bare launch
+and computes its bound. The plain K1-K4 results of a spec's sizes
 come from one stacked call (nodes are independent), which also counts the
 operations of the bound.
 Then drives the port's four main paths, every entry point on the card, the
@@ -41,8 +44,11 @@ first three through `FusedTickRunner`:
   variants (solves/s), after a B=8 solve of the first variant's rows 0-7
   that the B=4096 solve must reproduce, and the same B=8 solve on the
   horizon-parallel Riccati sweep (`riccati="pscan"`), held to the
-  component solve's iterations, flags and states; the pscan sweep is timed
-  beside the component sweep on the same linearisation.
+  component solve's iterations, flags and states; the sweep kernel the
+  solver runs (`ops/cuda_riccati.py`, R1) and the pscan sweep are timed
+  beside the plain component sweep on the same linearisation, each with
+  its largest gain difference to it, R1's gains held to the float64
+  sweep's; every component sweep of the solves must have launched R1.
 
 Phase 5 runs the specs the stage kernels decline on the "xla" backend and
 the single-scenario solvers. Phase 6 drives the reference-shaped control
@@ -88,8 +94,8 @@ schedule, converged, each tool under a quarter of its start error) and
 `make_batch_fddp` at B=1024, rows 0-7 against a B=8 solve. Each phase
 prints its seconds.
 
-The tick paths must have launched every stage kernel, the batch path both
-step kernels and no stage kernel; phase 9 every kernel at nj = 17. Exits non-zero without a result when
+The tick paths must have launched every stage kernel, the batch FDDPs
+K5a, K5b and R1 and no stage kernel; phase 9 every kernel at nj = 17. Exits non-zero without a result when
 there is no CUDA device or any phase fails. The line before the last is
 the card's name and power limit, the one before it a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -129,16 +135,31 @@ KERNELS = (  # (name, factory, derivs, Pallas site it replaces)
      "agimus_controller_tpu/ops/pallas_dynamics.py:208"),
     ("K5b_step_derivs", "step", True,
      "agimus_controller_tpu/ops/pallas_dynamics.py:208"),
+    # the batch FDDP's component sweep; the JAX sweep is XLA, no Pallas kernel
+    ("R1_riccati", "riccati", None, None),
 )
-STAGE_KERNELS = tuple(k for k in KERNELS if k[1] != "step")  # K1-K4
+STAGE_KERNELS = tuple(k for k in KERNELS
+                      if k[1] in ("stage", "terminal"))  # K1-K4
 STEP_KERNELS = tuple(k for k in KERNELS if k[1] == "step")  # K5a, K5b
+# `BatchFDDP.kernels` in its order: K5a, K5b and the Riccati sweep
+FDDP_KERNELS = STEP_KERNELS + tuple(k for k in KERNELS if k[1] == "riccati")
 SOURCES = {"stage": "agimus_controller_tpu_torch/csrc/stage_kernels.cu",
            "terminal": "agimus_controller_tpu_torch/csrc/terminal_kernels.cu",
-           "step": "agimus_controller_tpu_torch/csrc/step_kernels.cu"}
-# the batch path's shapes of the step kernels: K5a steps the B = 4096
-# scenarios of a rollout, K5b linearises all T x B = 409 600 nodes (the
-# shapes of the kernels line)
-STEP_SIZES = {"K5a_step": 4096, "K5b_step_derivs": 409_600}
+           "step": "agimus_controller_tpu_torch/csrc/step_kernels.cu",
+           "riccati": "agimus_controller_tpu_torch/csrc/riccati_kernels.cu"}
+# the shapes of the kernels line: K5a steps the batch path's B = 4096
+# scenarios of a rollout, K5b linearises all its T x B = 409 600 nodes; R1
+# sweeps the benchmark cell's (nj, T, B)
+STEP_SIZES = {"K5a_step": 4096, "K5b_step_derivs": 409_600,
+              "R1_riccati": (17, 20, 4096)}
+# (nj, T, B) R1 is checked at: the batch path's, phase 7 (a)'s and the
+# benchmark cell's (phase 9's batch at B = 1024)
+RICCATI_CHECK_SIZES = ((7, 100, 4096), (8, 20, 1024), (17, 20, 4096))
+# R1's error against the float64 sweep may exceed twice the plain float32
+# sweep's by this much (as a share of the float64 output's largest
+# magnitude): ~8 float32 epsilons, what summing a 34-term product in another
+# order, with FMA, moves an entry at one step
+RICCATI_FLOOR = 1e-6
 # the node counts K1/K2 are checked at: every one the paths launch them at
 # (B = 1: the T = 19 collision, VS and phase 5 (c) and 6 (d) solves, phase
 # 6's T = 20 loops, the flagship tick's T = 100) and 102 400 nodes
@@ -914,6 +935,149 @@ def check_step_kernels(model, params, device, ops, sizes=STEP_CHECK_SIZES,
     return report
 
 
+# -- R1, the batch FDDP's Riccati sweep ----------------------------------------
+RICCATI_OUTPUTS = ("ks", "Ks", "Qus", "d1", "d2", "bad")
+
+
+def random_lq(T, B, nj, seed, device="cpu", nx=None):
+    """Seeded LQ data of the component sweep, its eleven float64 arguments
+    (`riccati_components.backward_components`) for a rigid state (nx = 2 nj,
+    nu = nj; `nx` given: another state), time-major and contiguous:
+    Fx = I + 0.1 N / sqrt(nx), Fu = 0.1 N, the stage Hessian
+    [[lxx, lxu], [lxu^T, luu]] = 0.1 A A^T + 1e-2 I over (nx + nu), the
+    terminal lxx = C C^T / nx + 1e-2 I, gaps 0.1 N and reg 10^U(-9, -3) per
+    scenario. Where B > 1, scenario 1 has a NaN in Fx at t = T // 2 and,
+    where B > 2, scenario 2 an indefinite luu (-1e3 I added), so both must
+    come out `bad`. The generator is torch's on `device`, so the card and
+    the CPU draw different data from one seed."""
+    nx, nu = nx or 2 * nj, nj
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    kw = dict(dtype=torch.float64, device=device)
+    N = lambda *s: torch.randn(s, generator=g, **kw)
+    eye = lambda n: torch.eye(n, **kw)
+    Fx = eye(nx) + 0.1 * N(T, B, nx, nx) / nx ** 0.5
+    Fu = 0.1 * N(T, B, nx, nu)
+    A = N(T, B, nx + nu, nx + nu)
+    H = 0.1 * A @ A.transpose(-1, -2) + 1e-2 * eye(nx + nu)
+    C = N(B, nx, nx)
+    reg = 10.0 ** (-9.0 + 6.0 * torch.rand(B, generator=g, **kw))
+    if B > 1:
+        Fx[T // 2, 1, 0, 1] = float("nan")
+    if B > 2:
+        H[:, 2, nx:, nx:] -= 1e3 * eye(nu)
+    c = lambda a: a.contiguous()
+    return [c(Fx), c(Fu), N(T, B, nx), N(T, B, nu), c(H[..., :nx, :nx]),
+            c(H[..., :nx, nx:]), c(H[..., nx:, nx:]), 0.1 * N(T + 1, B, nx),
+            N(B, nx), C @ C.transpose(-1, -2) / nx + 1e-2 * eye(nx), reg]
+
+
+def riccati_errors(got, want):
+    """{output: max |got - want| / max |want|} over the entries of the
+    scenarios `want` does not flag `bad`, for ks, Ks, Qus, d1, d2."""
+    ok = ~want[5].to(torch.bool).cpu()
+    out = {}
+    for name, g, w in zip(RICCATI_OUTPUTS[:5], got, want):
+        g, w = g.double().cpu(), w.double().cpu()
+        rows = ok if g.ndim == 1 else ok.expand(g.shape[:2])
+        g, w = g[rows], w[rows]
+        out[name] = (float((g - w).abs().max()) / float(w.abs().max())
+                     if w.numel() else 0.0)
+    return out
+
+
+def riccati_same_flags(got, want):
+    """The two sweeps flag the same scenarios `bad` and agree on which
+    entries are finite."""
+    if not torch.equal(got[5].cpu().to(torch.bool),
+                       want[5].cpu().to(torch.bool)):
+        return False
+    return all(torch.equal(torch.isfinite(g).cpu(), torch.isfinite(w).cpu())
+               for g, w in zip(got[:5], want[:5]))
+
+
+def riccati_check(where, got, plain, want, outputs=RICCATI_OUTPUTS[:5]):
+    """Raises unless the kernel's sweep `got` flags what the float64 sweep
+    `want` flags and, on each of `outputs`, errs against it by at most
+    twice the plain float32 sweep's error plus `RICCATI_FLOOR`. Returns
+    (the kernel's errors, the plain sweep's)."""
+    if not (riccati_same_flags(got, want) and riccati_same_flags(plain, want)):
+        raise AssertionError(f"{where}: the sweeps flag other scenarios bad "
+                             "or other entries non-finite")
+    e_got, e_plain = riccati_errors(got, want), riccati_errors(plain, want)
+    over = {n: (e_got[n], e_plain[n]) for n in outputs
+            if not e_got[n] <= 2 * e_plain[n] + RICCATI_FLOOR}
+    if over:
+        raise AssertionError(
+            f"{where}: error against float64 over twice the plain float32 "
+            f"sweep's plus {RICCATI_FLOOR} (kernel, plain): {over}")
+    return e_got, e_plain
+
+
+def riccati_bound_ms(nj, T, B):
+    """Least time of one R1 sweep on the card: the larger of the bytes it
+    must move (a node's Fx, Fu, lxx, lxu, luu, lx, lu, fs read once and its
+    Ks, ks, Qus written once; a scenario's terminal terms, reg, d1, d2) over
+    the memory rate and its FMAs (2 flops each) over the fp32 rate: per
+    node Vxx Fx and Fx^T M (nx^3 each), Vxx Fu, Fu^T M and Qux^T KK
+    (nx^2 nu each), Fu^T N (nx nu^2), the Cholesky (nu^3 / 6), the nx + 1
+    solves (nu^2 each), the vector products (2 nx^2 + 2 nx nu + nu^2).
+    Returns (ms, "bytes" or "operations")."""
+    nx, nu = 2 * nj, nj
+    node = 2 * nx * nx + 3 * nx * nu + nu * nu + 2 * nx + 3 * nu
+    scenario = nx * nx + 2 * nx + 3  # term_lxx, term_lx, fs[T], reg, d1, d2
+    t_bytes = 4 * (T * B * node + B * scenario) / PEAK_BYTES_PER_S
+    fma = (2 * nx ** 3 + 3 * nx * nx * nu + nx * nu * nu + nu ** 3 / 6
+           + nu * nu * (nx + 1) + 2 * nx * nx + 2 * nx * nu + nu * nu)
+    t_ops = 2 * fma * T * B / PEAK_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_riccati_kernels(device):
+    """R1 (`ops/cuda_riccati.py`) vs the plain component sweep in float32
+    and float64 at `RICCATI_CHECK_SIZES` on `random_lq` data
+    (`riccati_check`, every output), each sweep's wrapper and bare-launch
+    times, the plain sweep's time and the bound. Returns {(nj, T, B):
+    numbers}."""
+    from agimus_controller_tpu_torch.ops.cuda_riccati import RiccatiKernel
+    from agimus_controller_tpu_torch.solver.riccati_components import (
+        backward_components,
+    )
+
+    report = {}
+    for nj, T, B in RICCATI_CHECK_SIZES:
+        a64 = random_lq(T, B, nj, 1000 * nj + 10 * B + T, device)
+        a32 = [a.float() for a in a64]
+        k = RiccatiKernel(nj, device)
+        run = lambda: k(*a32)
+        got = run()
+        plain, plain_ms = cuda_timed_call(lambda: backward_components(*a32))
+        want = backward_components(*a64)
+        where = f"R1_riccati nj={nj} T={T} B={B}"
+        if got[5].tolist()[:3] != [False, True, True][:B]:
+            raise AssertionError(f"{where}: bad flags {got[5][:3].tolist()}")
+        e_got, e_plain = riccati_check(where, got, plain, want)
+        ok = ~want[5]
+        err = max(float((g - p)[ok if g.ndim == 1 else (slice(None), ok)]
+                        .abs().max()) for g, p in zip(got[:5], plain[:5]))
+        ms = cuda_time_ms(run, reps=20)
+        prepared, _ = k.prepare(*a32)
+        kernel_ms = cuda_time_ms(lambda: k.launch(prepared), reps=20)
+        b_ms, b_by = riccati_bound_ms(nj, T, B)
+        print(f"{where:34s} wrapper {ms:9.4f} ms (kernel only "
+              f"{kernel_ms:9.4f} ms)  plain {plain_ms:9.3f} ms  bound "
+              f"{b_ms:.6f} ms ({b_by})  max abs diff to plain {err:.2e}; "
+              "error against f64 (kernel / plain) "
+              + " ".join(f"{n}={e_got[n]:.2e}/{e_plain[n]:.2e}"
+                         for n in e_got))
+        report[(nj, T, B)] = dict(
+            ms=ms, kernel_only_ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        del a64, a32, got, plain, want, prepared
+    return report
+
+
 # -- the 8-joint Tiago-Pro arm: K1-K5b at nj = 8 -----------------------------
 TIAGO_FRAME = "left_arm_tool_link"
 TIAGO_GOAL = (0.10, -0.05, 0.10)  # from the tool at the ready pose
@@ -1036,10 +1200,11 @@ def check_all_kernels(device):
     on the Tiago-Pro arm (`tiago_spec`) at phase 7 (a)'s sizes and their
     nj = 17 instances on the full Tiago-Pro (`tiago_full_spec`) at phase 9's,
     the same: K1/K2 at `TIAGO_STAGE_SIZES`, K3/K4 at N = 1, K5a/K5b at
-    `TIAGO_STEP_SIZES`. The bounds' operations are counted on the host by
-    worker processes meanwhile (`start_counts`). Returns (K1-K4 {kernel:
-    {spec: {N: numbers}}}, K5a/K5b {kernel: {N or (robot, N): numbers}}):
-    the Tiago-Pro sizes' errors join each kernel's."""
+    `TIAGO_STEP_SIZES`; then R1 (`check_riccati_kernels`). The bounds'
+    operations are counted on the host by worker processes meanwhile
+    (`start_counts`). Returns (K1-K4 {kernel: {spec: {N: numbers}}},
+    K5a/K5b and R1 {kernel: {N, (robot, N) or (nj, T, B): numbers}}): the
+    Tiago-Pro sizes' errors join each kernel's."""
     from agimus_controller_tpu_torch.models.panda import load_panda
     from agimus_controller_tpu_torch.models.tiago_pro import (
         TIAGO_PRO_Q_READY,
@@ -1085,6 +1250,7 @@ def check_all_kernels(device):
               f"{plain_s:.1f} s")
     finally:
         pool.shutdown(cancel_futures=True)
+    step_report["R1_riccati"] = check_riccati_kernels(device)
     return report, step_report
 
 
@@ -1614,11 +1780,16 @@ def solve_rows(bp, x0s, solver=None):
 def batch_phases(bp, sol, device):
     """Host-clock time (ms, synchronized) of each part of one FDDP
     iteration at the solution's iterate: the K5b linearisation,
-    the cost pack over T*B nodes and the terminal pack, the component
+    the cost pack over T*B nodes and the terminal pack, the plain component
     Riccati sweep, and one line-search trial (T K5a steps, then the trial
-    cost of all nodes) with its two parts; and the horizon-parallel sweep
-    (`riccati_pscan.parallel_riccati`) on the component sweep's inputs,
-    with its largest gain difference to that sweep."""
+    cost of all nodes) with its two parts; and on the plain sweep's inputs
+    the sweep kernel the solver runs (`ops/cuda_riccati.py`), its Ks held
+    to the float64 sweep's (`riccati_check`), and the horizon-parallel sweep
+    (`riccati_pscan.parallel_riccati`), each with its largest gain
+    difference to the plain sweep."""
+    from agimus_controller_tpu_torch.solver.riccati_components import (
+        backward_components,
+    )
     from agimus_controller_tpu_torch.solver.riccati_pscan import (
         parallel_riccati,
     )
@@ -1648,11 +1819,26 @@ def batch_phases(bp, sol, device):
     _, (dyn, costs, term) = timed(lambda: s.derivs_of(xs, us, bp.refs), 1)
     fs = s._gaps_of(x0s, xs, dyn[0])
     reg = torch.full((B,), 1e-9, dtype=xs.dtype, device=xs.device)
-    out["Riccati sweep"], (ks, Ks, *_) = timed(
-        lambda: s.backward(dyn, costs, term, fs, reg))
-    # the horizon-parallel sweep on the same linearisation
     _, Fx, Fu = dyn
     _, lx, lu, lxx, lxu, luu = costs
+    sweep = (Fx, Fu, lx, lu, lxx, lxu, luu, fs, term[1], term[2], reg)
+    out["Riccati sweep"], plain = timed(lambda: backward_components(*sweep))
+    ks, Ks = plain[:2]
+    # the sweep kernel and the horizon-parallel sweep on the same
+    # linearisation; the kernel's gains held to the float64 sweep's by
+    # `riccati_check` (at T = 100 both float32 sweeps drift from it, ROADMAP
+    # queue 3: Ks, the drift's measure, is the output held here)
+    out["Riccati sweep (kernel)"], got = timed(lambda: s.riccati_k(*sweep))
+    ks_k, Ks_k = got[:2]
+    e_got, e_plain = riccati_check(
+        "batch path phases", got, plain,
+        backward_components(*(a.double() for a in sweep)), ("Ks",))
+    out["kernel Ks error to f64"] = e_got["Ks"]
+    out["plain Ks error to f64"] = e_plain["Ks"]
+    out["kernel max |dks|"] = float((ks_k - ks).abs().max())
+    out["kernel max |dKs|"] = float((Ks_k - Ks).abs().max())
+    out["kernel max |dKs| / max |Ks|"] = (out["kernel max |dKs|"]
+                                          / float(Ks.abs().max()))
     out["Riccati sweep (pscan)"], (ks_p, Ks_p, *_) = timed(
         lambda: parallel_riccati(lx, lu, lxx, lxu, luu, Fx, Fu, fs, term[1],
                                  term[2], reg))
@@ -1693,7 +1879,14 @@ def run_batch_path(device):
         times.append(time.perf_counter() - t0)
         syncs.append(solver.host_syncs - s0)
     launches = {name: k.launches + kp.launches for (name, *_), k, kp in
-                zip(STEP_KERNELS, solver.kernels, bp.pscan.kernels)}
+                zip(FDDP_KERNELS, solver.kernels, bp.pscan.kernels)}
+    # every component sweep of the solves (one an iteration, one for the
+    # report) went to R1, none to the plain sweep
+    sweeps = sum(int(x.iters.max()) + 1 for x in [small] + sols)
+    if solver.riccati_k.launches != sweeps:
+        raise AssertionError(
+            f"batch path: R1 launched {solver.riccati_k.launches} times "
+            f"for {sweeps} component sweeps")
 
     for i, sol in enumerate(sols):
         for field in ("xs", "us", "K", "k", "cost", "kkt", "gap_norm"):
@@ -1759,8 +1952,10 @@ def run_batch_path(device):
         f"{BATCH_ROWS - 1} match the B={BATCH_ROWS} solve (us max abs diff "
         f"{du:.3e}); launches {launches}",
         f"batch path phases at B={BATCH_B} (ms, host clock, synchronized): "
-        + "; ".join(f"{k} {v:.3e}" if k.startswith("pscan max")
-                    else f"{k} {v:.3f}" for k, v in phases.items())]
+        + "; ".join(f"{k} {v:.3f}" if k.startswith(("Riccati", "K5b",
+                                                     "cost", "terminal",
+                                                     "trial"))
+                    else f"{k} {v:.3e}" for k, v in phases.items())]
 
 
 # -- phase 5: the fallback backend and the single-scenario solvers ----------
@@ -1943,7 +2138,7 @@ def run_fallback_fddp(device):
     _sync(device)
     big_s = time.perf_counter() - t0
     launches = {name: k.launches for (name, *_), k in
-                zip(STEP_KERNELS, solver.kernels)}
+                zip(FDDP_KERNELS, solver.kernels)}
     for field in ("xs", "us", "K", "k", "cost", "kkt", "gap_norm"):
         if not bool(torch.isfinite(getattr(big, field)).all()):
             raise AssertionError(f"fallback (b) batch: non-finite {field}")
@@ -2088,8 +2283,8 @@ def run_single_fddp(device, rows: int, max_iters: int):
     """Part (d): `solve_fddp` over `CostFunctions` against `BatchFDDP` (the
     pack and K5a/K5b) on the flagship spec at T=100, f32, from `rows` x0
     rows of `build_batch`'s first variant, `tests/test_fddp_batch.py`'s
-    settings but `max_iters`. Returns (launches of K5a/K5b, summary
-    line)."""
+    settings but `max_iters`. Returns (launches of K5a, K5b and R1,
+    summary line)."""
     from agimus_controller_tpu_torch.ocp.costs import build_cost_functions
     from agimus_controller_tpu_torch.solver.fddp import SolverSettings, solve_fddp
     from agimus_controller_tpu_torch.solver.fddp_batch import make_batch_fddp
@@ -2109,7 +2304,7 @@ def run_single_fddp(device, rows: int, max_iters: int):
     _sync(device)
     batch_s = time.perf_counter() - t0
     launches = {name: k.launches for (name, *_), k in
-                zip(STEP_KERNELS, batch.kernels)}
+                zip(FDDP_KERNELS, batch.kernels)}
     times, sols = [], []
     for i in range(rows):
         t0 = time.perf_counter()
@@ -3105,7 +3300,7 @@ def run_tiago_batch(device, full=False):
     N(0, 0.02^2) on q; rows 0-7 must equal a B = 8 solve (iterations and
     convergence equal, us within the batch path's 1e-3); with `full`
     phase 9's, the same on the full Tiago-Pro (K5a/K5b at nj = 17). Returns
-    (launches of K5a/K5b, line)."""
+    (launches of K5a, K5b and R1, line)."""
     from agimus_controller_tpu_torch.ocp.spec import default_references
     from agimus_controller_tpu_torch.solver.fddp import SolverSettings
     from agimus_controller_tpu_torch.solver.fddp_batch import make_batch_fddp
@@ -3136,7 +3331,7 @@ def run_tiago_batch(device, full=False):
     _sync(device)
     big_s = time.perf_counter() - t0
     launches = {name: k.launches for (name, *_), k in
-                zip(STEP_KERNELS, solver.kernels)}
+                zip(FDDP_KERNELS, solver.kernels)}
     for field in ("xs", "us", "K", "k", "cost", "kkt", "gap_norm"):
         if not bool(torch.isfinite(getattr(big, field)).all()):
             raise AssertionError(f"{tp.label} batch: non-finite {field}")
@@ -3738,8 +3933,8 @@ def run_full_tiago_phase(device):
     """Phase 9: the full 17-DoF branched Tiago-Pro on K1-K5b's nj = 17
     instances, f32, T = `TIAGO_T`, dt 0.02: both tools' translations
     through `FusedTickRunner` (phase 7 (a)'s buffer and schedule) and
-    `make_batch_fddp` at B = `TIAGO_B` on K5a/K5b, rows 0-7 against a B = 8
-    solve. Returns (launches per kernel, lines)."""
+    `make_batch_fddp` at B = `TIAGO_B` on K5a, K5b and R1, rows 0-7 against
+    a B = 8 solve. Returns (launches per kernel, lines)."""
     launches = {name: 0 for name, *_ in KERNELS}
     lines = []
     for part in (run_tiago_tick, run_tiago_batch):
@@ -3932,7 +4127,7 @@ def run_sharded_fddp(device, mesh):
         k.launches = 0
     sol, sharded_s = _timed(device, lambda: sharded(*args))
     launches = _path_launches("(b)", solver,
-                              [name for name, *_ in STEP_KERNELS])
+                              [name for name, *_ in FDDP_KERNELS])
     ref, plain_s = _timed(device, lambda: bp.solver(*args))
     _finite("(b)", sol)
     du = _rows_agree("(b)", sol, ref)
@@ -4405,12 +4600,12 @@ def main():
 
     # -- result: launches over the paths of phases 4-9, the max error over
     # every checked spec and size; times (wrapper and bare launch) and bounds at
-    # the flagship tick shape for K1-K4 and at the batch path's shapes for
-    # K5a/K5b (no single PyTorch call computes a fused stage or a dynamics
-    # step: no library time)
+    # the flagship tick shape for K1-K4, at the batch path's shapes for
+    # K5a/K5b and at the benchmark cell's for R1 (no single PyTorch call
+    # computes a fused stage, a dynamics step or the sweep: no library time)
     kernels = []
     for name, kind, derivs, replaces in KERNELS:
-        if kind == "step":
+        if kind in ("step", "riccati"):
             per_size = step_report[name]
             r = per_size[STEP_SIZES[name]]
         else:

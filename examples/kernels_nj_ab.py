@@ -78,7 +78,7 @@ def main(reps):
         return (cs.cuda_time_ms(lambda: k(*args), reps),
                 cs.cuda_time_ms(lambda: k.launch(prepared), reps))
 
-    for name, kind, derivs, _ in cs.KERNELS:
+    for name, kind, derivs, _ in cs.STAGE_KERNELS + cs.STEP_KERNELS:
         sizes = {"stage": cs.TIAGO_STAGE_SIZES, "terminal": (1,),
                  "step": cs.TIAGO_STEP_SIZES}[kind]
         for N in sizes:
