@@ -37,7 +37,7 @@ def readings(cell, seed, seconds, device, horizon=None, batch=None,
     if check_rows is not None:
         mix["check_rows"] = check_rows
     problem = harness.build_problem(cell, device, horizon)
-    loop = make_loop(problem, mix, seed, device)
+    loop = make_loop(problem, mix, seed, device, cell.root)
     loop.setup()
     t0 = time.perf_counter()
     while loop.units == 0 or time.perf_counter() - t0 < seconds:

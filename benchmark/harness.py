@@ -3,8 +3,10 @@ the check against the reference, and the result line.
 
 Everything a cell needs is found by name from `BENCHMARK.json`: the
 configuration (`configs/<name>.json` and its URDF), the traffic mix
-(`traffic/<name>.json`), the cell's limits (`cells/<name>.json`) and one
-reader per metric (`metrics/<name>.py`, a function `read(ctx)` that returns
+(`traffic/<name>.json`) and the loop it names (`loops/<loop>.py`: the
+solver loop, the problem it solves and the check of its outputs; see
+`traffic.py`), the cell's limits (`cells/<name>.json`) and one reader per
+metric (`metrics/<name>.py`, a function `read(ctx)` that returns
 a number, or None when the run has nothing for it to read).
 """
 
@@ -18,8 +20,9 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
-import numpy as np
 import torch
+
+import traffic
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
@@ -48,7 +51,7 @@ def load_cell(name: str, root: Path = HERE, bench=None, limits=None):
     config["name"] = w["config"]
     in_cell = lambda m: name in m.get("workloads", [name])
     return SimpleNamespace(
-        name=name, entry=w, config=config,
+        name=name, entry=w, config=config, root=root,
         urdf=(root / "configs" / config["urdf"]).read_text(),
         mix=load_json(root / "traffic" / f"{w['traffic']}.json"),
         limits=(load_json(root / "cells" / f"{name}.json")["limits"]
@@ -98,90 +101,21 @@ def power_line() -> str:
 
 
 def build_problem(cell, device, horizon=None):
-    """The program's model, spec and refs for the cell's configuration,
-    and the reference's ready state, gravity torque and goals (float64,
-    from the benchmark's own kinematics), handed to the program."""
+    """The program's model, spec and refs for the cell, and the
+    reference's ready state and goals, as the cell's loop module builds
+    them (`loops/<loop>.py`, `traffic.loop_module`)."""
     if str(REPO) not in sys.path:
         sys.path.insert(1, str(REPO))  # the checkout's port, after this folder
-    from agimus_controller_tpu_torch.models.urdf import build_model_from_urdf
-    from agimus_controller_tpu_torch.ocp.spec import (
-        CostItem,
-        ProblemSpec,
-        default_references,
-    )
-
-    import reference
-
-    cfg = cell.config
-    offsets = dict(cfg["goal_offsets"])
-    offsets.update(cell.mix.get("goal_offsets", {}))
-    robot64, _, goals = reference.build(cfg, cell.urdf, offsets)
-    nj = robot64.nj
-    model, params = build_model_from_urdf(
-        cell.urdf, armature=np.array(np.broadcast_to(cfg["armature"], (nj,)),
-                                     dtype=float),
-        dtype=torch.float32, device=device)
-    if list(model.joint_names) != list(cfg["joints"]):
-        raise ValueError(f"the program's joints {model.joint_names} are not "
-                         f"the configuration's")
-    item = lambda d: CostItem(name=d["name"], kind=d["kind"],
-                              weight=d["weight"], update=d.get("update", False),
-                              frame=d.get("frame"))
-    T = cfg["horizon"] if horizon is None else horizon
-    spec = ProblemSpec(
-        running_costs=tuple(item(d) for d in cfg["running_costs"]),
-        terminal_costs=tuple(item(d) for d in cfg["terminal_costs"]),
-        horizon=T, dt=cfg["dt"])
-    q = np.asarray(cfg["q_ready"], float)
-    x_ready = np.concatenate([q, np.zeros(nj)])
-    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                  device=device)
-    refs = default_references(spec, model, dtype=torch.float32, device=device)
-    refs["xref"] = f(np.tile(x_ready[None], (T + 1, 1)))
-    for frame, (R, p) in goals.items():
-        if f"ee_rot:{frame}" in refs:
-            refs[f"ee_rot:{frame}"] = f(np.tile(R[None], (T + 1, 1, 1)))
-        refs[f"ee_trans:{frame}"] = f(np.tile(p[None], (T + 1, 1)))
-    tau = robot64.gravity_torque(torch.as_tensor(q)).numpy()
-    return SimpleNamespace(model=model, params=params, spec=spec, refs=refs,
-                           x_ready=x_ready, tau_ready=tau, goals=goals,
-                           offsets=offsets)
+    return traffic.loop_module(cell.mix["loop"], cell.root).build_problem(
+        cell, device, horizon)
 
 
 def check(cell, problem, loop, device, control=False):
-    """The numbers compared for the loop's sampled rows: the program's
-    outputs against the float64 reference, at the returned iterate and
-    against the reference's own solve from the same start and warm start.
-    With `control`, also (second) the same numbers of the control: the
-    reference's solve in float32 with TF32 products, put in the program's
-    place; else None."""
-    import reference
-    from reference.check import compare, evaluate
-    from reference.fddp import solve
-
-    rows = loop.rows()
-    xs_w, us_w = loop.warm_start(rows["x0"].shape[0])
-    settings = cell.mix["solver"]
-    dts = torch.full((problem.spec.horizon,), cell.config["dt"],
-                     dtype=torch.float64)
-    robot, costs, _ = reference.build(cell.config, cell.urdf, problem.offsets,
-                                      torch.float64, device)
-    solved = solve(robot, costs, rows["x0"], xs_w, us_w, dts, settings)
-    reg = torch.full(rows["cost"].shape, float(settings["reg_min"]),
-                     dtype=torch.float64)
-
-    def numbers(got):
-        want = evaluate(robot, costs, rows["x0"], got["xs"], got["us"], dts,
-                        reg)
-        return compare(got, want, solved)
-
-    prog = numbers(rows)
-    if not control:
-        return prog, None
-    r32, c32, _ = reference.build(cell.config, cell.urdf, problem.offsets,
-                                  torch.float32, device, tf32=True)
-    return prog, numbers(solve(r32, c32, rows["x0"], xs_w, us_w, dts,
-                               settings))
+    """The numbers compared for the loop's sampled rows, and with
+    `control` (second) the control's, else None: the cell's loop module's
+    `check`."""
+    return traffic.loop_module(cell.mix["loop"], cell.root).check(
+        cell, problem, loop, device, control)
 
 
 def judge(numbers: dict, limits: dict) -> dict:
@@ -201,7 +135,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     """One run of `cell` on `device`: returns the result line's dict.
     `horizon` and `batch` shrink the cell (tests on the host only)."""
     from metrics_context import Context
-    from traffic import make_loop
 
     device = torch.device(device)
     on_card = device.type == "cuda"
@@ -211,7 +144,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     problem = build_problem(cell, device, horizon)
     sync = (lambda: torch.cuda.synchronize(device)) if on_card else (
         lambda: None)
-    loop = make_loop(problem, mix, seed, device)
+    loop = traffic.make_loop(problem, mix, seed, device, cell.root)
     loop.setup()
     sync()
     setup_s = time.perf_counter() - t_start
@@ -226,7 +159,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         sync()
         return t0, time.perf_counter()
 
-    summary = None
+    summary = prof = None
     c0 = loop.counters()
     if trace:
         import tracing
@@ -247,12 +180,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     bad = int(loop.bad_rows)
     ctx = Context(cell=cell, loop=loop, t0=t0, t1=t1, setup_s=setup_s,
                   counters={k: c1[k] - c0.get(k, 0) for k in c1},
-                  trace=summary, sizes=dict(T=problem.spec.horizon,
-                                            B=loop.B, nj=loop.nj))
+                  trace=summary, profile=prof, sizes=loop.sizes())
     wanted = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in wanted:
-        value = reader(m["name"])(ctx)
+        value = reader(m["name"], cell.root)(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = {"platform": "gpu" if on_card else device.type,

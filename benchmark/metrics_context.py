@@ -1,9 +1,12 @@
-"""What a metric reader reads: the run's window, counters and trace."""
+"""What a metric reader reads: the run's window, counters, trace and
+profile."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import cached_property
 
+import program_spans
 import roofline
 
 
@@ -16,7 +19,14 @@ class Context:
     setup_s: float
     counters: dict = field(default_factory=dict)  # deltas over the window
     trace: object = None  # tracing.TraceSummary of a traced run
-    sizes: dict = field(default_factory=dict)  # T, B, nj
+    sizes: dict = field(default_factory=dict)  # the loop's sizes(): T, B, nj
+    profile: object = None  # the finished torch.profiler.profile, if traced
+
+    @cached_property
+    def spans(self):
+        """The program's spans in the profile (`program_spans.reduce`),
+        reduced once for all the readers of a run."""
+        return program_spans.reduce(self.profile)
 
     @property
     def unit(self) -> str:

@@ -13,16 +13,14 @@ outermost first, () outside every span; a launch whose runtime call is not
 in the trace goes to None. Busy time and idle gaps are found as
 `tracing.summarize` finds them, so the idle parts sum to its idle.
 
-The harness reduces the profile to a `tracing.TraceSummary` and calls each
-reader from `harness.run_cell`, where the profile is the local `prof`
-beside that summary (`summary`). `of_context` finds the profile there, in
-the frame whose summary is the context's trace, and reduces it once per
-run. A program without spans, or a run without a trace, reads None.
+The harness hands each reader the finished profile on the context
+(`metrics_context.Context.profile`), which reduces it once per run
+(`Context.spans`). A program without spans, or a run without a profile,
+reads None.
 """
 
 from __future__ import annotations
 
-import sys
 from bisect import bisect_right
 from dataclasses import dataclass, field
 
@@ -153,31 +151,12 @@ def reduce(prof) -> SpanSummary:
         idle_by_stack_s={k: v * 1e-9 for k, v in idle.items()})
 
 
-_LAST = []  # [(the trace summary, its SpanSummary)] of the last run reduced
-
-
-def _profile_beside(summary):
-    """The profile `prof` in the caller's frame that holds `summary`."""
-    f = sys._getframe(1)
-    while f is not None:
-        local = f.f_locals
-        if local.get("summary") is summary and "prof" in local:
-            return local["prof"]
-        f = f.f_back
-    return None
-
-
 def of_context(ctx, name: str, unit: str):
     """The run's SpanSummary where it is a traced run of the loop `unit`
     in which the program recorded the span `name`, else None."""
-    if ctx.trace is None or ctx.unit != unit:
+    if ctx.profile is None or ctx.unit != unit:
         return None
-    if not (_LAST and _LAST[0][0] is ctx.trace):
-        prof = _profile_beside(ctx.trace)
-        if prof is None:
-            return None
-        _LAST[:] = [(ctx.trace, reduce(prof))]
-    s = _LAST[0][1]
+    s = ctx.spans
     return s if name in s.spans else None
 
 

@@ -7,6 +7,7 @@ import pytest
 
 import control
 import harness
+import traffic
 from _small_cells import SEED, SMALL, load
 
 
@@ -14,5 +15,7 @@ from _small_cells import SEED, SMALL, load
 def test_tf32_control_fails_where_the_program_passes(cell):
     c = load(cell)
     prog, ctl, _ = control.readings(c, SEED, 0.01, "cpu", **SMALL[cell])
+    assert set(prog) == set(ctl) == set(
+        traffic.loop_module(c.mix["loop"]).NUMBERS)
     assert harness.passed(harness.judge(prog, c.limits)), prog
     assert not harness.passed(harness.judge(ctl, c.limits)), ctl

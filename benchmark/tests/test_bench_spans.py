@@ -123,17 +123,35 @@ def test_what_the_reduction_gave_before_is_unchanged():
     assert bare.spans == {} and bare.launches == {(): 5, None: 1}
 
 
-def _ctx(summary, units=2):
+def _ctx(summary, units=2, profile=None):
     return Context(cell=None, loop=SimpleNamespace(unit_name="solve"),
                    t0=0.0, t1=1.0, setup_s=0.0, counters={"units": units},
-                   trace=summary)
+                   trace=summary, profile=profile)
 
 
 def _read(metric, prof):
-    """`metric` as `harness.run_cell` reads it: the profile `prof` beside
-    its summary `summary` in the reader's caller."""
-    summary = tracing.summarize(prof)
-    return harness.reader(metric)(_ctx(summary))
+    """`metric` as `harness.run_cell` reads it: the profile `prof` and its
+    summary on the context."""
+    return harness.reader(metric)(_ctx(tracing.summarize(prof), profile=prof))
+
+
+def test_of_context_reduces_the_profile_on_the_context_once(monkeypatch):
+    prof = _prof(_events())
+    calls = []
+    reduce = program_spans.reduce
+    monkeypatch.setattr(program_spans, "reduce",
+                        lambda p: calls.append(p) or reduce(p))
+    ctx = _ctx(tracing.summarize(prof), profile=prof)
+    s = program_spans.of_context(ctx, "fddp.riccati", "solve")
+    assert calls == [prof]
+    assert s.launches == reduce(prof).launches
+    assert program_spans.of_context(ctx, "fddp.costs", "solve") is s
+    assert program_spans.of_context(ctx, "no.such.span", "solve") is None
+    assert program_spans.of_context(ctx, "fddp.riccati", "tick") is None
+    assert calls == [prof]  # once for the context
+    other = _ctx(tracing.summarize(prof), profile=prof)
+    assert program_spans.of_context(other, "fddp.riccati", "solve") is not s
+    assert len(calls) == 2
 
 
 def test_span_readers_per_solve():
@@ -154,7 +172,7 @@ def test_span_reader_reads_none_without_program_spans(metric):
     assert len(SPAN_METRICS) == 9
     assert _read(metric, _prof(_events(spans=False))) is None
     assert harness.reader(metric)(_ctx(None)) is None
-    # a summary with no profile beside it (not the harness's run)
+    # a traced context whose profile is None
     summary = tracing.summarize(_prof(_events()))
     assert harness.reader(metric)(_ctx(summary)) is None
 
